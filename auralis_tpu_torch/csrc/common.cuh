@@ -8,6 +8,10 @@
 
 typedef __nv_bfloat16 bf16;
 
+// int8 scales are max(max|x|, eps) x kInv127: jitted JAX folds its division
+// by the constant 127 into this multiplication (ops/quant.py)
+constexpr float kInv127 = 1.0f / 127.0f;
+
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
 template <>

@@ -6,17 +6,23 @@ non-streaming path:
   the engine's device, LRU-cached per reference;
 - token generation runs in the slot-batched decode loop (runtime/), which
   emits vocoder latents inline; with `prefill_flash` / `flash_decode` set in
-  the GPT config it goes through kernels K1 / K2 on CUDA;
+  the GPT config it goes through kernels K1 / K2 on CUDA, and with an int8
+  KV cache (`kv_int8=True`) plus `ragged_decode` in the GPT config through
+  K1 / K4. `decode_w8a8` / `prefill_w8a8` run the block matmuls W8A8 on an
+  int8 copy of the weights (`blocks_q8`), made once at construction;
 - each finished chunk's latent row is vocoded on the device (HiFi-GAN, the
   MRF stages through kernel K3 on CUDA) and shipped to the host as int16.
 
-Not ported yet (ROADMAP.md, queue 1): streaming (`stream=True` raises),
-the vocode batcher, the speculative first segment, the device-memory slot
-fit, checkpoint loading (`from_pretrained` raises) and int8 KV / W8A8.
+The JAX engine arms int8 KV and W8A8 by default only on a TPU; on any
+other backend they are off unless passed, and so they are here. Not ported
+yet (ROADMAP.md, queue 1): streaming (`stream=True` raises), the vocode
+batcher, the speculative first segment, the device-memory slot fit, the
+per-program W8A8 policy and checkpoint loading (`from_pretrained` raises).
 """
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import hashlib
 import math
 import os
@@ -38,7 +44,7 @@ from ...ops.resample import resample_np
 from ...runtime.engine_core import DecodeEngine, SamplingOptions, TokenPrompt
 from ..base import BaseAsyncTTSEngine, ConditioningConfig
 from .config import XTTSConfig, XTTSGPTConfig, tiny_test_config
-from .gpt import NOT_PORTED, check_supported
+from .gpt import quantize_decode_weights
 from .hifigan import RESBLOCK_KERNELS, hifi_decoder
 from .modules import conditioning_encoder, perceiver_resampler, speaker_encoder
 from .weights import params_from_numpy, random_init
@@ -76,15 +82,23 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         device="cpu",
         cache_dtype: torch.dtype = torch.bfloat16,
         vocoder_dtype: Optional[torch.dtype] = torch.bfloat16,
+        kv_int8: Optional[bool] = None,
+        decode_w8a8: Optional[bool] = None,
+        prefill_w8a8: Optional[bool] = None,
         conditioning_cache_size: int = 32,
         ref_length_quantum_s: float = 1.0,
         seed: int = 0,
         **kwargs,
     ):
-        check_supported(gpt_config)
-        unported = [n for n in ("kv_int8", "decode_w8a8", "prefill_w8a8") if kwargs.pop(n, None)]
-        if unported:
-            raise NotImplementedError(f"{unported}: {NOT_PORTED}")
+        # the JAX engine's non-TPU defaults: kv_int8 off unless passed (it
+        # keeps the config's value only under flash_decode), the W8A8 flags
+        # as the config has them unless passed
+        if kv_int8 is None and not gpt_config.flash_decode:
+            kv_int8 = False
+        flags = {"kv_int8": kv_int8, "decode_w8a8": decode_w8a8, "prefill_w8a8": prefill_w8a8}
+        changed = {k: v for k, v in flags.items() if v is not None and v != getattr(gpt_config, k)}
+        if changed:  # never mutate the caller's config
+            gpt_config = dataclasses.replace(gpt_config, **changed)
         if kwargs:
             logger.warning("ignoring engine options the port does not have: %s", sorted(kwargs))
         self.hifi_config = hifi_config
@@ -95,6 +109,8 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         self.mel_bos_token_id = gpt_config.start_audio_token
         self.mel_eos_token_id = gpt_config.stop_audio_token
         self.params = params
+        if (gpt_config.decode_w8a8 or gpt_config.prefill_w8a8) and "blocks_q8" not in params:
+            self.params = {**params, "blocks_q8": quantize_decode_weights(params["blocks"])}
         self.core = dict(core)
         if vocoder_dtype is not None:
             # the generator computes in its params' dtype; the MRF stages
@@ -103,7 +119,7 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         self.cache_dtype = cache_dtype
         self.decode_slots = decode_slots or max(2, 2 * max_concurrency)
         self.decode_engine = DecodeEngine(
-            params, gpt_config, num_slots=self.decode_slots, cache_dtype=cache_dtype,
+            self.params, gpt_config, num_slots=self.decode_slots, cache_dtype=cache_dtype,
             steps_per_sync=steps_per_sync, seed=seed, device=self.device)
         hifigan = self.core["hifigan"]
         self._packed_stages = pack_hifigan_mrf(
@@ -119,7 +135,9 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         return ConditioningConfig(speaker_embeddings=True, gpt_like_decoder_conditioning=True)
 
     def get_memory_usage_curve(self) -> float:
-        """Device-memory plan in GiB: weights + per-slot dense KV + latents."""
+        """Device-memory plan in GiB: weights (blocks_q8 included) + per slot
+        its KV rows as allocated (int8 rows and f32 scale rows under kv_int8)
+        and its latent row."""
         cfg = self.gpt_config
 
         def nbytes(tree) -> int:
@@ -130,7 +148,9 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
             return tree.numel() * tree.element_size() if torch.is_tensor(tree) else 0
 
         weights = nbytes(self.params) + nbytes(self.core)
-        slot = self.decode_engine.state.cache.k[:, 0].numel() * 2 * self.decode_engine.state.cache.k.element_size()
+        cache = self.decode_engine.state.cache
+        slot = sum(t[:, 0].numel() * t.element_size()
+                   for t in (cache.k, cache.v, cache.k_scale, cache.v_scale) if t is not None)
         slot += cfg.max_audio_tokens * cfg.hidden_size * 4
         self.max_gb_for_model = (weights + slot * self.decode_slots) / 1024**3
         logger.info("memory plan: %.2f GiB (weights %.2f GiB + %d slots x %.1f MiB)",

@@ -1,21 +1,28 @@
 """The XTTS audio-token GPT as plain torch functions on a parameter dict.
 
-Counterpart of auralis_tpu/models/xttsv2/gpt.py, dense bf16/f32 path. The
-parameter dict has the JAX package's keys and layouts (per-layer tensors
-stacked on a leading [L] axis, dense weights [Din, Dout]), and the sequence
-semantics are the same: prompt = `[cond ⊕ text] + embed(start_audio)`;
-generated token i gets `wte[tok] + wpe[i]`; logits =
-`mel_head(final_norm(ln_f(h)))`; vocoder latent =
-`final_norm(final_norm(ln_f(h)))` (the reference's double final_norm).
+Counterpart of auralis_tpu/models/xttsv2/gpt.py. The parameter dict has the
+JAX package's keys and layouts (per-layer tensors stacked on a leading [L]
+axis, dense weights [Din, Dout], the int8 copy of the four block matmul
+weights under `blocks_q8`), and the sequence semantics are the same:
+prompt = `[cond ⊕ text] + embed(start_audio)`; generated token i gets
+`wte[tok] + wpe[i]`; logits = `mel_head(final_norm(ln_f(h)))`; vocoder
+latent = `final_norm(final_norm(ln_f(h)))` (the reference's double
+final_norm).
 
 Differences from the JAX module:
-- the KV cache is updated IN PLACE (the JAX functions return a new cache);
+- the KV cache (and its scale rows) is updated IN PLACE (the JAX functions
+  return a new cache);
 - layers run as a Python loop (what `unroll_layers` asked XLA for);
 - `prefill_flash` routes prefill attention through kernel K1
-  (ops/prefill_attention.py) and `flash_decode` routes decode attention
-  through kernel K2 (ops/experimental/attention.py); otherwise the dense
-  masked bodies below run;
-- int8 KV, W8A8 and the batched prefill are not ported yet and raise.
+  (ops/prefill_attention.py), `flash_decode` routes decode attention through
+  kernel K2 and `kv_int8` + `ragged_decode` through kernel K4
+  (ops/experimental/attention.py); otherwise the dense masked bodies below
+  run, in the cache dtype or, under `kv_int8`, on int8 rows with per-token
+  scales;
+- the int8 x int8 products that XLA runs as int32 dots are `torch._int_mm`
+  (ops/quant.py) for the W8A8 matmuls and exact f32/f64 sums of integers in
+  the dense int8 attention body;
+- the batched prefill is not ported yet.
 """
 from __future__ import annotations
 
@@ -25,31 +32,28 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from ...ops.experimental.attention import CHUNK, flash_decode_append_attention
-from ...ops.prefill_attention import prefill_flash_attention
-from .config import XTTSGPTConfig
-
-NOT_PORTED = (
-    "int8 KV / W8A8 are not ported yet (ROADMAP.md, queue 1: 'int8 KV and W8A8 "
-    "with K4/K5')"
+from ...ops.experimental.attention import (
+    CHUNK,
+    flash_decode_append_attention,
+    ragged_decode_attention,
 )
-
-
-def check_supported(cfg: XTTSGPTConfig) -> None:
-    """Refuse config flags whose code paths the port does not have yet."""
-    on = [f for f in ("kv_int8", "ragged_decode", "decode_w8a8", "prefill_w8a8")
-          if getattr(cfg, f)]
-    if on:
-        raise NotImplementedError(f"{on}: {NOT_PORTED}")
+from ...ops.prefill_attention import prefill_flash_attention
+from ...ops.quant import int8_mm, int8_weight
+from ...ops.quant import quantize_rows as _quantize_rows
+from .config import XTTSGPTConfig
 
 
 @dataclass
 class KVCache:
     """Dense slot-batched KV cache: k/v are [L, S, T_pad, H*Dh], heads flat
-    in the minor dimension (the JAX layout), T padded to the 256-row chunk."""
+    in the minor dimension (the JAX layout), T padded to the 256-row chunk.
+    With cfg.kv_int8 k/v are int8 and `k_scale`/`v_scale` hold the
+    per-(layer, slot, token) f32 dequantisation scales [L, S, T_pad]."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
 
     @property
     def num_slots(self) -> int:
@@ -59,14 +63,56 @@ class KVCache:
     def max_len(self) -> int:
         return self.k.shape[2]
 
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
 
 def make_kv_cache(cfg: XTTSGPTConfig, num_slots: int, dtype=torch.bfloat16,
                   device="cpu") -> KVCache:
-    check_supported(cfg)
+    """Zeroed cache in `dtype`; under cfg.kv_int8 int8 rows with scales
+    initialised to ones (`dtype` is then unused)."""
     t_pad = -(-cfg.max_seq_len // CHUNK) * CHUNK
     shape = (cfg.num_hidden_layers, num_slots, t_pad, cfg.num_attention_heads * cfg.head_dim)
+    if cfg.ragged_decode and not cfg.kv_int8:
+        raise ValueError("ragged_decode composes with (requires) kv_int8")
+    if cfg.kv_int8:
+        if cfg.flash_decode:
+            raise ValueError("kv_int8 and flash_decode are exclusive")
+        return KVCache(torch.zeros(shape, dtype=torch.int8, device=device),
+                       torch.zeros(shape, dtype=torch.int8, device=device),
+                       torch.ones(shape[:3], dtype=torch.float32, device=device),
+                       torch.ones(shape[:3], dtype=torch.float32, device=device))
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
+
+
+# ------------------------------------------------- int8 decode weights (W8A8)
+
+
+def quantize_decode_weights(blocks: dict) -> dict:
+    """Per-(layer, output-channel) symmetric int8 quantisation of the four
+    block matmul weights [L, Din, Dout]: the `blocks_q8` dict that the W8A8
+    matmuls of `gpt_prefill` (cfg.prefill_w8a8) and `gpt_decode_step`
+    (cfg.decode_w8a8) read. Bit-equal to the JAX function under jit; the
+    int8 weights are laid out by `int8_weight` (same values, faster GEMM)."""
+    out = {}
+    for name in ("attn_w", "attn_proj_w", "fc_w", "fc_proj_w"):
+        w = blocks[name].float()
+        s = torch.clamp(w.abs().amax(dim=1), min=1e-8) * (1.0 / 127.0)  # [L, Dout], see quant.py
+        out[name + "_q"] = int8_weight(torch.round(w / s[:, None, :]).to(torch.int8))
+        out[name + "_s"] = s
+    return out
+
+
+def _dot_w8a8(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+              b: torch.Tensor) -> torch.Tensor:
+    """x [S, Din] (bf16/f32) @ int8 weight [Din, Dout] with per-output-channel
+    scales [Dout]: per-row activation quantisation, exact int32 product,
+    rescale and bias in f32, result in x's dtype."""
+    xq, xs = _quantize_rows(x)
+    # int32 * f32 promotes to f32 as .float() would; the bias joins in f32
+    return torch.mul(int8_mm(xq, wq), xs[:, None]).mul_(ws).add_(b).to(x.dtype)
 
 
 # -------------------------------------------------------------------- math
@@ -80,11 +126,14 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 def _dot(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
-    """x [.., Din] @ w [Din, Dout] (+ b), f32 accumulate, result in x's dtype."""
+    """x [.., Din] @ w [Din, Dout] (+ b) in the promoted dtype of x and w (as
+    jnp.dot promotes bf16 activations against f32 weights), result in x's
+    dtype."""
+    dt = torch.promote_types(x.dtype, w.dtype)
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    y = torch.mm(x2, w.to(x.dtype)) if b is None else torch.addmm(b.to(x.dtype), x2, w.to(x.dtype))
-    return y.reshape(*lead, w.shape[-1])
+    x2 = x.reshape(-1, x.shape[-1]).to(dt)
+    y = torch.mm(x2, w.to(dt)) if b is None else torch.addmm(b.to(dt), x2, w.to(dt))
+    return y.reshape(*lead, w.shape[-1]).to(x.dtype)
 
 
 def _gelu(y: torch.Tensor) -> torch.Tensor:
@@ -111,10 +160,21 @@ def heads(params: dict, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return logits, latent
 
 
-def _mlp(bp: dict, layer: int, x: torch.Tensor) -> torch.Tensor:
+def _mm(params: dict, layer: int, name: str, x: torch.Tensor, w8: bool) -> torch.Tensor:
+    """x [T, Din] @ blocks[name][layer] + its bias; W8A8 against blocks_q8
+    when `w8`."""
+    bias = params["blocks"][name[:-2] + "_b"][layer]
+    if w8:
+        bq = params["blocks_q8"]
+        return _dot_w8a8(x, bq[name + "_q"][layer], bq[name + "_s"][layer], bias)
+    return _dot(x, params["blocks"][name][layer], bias)
+
+
+def _mlp(params: dict, layer: int, x: torch.Tensor, w8: bool) -> torch.Tensor:
+    bp = params["blocks"]
     xn = layer_norm(x, bp["ln2_scale"][layer], bp["ln2_bias"][layer])
-    y = _gelu(_dot(xn, bp["fc_w"][layer], bp["fc_b"][layer]))
-    return x + _dot(y, bp["fc_proj_w"][layer], bp["fc_proj_b"][layer])
+    y = _gelu(_mm(params, layer, "fc_w", xn, w8))
+    return x + _mm(params, layer, "fc_proj_w", y, w8)
 
 
 # ----------------------------------------------------------------- prefill
@@ -124,19 +184,21 @@ def _mlp(bp: dict, layer: int, x: torch.Tensor) -> torch.Tensor:
 def gpt_prefill(params: dict, cfg: XTTSGPTConfig, embeds: torch.Tensor, length: int,
                 slot: int, cache: KVCache) -> torch.Tensor:
     """Run the prompt `embeds` [T_pad, D] (zero-padded past `length`) through
-    all layers, write its K/V rows into cache[:, slot, :T_pad] IN PLACE, and
-    return the last real position's hidden state (pre-ln_f) [D]."""
-    check_supported(cfg)
+    all layers, write its K/V rows (int8 + scales under cfg.kv_int8) into
+    cache[:, slot, :T_pad] IN PLACE, and return the last real position's
+    hidden state (pre-ln_f) [D]. With cfg.prefill_w8a8 and `blocks_q8` in
+    params the four matmuls run W8A8."""
     t_pad, d = embeds.shape
     nh, hd = cfg.num_attention_heads, cfg.head_dim
     bp = params["blocks"]
+    w8 = cfg.prefill_w8a8 and "blocks_q8" in params
     x = embeds
     if not cfg.prefill_flash:
         pos = torch.arange(t_pad, device=x.device)
         mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] < length)
     for layer in range(cfg.num_hidden_layers):
         xn = layer_norm(x, bp["ln1_scale"][layer], bp["ln1_bias"][layer])
-        qkv = _dot(xn, bp["attn_w"][layer], bp["attn_b"][layer])  # [T, 3D]
+        qkv = _mm(params, layer, "attn_w", xn, w8)  # [T, 3D]
         q, k, v = (t.view(t_pad, nh, hd) for t in qkv.split(d, dim=-1))
         if cfg.prefill_flash:
             ctx = prefill_flash_attention(q, k, v, length)  # [T, H, Dh] f32
@@ -146,14 +208,53 @@ def gpt_prefill(params: dict, cfg: XTTSGPTConfig, embeds: torch.Tensor, length: 
             probs = torch.softmax(scores, dim=-1).to(x.dtype)
             ctx = torch.einsum("hqk,khd->qhd", probs.float(), v.float())
         ctx = ctx.reshape(t_pad, d).to(x.dtype)
-        x = x + _dot(ctx, bp["attn_proj_w"][layer], bp["attn_proj_b"][layer])
-        x = _mlp(bp, layer, x)
-        cache.k[layer, slot, :t_pad] = k.reshape(t_pad, d).to(cache.k.dtype)
-        cache.v[layer, slot, :t_pad] = v.reshape(t_pad, d).to(cache.v.dtype)
+        x = x + _mm(params, layer, "attn_proj_w", ctx, w8)
+        x = _mlp(params, layer, x, w8)
+        k_rows, v_rows = k.reshape(t_pad, d), v.reshape(t_pad, d)
+        if cfg.kv_int8:
+            k_rows, cache.k_scale[layer, slot, :t_pad] = _quantize_rows(k_rows)
+            v_rows, cache.v_scale[layer, slot, :t_pad] = _quantize_rows(v_rows)
+        cache.k[layer, slot, :t_pad] = k_rows.to(cache.k.dtype)
+        cache.v[layer, slot, :t_pad] = v_rows.to(cache.v.dtype)
     return x[length - 1]
 
 
 # ------------------------------------------------------------- decode step
+
+
+def _int8_attention(cfg: XTTSGPTConfig, cache: KVCache, layer: int, q: torch.Tensor,
+                    k: torch.Tensor, v: torch.Tensor, lens: torch.Tensor,
+                    live: torch.Tensor) -> torch.Tensor:
+    """The dense int8 body of the JAX decode step (gpt.py:505-573): scatter
+    this step's quantised rows and scales, int8 scores x k-scale x q-scale,
+    masked f32 softmax, and the context either from bf16 probabilities
+    (cfg.decode_attn_fp) or from probabilities requantised per (slot, head).
+    Returns ctx [S, H, Dh] f32."""
+    s = q.shape[0]
+    nh, hd, t = cfg.num_attention_heads, cfg.head_dim, cache.max_len
+    slot_idx = torch.arange(s, device=q.device)
+    for rows, scales, new in ((cache.k, cache.k_scale, k), (cache.v, cache.v_scale, v)):
+        rows[layer, slot_idx, lens], scales[layer, slot_idx, lens] = _quantize_rows(new)
+    k_all = cache.k[layer, :s].view(s, t, nh, hd)
+    v_all = cache.v[layer, :s].view(s, t, nh, hd)
+    k_sc, v_sc = cache.k_scale[layer, :s], cache.v_scale[layer, :s]  # [S, T]
+    # q per (slot, head): the head with the smallest keys keeps its precision
+    q_i8, q_s = _quantize_rows(q.reshape(s, nh, hd))  # [S, H, Dh], [S, H]
+    # each score sums 64 products of magnitude <= 127^2: an integer below
+    # 2^24, so the f32 sum is exact (the int32 dot's value) in any order
+    scores_i = torch.einsum("sthd,shd->sht", k_all.float(), q_i8.float())
+    scores = scores_i * k_sc[:, None, :] * (q_s * (1.0 / math.sqrt(hd)))[:, :, None]
+    scores = scores.masked_fill(~live[:, None, :], torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1)
+    pf = probs * v_sc[:, None, :]  # V's dequant scales folded into the probabilities
+    if cfg.decode_attn_fp:
+        # bf16 probabilities against V converted to bf16 (int8 values are
+        # exact in bf16), f32 accumulation
+        return torch.einsum("sht,sthd->shd", pf.to(torch.bfloat16).float(), v_all.float())
+    p_i8, p_s = _quantize_rows(pf, eps=1e-20)  # [S, H, T], [S, H]
+    # up to T x 127^2 per sum: beyond f32's exact integers, exact in f64
+    ctx_i = torch.einsum("sht,sthd->shd", p_i8.double(), v_all.double())
+    return ctx_i.float() * p_s[:, :, None]
 
 
 @torch.no_grad()
@@ -162,14 +263,18 @@ def gpt_decode_step(params: dict, cfg: XTTSGPTConfig, tokens: torch.Tensor,
                     cache: KVCache) -> torch.Tensor:
     """One decode step for every slot: tokens/audio_pos/seq_lens [S] int32.
     Appends this step's K/V at `seq_lens` IN PLACE and returns the hidden
-    state (pre-ln_f) [S, D]."""
-    check_supported(cfg)
+    state (pre-ln_f) [S, D]. Activations are bf16 under cfg.kv_int8, else
+    in the cache dtype; with cfg.decode_w8a8 and `blocks_q8` in params the
+    four matmuls run W8A8."""
     s = tokens.shape[0]
     d, nh, hd = cfg.hidden_size, cfg.num_attention_heads, cfg.head_dim
+    scale = 1.0 / math.sqrt(hd)
     bp = params["blocks"]
+    w8 = cfg.decode_w8a8 and "blocks_q8" in params
     pos = torch.clamp(audio_pos.long(), 0, cfg.audio_position_table - 1)
-    x = (params["wte"][tokens.long()] + params["wpe"][pos]).to(cache.k.dtype)
-    if not cfg.flash_decode:
+    x = (params["wte"][tokens.long()] + params["wpe"][pos]).to(
+        torch.bfloat16 if cfg.kv_int8 else cache.k.dtype)
+    if not (cfg.flash_decode or cfg.ragged_decode):
         slot_idx = torch.arange(s, device=x.device)
         lens = seq_lens.long()
         live = torch.arange(cache.max_len, device=x.device)[None, :] <= lens[:, None]
@@ -177,11 +282,17 @@ def gpt_decode_step(params: dict, cfg: XTTSGPTConfig, tokens: torch.Tensor,
                   == torch.arange(nh, device=x.device)[None, :]).float()  # [HD, H]
     for layer in range(cfg.num_hidden_layers):
         xn = layer_norm(x, bp["ln1_scale"][layer], bp["ln1_bias"][layer])
-        qkv = _dot(xn, bp["attn_w"][layer], bp["attn_b"][layer])
+        qkv = _mm(params, layer, "attn_w", xn, w8)
         q, k, v = qkv.split(d, dim=-1)  # each [S, D]
         if cfg.flash_decode:
             ctx = flash_decode_append_attention(
                 q.reshape(s, nh, hd), k, v, cache.k, cache.v, layer, seq_lens)
+        elif cfg.kv_int8 and cfg.ragged_decode:
+            ctx = ragged_decode_attention(
+                q.reshape(s, nh, hd), k, v, scale, layer, seq_lens, cache.k, cache.v,
+                cache.k_scale, cache.v_scale)
+        elif cfg.kv_int8:
+            ctx = _int8_attention(cfg, cache, layer, q, k, v, lens, live)
         else:
             # the dense body of the JAX decode step (gpt.py:574-605): scatter
             # the new rows, then masked softmax over the flat [T, H*Dh] cache
@@ -189,7 +300,7 @@ def gpt_decode_step(params: dict, cfg: XTTSGPTConfig, tokens: torch.Tensor,
             cache.v[layer, slot_idx, lens] = v.to(cache.v.dtype)
             k_all = cache.k[layer, :s].float()  # [S, T, HD]
             v_all = cache.v[layer, :s].float()
-            qmat = (q.float() * (1.0 / math.sqrt(hd)))[:, :, None] * onehot[None]  # [S, HD, H]
+            qmat = (q.float() * scale)[:, :, None] * onehot[None]  # [S, HD, H]
             qmat = qmat.to(cache.k.dtype).float()
             scores = torch.einsum("stc,sch->sht", k_all, qmat)
             scores = scores.masked_fill(~live[:, None, :], torch.finfo(torch.float32).min)
@@ -197,8 +308,8 @@ def gpt_decode_step(params: dict, cfg: XTTSGPTConfig, tokens: torch.Tensor,
             ctx_full = torch.einsum("sht,stc->shc", probs, v_all)  # [S, H, HD]
             ctx = (ctx_full * onehot.T[None]).sum(dim=1)
         ctx = ctx.reshape(s, d).to(x.dtype)
-        x = x + _dot(ctx, bp["attn_proj_w"][layer], bp["attn_proj_b"][layer])
-        x = _mlp(bp, layer, x)
+        x = x + _mm(params, layer, "attn_proj_w", ctx, w8)
+        x = _mlp(params, layer, x, w8)
     return x
 
 

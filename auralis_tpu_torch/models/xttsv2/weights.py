@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...ops.quant import int8_weight
 from .config import XTTSConfig, XTTSGPTConfig
 from .hifigan import RESBLOCK_DILATIONS, RESBLOCK_KERNELS, UPSAMPLE_KERNELS
 
@@ -224,5 +225,13 @@ def params_from_numpy(gpt: dict, core: dict, device="cpu",
                       dtype: torch.dtype = torch.float32) -> tuple[dict, dict]:
     """JAX-layout numpy pytrees -> (GPT params in `dtype`, core params in
     float32) as torch tensors on `device`. The engine casts the vocoder to
-    its own dtype."""
-    return tree_to_torch(gpt, device, dtype), tree_to_torch(core, device, torch.float32)
+    its own dtype. A `blocks_q8` entry (gpt.quantize_decode_weights) keeps
+    its types: int8 weights (laid out by `int8_weight`) and f32 scales, as
+    in JAX."""
+    gpt = dict(gpt)
+    blocks_q8 = gpt.pop("blocks_q8", None)
+    params = tree_to_torch(gpt, device, dtype)
+    if blocks_q8 is not None:
+        params["blocks_q8"] = {k: int8_weight(v) if k.endswith("_q") else v
+                               for k, v in tree_to_torch(blocks_q8, device).items()}
+    return params, tree_to_torch(core, device, torch.float32)

@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels (auralis_tpu_torch/csrc/*.cu).
 
-The sources are compiled by `nvcc` for sm_90a into ONE shared library with a
-plain C interface and loaded with ctypes: no PyTorch headers, so a build
-takes seconds. The library lands in `auralis_tpu_torch/_build/`, named by a
+The sources are compiled by `nvcc` for sm_90a, one process per source, all
+started together, and linked into ONE shared library with a plain C
+interface, loaded with ctypes: no PyTorch headers, so a build takes
+seconds. The library lands in `auralis_tpu_torch/_build/`, named by a
 hash of the sources and flags, on first use; later calls in any process
 reuse it. A failed build raises: nothing falls back to the plain versions.
 
@@ -24,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +38,12 @@ SIGNATURES = {
     # q, k_new, v_new, k_cache, v_cache, write_pos, ctx,
     # S, H, T, layer, scale, is_bf16 (q, rows and caches), stream
     "flash_decode_append": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # q, k_new, v_new (bf16), k_cache, v_cache, k_scale, v_scale, write_pos, ctx,
+    # S, H, T, layer, attn_scale, stream
+    "ragged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # x (bf16), fc_wq, fc_ws, fc_b, proj_wq, proj_ws, proj_b, g, part, out (bf16),
+    # S, D, I, tile_i, stream
+    "fused_mlp_w8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # src, w, b, out, B, T, C, K, dilation, is_bf16, src_is_f32, stream
     "mrf_conv_lrelu": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # act, res, w, b, y, acc, out, B, T, C, K, dilation, is_bf16, res_is_f32,
@@ -86,16 +93,7 @@ def library() -> ctypes.CDLL:
         so = BUILD_DIR / f"libauralis_kernels_{_digest()}.so"
         if not so.exists():
             t0 = time.perf_counter()
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                   *map(str, sources())]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                    f"{proc.stdout}\n{proc.stderr}"
-                )
-            os.replace(tmp, so)
+            _build(so)
             build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(so))
         for name, argtypes in SIGNATURES.items():
@@ -104,6 +102,35 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
+
+
+def _build(so: Path) -> None:
+    """Compile every source to an object file in parallel, then link `so`."""
+    work = so.with_name(f"{so.stem}.{os.getpid()}.objs")
+    work.mkdir(exist_ok=True)
+    nvcc = _nvcc()
+    jobs = []
+    for src in sources():
+        cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+               str(work / f"{src.stem}.o"), str(src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                           text=True)))
+    failed = []
+    for cmd, proc in jobs:  # wait for every compiler before reporting any failure
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}\n{err}")
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *(str(work / f"{src.stem}.o")
+                                                               for src in sources())]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    shutil.rmtree(work, ignore_errors=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    os.replace(tmp, so)
 
 
 def check(code: int, name: str) -> None:

@@ -1,2 +1,2 @@
-"""Decode-attention kernel of the port (the JAX package keeps its Pallas
-counterpart under the same path)."""
+"""Decode-attention kernels K2/K4 and the fused W8A8 MLP K5 of the port (the
+JAX package keeps their Pallas counterparts under the same paths)."""

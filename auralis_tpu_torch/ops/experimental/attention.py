@@ -1,10 +1,17 @@
-"""Decode attention with in-place K/V append on the slot cache (kernel K2).
+"""Decode attention with in-place K/V append on the slot cache: kernels K2
+(bf16/f32 cache) and K4 (int8 cache with per-token scales).
 
-Replaces the Pallas kernel `flash_decode_append_attention`
+K2 replaces the Pallas kernel `flash_decode_append_attention`
 (auralis_tpu/ops/experimental/attention.py:151, body `_kernel` :34): for each
 slot it writes this step's K/V row at `write_pos[s]` of `layer`, in place,
 then runs online-softmax attention (f32 m/l/acc) over that slot's
 `write_pos + 1` live keys only.
+
+K4 replaces `ragged_decode_attention` (:436, body `_ragged_kernel` :245):
+the same append and live-length attention on the int8 cache. The new rows
+are quantised per slot over all H*D lanes, q per (slot, head); scores are
+int8 x int8 dot products scaled by the key's and the query's scale; the
+context sums p x v_scale x v_int8 in f32 (csrc/ragged_decode.cu).
 
 On the H100 (csrc/flash_decode.cu) one block runs per (slot, head); each
 block appends only its own head's 64-lane slice, so the append needs no
@@ -19,6 +26,7 @@ import math
 import torch
 
 from .. import _build
+from ..quant import quantize_rows
 
 CHUNK = 256  # the cache's T dim is padded to a multiple of this (see gpt.make_kv_cache)
 
@@ -102,3 +110,93 @@ def flash_decode_append_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: t
 
 
 flash_decode_append_attention.launches = 0
+
+
+def ragged_decode_plain(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                        attn_scale: float, layer: int, write_pos: torch.Tensor,
+                        k_cache: torch.Tensor, v_cache: torch.Tensor, k_scale: torch.Tensor,
+                        v_scale: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K4's math: quantise the new rows (per slot
+    over H*D lanes) and q (per slot and head), index-put the int8 rows and
+    their scales (in place), then f32 softmax over the `write_pos + 1` live
+    keys of int8 scores x k-scale x (q-scale x attn_scale), with the context
+    sum(p x v_scale x v_int8) / max(sum p, 1e-9). Returns ctx [S, H*D] f32.
+    A write position outside [0, T) raises, as the kernel traps."""
+    s, h, d = q.shape
+    t = k_cache.shape[2]
+    slots = torch.arange(s, device=q.device)
+    wp = torch.where(write_pos < 0, t, write_pos).long()  # see flash_decode_plain
+    for rows, scales, new in ((k_cache, k_scale, k_new), (v_cache, v_scale, v_new)):
+        rows[layer, slots, wp], scales[layer, slots, wp] = quantize_rows(new)
+    q_i8, q_s = quantize_rows(q)  # [S, H, D], [S, H]
+    kh = k_cache[layer, :s].float().reshape(s, t, h, d)
+    vh = v_cache[layer, :s].float().reshape(s, t, h, d)
+    # integer scores (exact in f32: 64 products of magnitude <= 127^2)
+    scores = torch.einsum("shd,sthd->sht", q_i8.float(), kh)
+    logits = scores * k_scale[layer, :s][:, None, :] * (q_s * attn_scale)[:, :, None]
+    live = torch.arange(t, device=q.device)[None, :] <= wp[:, None]
+    logits = logits.masked_fill(~live[:, None, :], float("-inf"))
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    acc = torch.einsum("sht,sthd->shd", p * v_scale[layer, :s][:, None, :], vh)
+    return (acc / torch.clamp(p.sum(dim=-1), min=1e-9)[:, :, None]).reshape(s, h * d)
+
+
+def ragged_decode_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                            attn_scale: float, layer: int, write_pos: torch.Tensor,
+                            k_cache: torch.Tensor, v_cache: torch.Tensor,
+                            k_scale: torch.Tensor, v_scale: torch.Tensor) -> torch.Tensor:
+    """q [S, H, D] and k_new/v_new [S, H*D] (before quantisation); int8
+    caches [L, S, T, H*D] and f32 scales [L, S, T] (updated in place);
+    write_pos [S] int32 (= keys already cached = append index), each in
+    [0, T). Returns ctx [S, H*D] f32.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise. The kernel takes bf16 q and rows (the int8 decode path's
+    activation dtype) and quantises them itself, with results bit-equal to
+    `quantize_rows`. An out-of-range position traps the kernel
+    (no host sync here), and the next synchronising call raises. Unlike the
+    JAX function, the caches are mutated in place and not returned."""
+    if not q.is_cuda:
+        return ragged_decode_plain(q, k_new, v_new, attn_scale, layer, write_pos,
+                                   k_cache, v_cache, k_scale, v_scale)
+    _build.require_cuda(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, write_pos)
+    s, h, d = q.shape
+    n_layers, n_slots, t, hd = k_cache.shape
+    if d != 64 or hd != h * d:
+        raise ValueError(f"K4 needs head_dim 64 and H*D lanes; got {q.shape}, {k_cache.shape}")
+    if k_cache.dtype != torch.int8 or v_cache.shape != k_cache.shape or v_cache.dtype != torch.int8:
+        raise ValueError("K4 needs int8 k_cache and v_cache of one shape")
+    for sc in (k_scale, v_scale):
+        if sc.dtype != torch.float32 or sc.shape != k_cache.shape[:3]:
+            raise ValueError(f"scales must be f32 {tuple(k_cache.shape[:3])}, got {sc.dtype} "
+                             f"{tuple(sc.shape)}")
+    if not all(x.is_contiguous() for x in (k_cache, v_cache, k_scale, v_scale)):
+        raise ValueError("caches and scales must be contiguous (they are updated in place)")
+    if t % CHUNK:
+        raise ValueError(f"cache T dim ({t}) must be a multiple of {CHUNK}")
+    if s != n_slots or not 0 <= layer < n_layers:
+        raise ValueError(f"slots {s} / layer {layer} outside cache {tuple(k_cache.shape)}")
+    if not q.dtype == k_new.dtype == v_new.dtype == torch.bfloat16:
+        raise ValueError(f"K4 takes bf16 q and rows, got {q.dtype}, {k_new.dtype}, {v_new.dtype}")
+    if write_pos.dtype != torch.int32 or write_pos.shape != (s,):
+        raise ValueError("write_pos must be int32 [S]")
+    q = q.contiguous()
+    k_new = k_new.contiguous()
+    v_new = v_new.contiguous()
+    write_pos = write_pos.contiguous()
+    ctx = torch.empty((s, hd), dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    _build.check(
+        lib.ragged_decode(
+            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
+            v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), write_pos.data_ptr(),
+            ctx.data_ptr(), n_slots, h, t, int(layer), float(attn_scale),
+            _build.stream_ptr(q.device),
+        ),
+        "ragged_decode",
+    )
+    ragged_decode_attention.launches += 1
+    return ctx
+
+
+ragged_decode_attention.launches = 0

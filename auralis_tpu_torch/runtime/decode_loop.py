@@ -11,8 +11,9 @@ dataclass of device tensors that every function below updates IN PLACE
 state's torch.Generator unless a caller injects it.
 
 Ported: the single insert (`_insert_body`), N-step decode blocks without
-`len_bound`/`slot_bound` (kernel K2 reads only live rows), status packing,
-release and harvest. Not ported yet: batched inserts and slot migration.
+`len_bound`/`slot_bound` (kernels K2 and K4 read only live rows), status
+packing, release and harvest, with a bf16/f32 or an int8 KV cache. Not
+ported yet: batched inserts and slot migration.
 """
 from __future__ import annotations
 
@@ -167,8 +168,10 @@ def insert_sequence_tokens(params: dict, cfg: XTTSGPTConfig, state: DecodeState,
                            repetition_penalty: float, do_sample: bool, max_new: int = 0,
                            gumbel: torch.Tensor | None = None) -> None:
     """Assemble the prompt from device conditioning latents [C, D] and padded
-    text ids [Tb] (bos/eos included, n_ids real), then insert it."""
-    embeds = _assemble_prompt(params, cfg, cond, ids, n_ids).to(state.cache.k.dtype)
+    text ids [Tb] (bos/eos included, n_ids real), then insert it. The prompt
+    is in the cache dtype, or bf16 under cfg.kv_int8 (the activation dtype)."""
+    embeds = _assemble_prompt(params, cfg, cond, ids, n_ids).to(
+        torch.bfloat16 if cfg.kv_int8 else state.cache.k.dtype)
     length = cond.shape[0] + n_ids + 1
     insert_sequence(params, cfg, state, embeds, length, slot, temperature, top_p, top_k,
                     repetition_penalty, do_sample, max_new, gumbel=gumbel)

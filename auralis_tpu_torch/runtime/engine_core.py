@@ -13,8 +13,9 @@ one prefill, through kernel K1 under `prefill_flash`); decode blocks of
 vector); harvest of finished slots; cancellation that releases the slot.
 Device work runs in a worker thread (`asyncio.to_thread`), so the event loop
 keeps serving other coroutines while a block is on the card. Not ported yet:
-burst inserts, slot compaction/bucketing, young/steady block sizes, stream
-snapshots and precompile.
+burst inserts, slot compaction/bucketing, young/steady block sizes, the
+per-program W8A8 policy (`w8a8_policy`: it keys on the length and slot
+bounds that slot bucketing brings), stream snapshots and precompile.
 """
 from __future__ import annotations
 

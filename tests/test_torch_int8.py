@@ -1,0 +1,469 @@
+"""The int8 decode path of the torch port against the JAX package on CPU:
+int8 row quantisation and W8A8 weights, the W8A8 matmul, prefill and decode
+on an int8 KV cache (dense body, both attention variants, with and without
+W8A8), kernel K4's and K5's plain versions against their Pallas kernels in
+interpret mode, the weight converter, the config guards, and the tiny-config
+engine with every int8 flag on. Inputs are numpy arrays from a seed; each
+tolerance is stated where it is asserted."""
+import dataclasses
+import math
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from helpers import build_tiny_engine, sine_wav
+
+from auralis_tpu.models.xttsv2 import gpt as jgpt
+from auralis_tpu.models.xttsv2.config import tiny_test_config as jax_tiny
+from auralis_tpu.ops.experimental.attention import CHUNK
+from auralis_tpu.ops.experimental.attention import ragged_decode_attention as jax_ragged
+from auralis_tpu.ops.experimental.fused_mlp import fused_mlp_w8 as jax_fused_mlp
+from auralis_tpu.runtime import decode_loop as jloop
+from auralis_tpu_torch import TTS, TTSRequest
+from auralis_tpu_torch.frontend.tokenizer import TTSTokenizer
+from auralis_tpu_torch.models.xttsv2 import gpt as tgpt
+from auralis_tpu_torch.models.xttsv2 import weights as tw
+from auralis_tpu_torch.models.xttsv2.config import tiny_test_config as torch_tiny
+from auralis_tpu_torch.models.xttsv2.engine import XTTSv2Engine
+from auralis_tpu_torch.ops.experimental.attention import ragged_decode_attention
+from auralis_tpu_torch.ops.experimental.fused_mlp import (
+    fused_mlp_w8,
+    fused_mlp_w8_plain,
+    mlp_w8_reference,
+)
+from auralis_tpu_torch.runtime import decode_loop as tloop
+
+Q8_NAMES = ("attn_w", "attn_proj_w", "fc_w", "fc_proj_w")
+
+
+def snr_db(ref, got) -> float:
+    ref, got = np.asarray(ref, np.float64), np.asarray(got, np.float64)
+    err = np.sum((got - ref) ** 2)
+    return math.inf if err == 0 else 10 * np.log10(np.sum(ref ** 2) / err)
+
+
+def _params(seed=0):
+    """Tiny GPT params (f32) with non-trivial LayerNorm scales and biases."""
+    p = tw.init_gpt_params(torch_tiny().gpt, seed)
+    rng = np.random.default_rng(seed + 100)
+    for name, arr in p["blocks"].items():
+        if not name.endswith("_w"):
+            base = 1.0 if name.endswith("scale") else 0.0
+            p["blocks"][name] = (base + 0.05 * rng.standard_normal(arr.shape)).astype(np.float32)
+    return p
+
+
+def _both(p):
+    """The same numpy params in JAX and in torch, each with its own package's
+    blocks_q8."""
+    jp = jax.tree.map(jnp.asarray, p)
+    jp["blocks_q8"] = jax.jit(jgpt.quantize_decode_weights)(jp["blocks"])
+    tp = tw.tree_to_torch(p, "cpu")
+    tp["blocks_q8"] = tgpt.quantize_decode_weights(tp["blocks"])
+    return jp, tp
+
+
+def _cfgs(**flags):
+    return (dataclasses.replace(jax_tiny().gpt, **flags),
+            dataclasses.replace(torch_tiny().gpt, **flags))
+
+
+def _int8_cache(cfg, slots, seed):
+    """Random int8 rows with per-row scales (numpy), as prefill leaves them."""
+    shape = jgpt.make_kv_cache(cfg, slots).k.shape
+    rng = np.random.default_rng(seed)
+    rows = [rng.integers(-127, 128, shape).astype(np.int8) for _ in range(2)]
+    scales = [(0.002 + 0.01 * rng.random(shape[:3])).astype(np.float32) for _ in range(2)]
+    return rows + scales
+
+
+def _jax_cache(arrs):
+    return jgpt.KVCache(*map(jnp.asarray, arrs))
+
+
+def _torch_cache(arrs):
+    return tgpt.KVCache(*(torch.from_numpy(a.copy()) for a in arrs))
+
+
+def _assert_int8_close(got, want, max_share, what):
+    """int8 rows: every entry within one int8 step, and at most `max_share`
+    of them off at all (a value at a rounding boundary may round either way
+    when the f32 sums before it differ in their last bit)."""
+    diff = np.abs(np.asarray(got, np.int32) - np.asarray(want, np.int32))
+    assert diff.max() <= 1, (what, diff.max())
+    assert diff.astype(bool).mean() <= max_share, (what, diff.astype(bool).mean())
+
+
+# ------------------------------------------------------ quantisation, W8A8
+def test_quantize_rows_and_decode_weights_bit_equal_jax():
+    """Against the JAX functions under jit, as the JAX package runs them
+    (eager JAX divides by 127 where jit multiplies by its reciprocal)."""
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((64, 96)) * rng.uniform(1e-3, 30, (64, 1))).astype(np.float32)
+    x[3] = 0.0  # an all-zero row takes the 1e-8 floor
+    qj, sj = jax.jit(jgpt._quantize_rows)(jnp.asarray(x))
+    qt, st = tgpt._quantize_rows(torch.from_numpy(x))
+    assert qt.dtype == torch.int8 and st.dtype == torch.float32
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+
+    p = _params(1)
+    jq = jax.jit(jgpt.quantize_decode_weights)(jax.tree.map(jnp.asarray, p["blocks"]))
+    tq = tgpt.quantize_decode_weights(tw.tree_to_torch(p["blocks"], "cpu"))
+    assert sorted(tq) == sorted(jq)
+    for name, arr in tq.items():
+        assert arr.dtype == (torch.int8 if name.endswith("_q") else torch.float32), name
+        np.testing.assert_array_equal(arr.numpy(), np.asarray(jq[name]), err_msg=name)
+        if name.endswith("_q"):  # Din contiguous: the fast layout of the int8 GEMM
+            assert arr.stride(1) == 1, (name, arr.stride())
+
+
+def _ulps_bf16(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in bf16 steps between two same-sign bf16 tensors."""
+    ia, ib = a.view(torch.int16).int(), b.view(torch.int16).int()
+    return int((ia - ib).abs().max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dot_w8a8_matches_jax(dtype):
+    """The int32 product is exact on both sides and the rescale is the same
+    f32 operations, except that XLA fuses the last multiply and the bias add
+    into one rounding (an FMA) where torch rounds twice. So the result agrees
+    to one step of the output dtype, in f32 one ulp at the size of the
+    addends (|out| + |b|: on a near-cancelling sum that is many ulps of the
+    result)."""
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((24, 64)).astype(np.float32)
+    w = (0.02 * rng.standard_normal((1, 64, 192))).astype(np.float32)
+    b = (0.01 * rng.standard_normal((192,))).astype(np.float32)
+    blocks = {n: w for n in Q8_NAMES}
+    jq = jax.jit(jgpt.quantize_decode_weights)(jax.tree.map(jnp.asarray, blocks))
+    tq = tgpt.quantize_decode_weights(tw.tree_to_torch(blocks, "cpu"))
+    xj = jnp.asarray(x).astype(getattr(jnp, dtype))
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(getattr(torch, dtype))
+    want = jax.jit(jgpt._dot_w8a8)(xj, jq["attn_w_q"][0], jq["attn_w_s"][0], jnp.asarray(b))
+    got = tgpt._dot_w8a8(xt, tq["attn_w_q"][0], tq["attn_w_s"][0], torch.from_numpy(b))
+    assert got.dtype == xt.dtype and got.shape == (24, 192)
+    want_t = torch.from_numpy(np.asarray(want.astype(jnp.float32))).to(got.dtype)
+    same_sign = (torch.sign(got.float()) == torch.sign(want_t.float())) | (got.float() == 0)
+    assert same_sign.all()
+    if dtype == "float32":
+        ulp = np.spacing(np.abs(want_t.numpy()) + np.abs(b)[None, :])
+        assert (np.abs(got.numpy() - want_t.numpy()) <= ulp).all()
+    else:
+        assert _ulps_bf16(got, want_t) <= 1
+
+
+# ------------------------------------------------------------------ prefill
+@pytest.mark.parametrize("prefill_w8a8,prefill_flash", [(False, False), (True, True)])
+def test_gpt_prefill_int8_matches_jax(prefill_w8a8, prefill_flash):
+    jc, tc = _cfgs(kv_int8=True, prefill_w8a8=prefill_w8a8, prefill_flash=prefill_flash)
+    jp, tp = _both(_params())
+    cache0 = _int8_cache(jc, 3, 1)
+    embeds = np.random.default_rng(2).standard_normal((64, 64)).astype(np.float32)
+    length, slot = 41, 1
+    h_j, cache_j = jgpt.gpt_prefill(jp, jc, jnp.asarray(embeds), jnp.int32(length),
+                                    jnp.int32(slot), _jax_cache(cache0))
+    cache_t = _torch_cache(cache0)
+    h_t = tgpt.gpt_prefill(tp, tc, torch.from_numpy(embeds), length, slot, cache_t)
+    # f32 activations: the hidden state agrees to f32 noise, which under
+    # W8A8 may also flip a rare activation quantisation step (1e-3)
+    tol = 1e-3 if prefill_w8a8 else 1e-4
+    np.testing.assert_allclose(h_t.numpy(), np.asarray(h_j), rtol=tol, atol=tol)
+    for got, want, name in zip((cache_t.k, cache_t.v), (cache_j.k, cache_j.v), "kv"):
+        # int8 rows: within one step, at most 0.5% of entries off (f32 noise
+        # moves values across a rounding boundary)
+        _assert_int8_close(got.numpy(), np.asarray(want), 5e-3, name)
+    for got, want in ((cache_t.k_scale, cache_j.k_scale), (cache_t.v_scale, cache_j.v_scale)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+    for i in (0, 2):  # other slots untouched
+        np.testing.assert_array_equal(cache_t.k[:, i].numpy(), cache0[0][:, i])
+        np.testing.assert_array_equal(cache_t.k_scale[:, i].numpy(), cache0[2][:, i])
+
+
+# -------------------------------------------------------------- decode step
+@pytest.mark.parametrize("decode_w8a8", [False, True])
+@pytest.mark.parametrize("decode_attn_fp", [False, True])
+def test_gpt_decode_step_dense_int8_matches_jax(decode_attn_fp, decode_w8a8):
+    """The dense int8 body on the tiny config (2 layers). Layer 0 gets the
+    same bf16 inputs in both packages, so its appended int8 rows and scales
+    are bit-equal. After it, activations are bf16 (under kv_int8 in both
+    packages) and requantised per row, so f32 noise in the softmax and gelu
+    moves rare roundings, and a moved row maximum redraws that row's whole
+    quantisation: layer 1's appended rows stay within 2 int8 steps and their
+    scales within 2^-6, and the hidden state within 2^-6 of its scale per
+    entry and above 40 dB SNR (measured 45.6-50.8 dB)."""
+    jc, tc = _cfgs(kv_int8=True, decode_attn_fp=decode_attn_fp, decode_w8a8=decode_w8a8)
+    jp, tp = _both(_params(3))
+    cache0 = _int8_cache(jc, 4, 4)
+    tokens = np.asarray([3, 5, 64, 9], np.int32)
+    pos = np.asarray([1, 2, 0, 34], np.int32)
+    lens = np.asarray([10, 0, 95, 40], np.int32)
+    h_j, cache_j = jgpt.gpt_decode_step(jp, jc, jnp.asarray(tokens), jnp.asarray(pos),
+                                        jnp.asarray(lens), _jax_cache(cache0))
+    cache_t = _torch_cache(cache0)
+    h_t = tgpt.gpt_decode_step(tp, tc, torch.from_numpy(tokens), torch.from_numpy(pos),
+                               torch.from_numpy(lens), cache_t)
+    assert h_t.dtype == torch.bfloat16
+    hj = np.asarray(h_j.astype(jnp.float32))
+    ht = h_t.float().numpy()
+    np.testing.assert_allclose(ht, hj, rtol=0, atol=2.0 ** -6 * np.abs(hj).max())
+    assert snr_db(hj, ht) > 40.0
+    slots = np.arange(4)
+    got = [a.numpy() for a in (cache_t.k, cache_t.v, cache_t.k_scale, cache_t.v_scale)]
+    want = [np.asarray(a) for a in cache_j]
+    for g, w, c0 in zip(got, want, cache0):
+        np.testing.assert_array_equal(g[0], w[0])  # layer 0: bit-equal
+        rest = np.ones(c0.shape[:3], bool)
+        rest[:, slots, lens] = False
+        np.testing.assert_array_equal(g[rest], c0[rest])  # only the appended rows change
+    for g, w in zip(got[:2], want[:2]):
+        assert np.abs(g[1].astype(np.int32) - w[1].astype(np.int32)).max() <= 2
+    for g, w in zip(got[2:], want[2:]):
+        np.testing.assert_allclose(g[1], w[1], rtol=2.0 ** -6)
+
+
+# -------------------------------------------------------------- K4 ragged
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ragged_plain_matches_pallas(seed):
+    """K4's plain version (through the wrapper, on CPU) against the Pallas
+    kernel in interpret mode at the JAX test's shapes, positions 0 and
+    CHUNK-1 included: caches and scale rows bit-equal, ctx within 1e-5 (f32
+    online softmax over <= 512 keys against a dense softmax)."""
+    rng = np.random.default_rng(seed)
+    l, s, t, h, d = 2, 16, 2 * CHUNK, 4, 32
+    layer = seed % l
+    k_f, v_f = (rng.standard_normal((l, s, t, h * d)).astype(np.float32) for _ in range(2))
+    ks, vs = (np.maximum(np.abs(a).max(-1), 1e-8) / np.float32(127.0) for a in (k_f, v_f))
+    k_i8 = np.round(k_f / ks[..., None]).astype(np.int8)
+    v_i8 = np.round(v_f / vs[..., None]).astype(np.int8)
+    q = rng.standard_normal((s, h, d)).astype(np.float32)
+    k_new, v_new = (rng.standard_normal((s, h * d)).astype(np.float32) for _ in range(2))
+    pos = rng.integers(0, t - 2, size=(s,)).astype(np.int32)
+    pos[0], pos[1] = 0, CHUNK - 1
+    scale = 1.0 / math.sqrt(d)
+    ctx_j, *caches_j = jax_ragged(
+        jnp.asarray(q), jnp.asarray(k_new), jnp.asarray(v_new), scale, jnp.int32(layer),
+        jnp.asarray(pos), jnp.asarray(k_i8), jnp.asarray(v_i8), jnp.asarray(ks),
+        jnp.asarray(vs), interpret=True)
+    caches_t = [torch.from_numpy(a.copy()) for a in (k_i8, v_i8, ks, vs)]
+    before = ragged_decode_attention.launches
+    ctx_t = ragged_decode_attention(torch.from_numpy(q), torch.from_numpy(k_new),
+                                    torch.from_numpy(v_new), scale, layer,
+                                    torch.from_numpy(pos), *caches_t)
+    assert ragged_decode_attention.launches == before  # CPU: plain version, no launch
+    assert ctx_t.dtype == torch.float32 and ctx_t.shape == (s, h * d)
+    np.testing.assert_allclose(ctx_t.numpy(), np.asarray(ctx_j), rtol=0, atol=1e-5)
+    for got, want in zip(caches_t, caches_j):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_ragged_rejects_write_pos_outside_cache():
+    s, h, d, t = 2, 2, 64, CHUNK
+    caches = [torch.zeros((1, s, t, h * d), dtype=torch.int8) for _ in range(2)]
+    scales = [torch.ones((1, s, t)) for _ in range(2)]
+    q, kn = torch.ones((s, h, d)), torch.ones((s, h * d))
+    for bad in (-1, t):
+        with pytest.raises(IndexError):
+            ragged_decode_attention(q, kn, kn, 0.125, 0, torch.tensor([3, bad], dtype=torch.int32),
+                                    *caches, *scales)
+        assert not caches[0][0, 1].any() and (scales[0][0, 1] == 1).all()
+
+
+# -------------------------------------------------------------- K5 MLP
+D, I = 256, 1024  # the JAX test's shapes
+
+
+@pytest.fixture(scope="module")
+def mlp_weights():
+    rng = np.random.default_rng(7)
+    fc_w = (0.02 * rng.standard_normal((1, D, I))).astype(np.float32)
+    proj_w = (0.02 * rng.standard_normal((1, I, D))).astype(np.float32)
+    q8 = tgpt.quantize_decode_weights(tw.tree_to_torch(
+        {"attn_w": fc_w, "attn_proj_w": proj_w, "fc_w": fc_w, "fc_proj_w": proj_w}, "cpu"))
+    return {
+        "x": rng.standard_normal((8, D)).astype(np.float32),
+        "fc_wq": q8["fc_w_q"][0].numpy(), "fc_ws": q8["fc_w_s"][0].numpy(),
+        "fc_b": (0.01 * rng.standard_normal((I,))).astype(np.float32),
+        "proj_wq": q8["fc_proj_w_q"][0].numpy(), "proj_ws": q8["fc_proj_w_s"][0].numpy(),
+        "proj_b": (0.01 * rng.standard_normal((D,))).astype(np.float32),
+    }
+
+
+def _mlp_args(w, lib):
+    names = ("x", "fc_wq", "fc_ws", "fc_b", "proj_wq", "proj_ws", "proj_b")
+    conv = jnp.asarray if lib == "jax" else (lambda a: torch.from_numpy(a.copy()))
+    return [conv(w[n]) for n in names]
+
+
+@pytest.mark.parametrize("tile_i", [256, 1024])
+def test_fused_mlp_plain_matches_pallas(mlp_weights, tile_i):
+    """K5's plain version (through the wrapper, on CPU) against the Pallas
+    kernel in interpret mode. The recipes are the same, gelu aside: erf here,
+    a polynomial within 1.5e-7 in Pallas. Where that moves the largest |gelu|
+    of a (row, tile), the row's requantisation is redrawn and its outputs
+    move at the quantisation-noise level (3.3e-4 of a 0.37 output scale at
+    tile 1024). So: rows other than at most 2 of the 8 within 1e-5, all
+    within 1e-3, and 50 dB SNR (measured 69 and 139 dB)."""
+    want = np.asarray(jax_fused_mlp(*_mlp_args(mlp_weights, "jax"), tile_i=tile_i,
+                                    interpret=True))
+    before = fused_mlp_w8.launches
+    got = fused_mlp_w8(*_mlp_args(mlp_weights, "torch"), tile_i=tile_i)
+    assert fused_mlp_w8.launches == before  # CPU: plain version, no launch
+    assert got.dtype == torch.float32 and got.shape == (8, D)
+    diff = np.abs(got.numpy() - want)
+    assert (diff.max(axis=1) > 1e-5).sum() <= 2 and diff.max() <= 1e-3, diff.max(axis=1)
+    assert snr_db(want, got.numpy()) > 50.0
+
+
+def test_fused_mlp_single_tile_is_the_serving_chain(mlp_weights):
+    """With one tile spanning all of I, K5's recipe is the serving
+    `_dot_w8a8` x2 chain exactly (f32 activations: the chain's rounding of
+    the gelu output to x's dtype is the identity); same bound as the JAX
+    test (2e-5), and 28 dB against it at the default tile."""
+    args = _mlp_args(mlp_weights, "torch")
+    serving = mlp_w8_reference(*args)
+    np.testing.assert_allclose(fused_mlp_w8_plain(*args, tile_i=I).numpy(), serving.numpy(),
+                               rtol=0, atol=2e-5)
+    assert snr_db(serving.numpy(), fused_mlp_w8_plain(*args, tile_i=256).numpy()) > 28.0
+
+
+# --------------------------------------------------------- weights, guards
+def test_params_from_numpy_keeps_q8_types():
+    """A JAX blocks_q8 pytree given as numpy maps onto the port unchanged:
+    with dtype=bf16 the float params become bf16, but the int8 weights stay
+    int8 and the scales f32, bit-equal to the port's own quantisation."""
+    p = _params(4)
+    gpt = dict(p, blocks_q8=jax.device_get(
+        jax.jit(jgpt.quantize_decode_weights)(jax.tree.map(jnp.asarray, p["blocks"]))))
+    params, _ = tw.params_from_numpy(gpt, {}, dtype=torch.bfloat16)
+    assert params["blocks"]["fc_w"].dtype == torch.bfloat16
+    mine = tgpt.quantize_decode_weights(tw.tree_to_torch(p["blocks"], "cpu"))
+    for name, arr in params["blocks_q8"].items():
+        assert arr.dtype == (torch.int8 if name.endswith("_q") else torch.float32), name
+        assert torch.equal(arr, mine[name]), name
+
+
+def test_config_guards_raise_as_in_jax():
+    for flags in ({"ragged_decode": True}, {"kv_int8": True, "flash_decode": True}):
+        jc, tc = _cfgs(**flags)
+        with pytest.raises(AssertionError):
+            jgpt.make_kv_cache(jc, 2)
+        with pytest.raises(ValueError):
+            tgpt.make_kv_cache(tc, 2)
+
+
+def test_int8_cache_layout():
+    _, tc = _cfgs(kv_int8=True)
+    cache = tgpt.make_kv_cache(tc, 3)
+    want = jgpt.make_kv_cache(_cfgs(kv_int8=True)[0], 3)
+    assert cache.quantized and cache.k.dtype == cache.v.dtype == torch.int8
+    assert tuple(cache.k.shape) == want.k.shape and tuple(cache.k_scale.shape) == want.k_scale.shape
+    assert cache.k_scale.dtype == torch.float32 and (cache.k_scale == 1).all()
+    assert not tgpt.make_kv_cache(torch_tiny().gpt, 3).quantized
+
+
+# ----------------------------------------------------------------- engine
+INT8_FLAGS = dict(kv_int8=True, decode_w8a8=True, prefill_w8a8=True)
+
+
+@pytest.fixture(scope="module")
+def int8_engines(tmp_path_factory):
+    cfg = jax_tiny()
+    cfg.gpt = dataclasses.replace(cfg.gpt, ragged_decode=True)
+    jax_engine = build_tiny_engine(config=cfg, max_concurrency=1, vocoder_dtype=None,
+                                   **INT8_FLAGS)
+    params, core = tw.params_from_numpy(jax.device_get(jax_engine.params),
+                                        jax.device_get(jax_engine.core))
+    torch_engine = XTTSv2Engine(
+        jax_engine.hifi_config, dataclasses.replace(jax_engine.gpt_config, prefill_flash=True),
+        params=params, core=core, tokenizer=TTSTokenizer(jax_engine.tokenizer.tokenizer),
+        max_concurrency=1, vocoder_dtype=torch.float32, **INT8_FLAGS)
+    yield jax_engine, torch_engine, sine_wav(tmp_path_factory.mktemp("voice") / "spk.wav")
+
+
+def test_engine_int8_flags_and_memory_plan(int8_engines):
+    jax_engine, torch_engine, _ = int8_engines
+    g = torch_engine.gpt_config
+    assert g.kv_int8 and g.decode_w8a8 and g.prefill_w8a8 and g.ragged_decode
+    cache = torch_engine.decode_engine.state.cache
+    assert cache.quantized and torch_engine.params["blocks_q8"]["fc_w_q"].dtype == torch.int8
+    # per slot: int8 K and V rows plus one f32 scale each per token, + latents
+    per_slot = g.num_hidden_layers * cache.max_len * (2 * g.hidden_size + 2 * 4)
+    per_slot += g.max_audio_tokens * g.hidden_size * 4
+    weights = sum(t.numel() * t.element_size()
+                  for t in jax.tree.leaves((torch_engine.params, torch_engine.core))
+                  if torch.is_tensor(t))
+    want = (weights + per_slot * torch_engine.decode_slots) / 1024 ** 3
+    assert torch_engine.get_memory_usage_curve() == pytest.approx(want, rel=1e-12)
+    # defaults off, as the JAX engine's off a TPU: a config asking for
+    # kv_int8 is overridden unless the flag is passed
+    off = XTTSv2Engine(torch_engine.hifi_config, dataclasses.replace(g, ragged_decode=False),
+                       params=torch_engine.params, core=torch_engine.core, max_concurrency=1)
+    assert not off.gpt_config.kv_int8 and not off.decode_engine.state.cache.quantized
+    assert jax_engine.gpt_config.kv_int8  # passed explicitly, as here
+
+
+def test_engine_int8_teacher_forced_matches_jax(int8_engines):
+    """Both engines' own params (the port's blocks_q8 converted from JAX's),
+    configs and caches: prefill one prompt through the engines' insert
+    assembly, then 12 teacher-forced decode steps through K4's path (Pallas
+    interpret / plain version). The test_kv_int8 rule: logits and latents
+    above 40 dB SNR, and greedy tokens equal wherever the JAX top-2 logit
+    margin exceeds 0.01."""
+    jax_engine, torch_engine, _ = int8_engines
+    jg, tg = jax_engine.gpt_config, torch_engine.gpt_config
+    jp, tp = jax_engine.params, torch_engine.params
+    rng = np.random.default_rng(8)
+    cond = (0.3 * rng.standard_normal((jg.num_cond_latents, jg.hidden_size))).astype(np.float32)
+    ids = np.zeros((56,), np.int32)
+    ids[:12] = rng.integers(5, 300, 12)
+    length = jg.num_cond_latents + 12 + 1
+    forced = rng.integers(0, jg.num_audio_tokens - 2, 12).astype(np.int32)
+
+    emb_j = jloop._assemble_prompt(jp, jg, jnp.asarray(cond), jnp.asarray(ids),
+                                   jnp.int32(12)).astype(jnp.bfloat16)
+    cache_j = jgpt.make_kv_cache(jg, 2)
+    h, cache_j = jgpt.gpt_prefill(jp, jg, emb_j, jnp.int32(length), jnp.int32(0), cache_j)
+    outs_j = [jgpt.heads(jp, h[None])]
+    emb_t = tloop._assemble_prompt(tp, tg, torch.from_numpy(cond), torch.from_numpy(ids), 12)
+    cache_t = tgpt.make_kv_cache(tg, 2)
+    h = tgpt.gpt_prefill(tp, tg, emb_t.to(torch.bfloat16), length, 0, cache_t)
+    outs_t = [tgpt.heads(tp, h[None])]
+    for i, tok in enumerate(forced):
+        args = (np.asarray([tok, 0], np.int32), np.asarray([1 + i, 0], np.int32),
+                np.asarray([length + i, 0], np.int32))
+        h, cache_j = jgpt.gpt_decode_step(jp, jg, *map(jnp.asarray, args), cache_j)
+        outs_j.append(jgpt.heads(jp, h))
+        outs_t.append(tgpt.heads(tp, tgpt.gpt_decode_step(
+            tp, tg, *map(torch.from_numpy, args), cache_t)))
+    lj = np.stack([np.asarray(lo[0], np.float32) for lo, _ in outs_j])
+    zj = np.stack([np.asarray(la[0], np.float32) for _, la in outs_j])
+    lt = np.stack([lo[0].float().numpy() for lo, _ in outs_t])
+    zt = np.stack([la[0].float().numpy() for _, la in outs_t])
+    assert snr_db(lj, lt) > 40.0 and snr_db(zj, zt) > 40.0, (snr_db(lj, lt), snr_db(zj, zt))
+    top2 = np.sort(lj, axis=-1)[:, -2:]
+    decisive = (top2[:, 1] - top2[:, 0]) > 0.01
+    assert decisive.sum() >= 8
+    match = lj.argmax(-1) == lt.argmax(-1)
+    assert match[decisive].all(), np.where(decisive & ~match)[0]
+
+
+def test_engine_int8_facade_request(int8_engines):
+    """The whole int8 slice through the port's TTS facade: a greedy request
+    gives finite 24 kHz audio of the length its tokens imply."""
+    _, torch_engine, wav = int8_engines
+    tts = TTS(scheduler_max_concurrency=1).with_engine(torch_engine)
+    try:
+        out = tts.generate_speech(TTSRequest(text="Hello world. This is a test.",
+                                             speaker_files=[wav], language="en",
+                                             do_sample=False))
+    finally:
+        tts.loop.run_until_complete(tts.shutdown())
+    assert out.sample_rate == 24000 and out.array.size > 0 and np.isfinite(out.array).all()

@@ -45,7 +45,8 @@ COPIES = {
 PORTED = {
     "__init__.py", "ops/__init__.py", "ops/_build.py", "ops/interpolate.py", "ops/resample.py",
     "ops/mel.py", "ops/prefill_attention.py", "ops/mrf.py", "ops/experimental/__init__.py",
-    "ops/experimental/attention.py", "models/xttsv2/__init__.py", "models/xttsv2/gpt.py",
+    "ops/experimental/attention.py", "ops/experimental/fused_mlp.py", "ops/quant.py",
+    "models/xttsv2/__init__.py", "models/xttsv2/gpt.py",
     "models/xttsv2/modules.py", "models/xttsv2/hifigan.py", "models/xttsv2/weights.py",
     "models/xttsv2/engine.py", "runtime/__init__.py", "runtime/sampler.py",
     "runtime/decode_loop.py", "runtime/engine_core.py",
