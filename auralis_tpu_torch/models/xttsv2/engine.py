@@ -79,7 +79,7 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         max_concurrency: int = 10,
         decode_slots: Optional[int] = None,
         steps_per_sync: int = 16,
-        device="cpu",
+        device="cuda",
         cache_dtype: torch.dtype = torch.bfloat16,
         vocoder_dtype: Optional[torch.dtype] = torch.bfloat16,
         kv_int8: Optional[bool] = None,
@@ -169,7 +169,7 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
 
     @classmethod
     def random_init(cls, config: Optional[XTTSConfig] = None, tokenizer=None,
-                    dtype: torch.dtype = torch.float32, seed: int = 0, device="cpu",
+                    dtype: torch.dtype = torch.float32, seed: int = 0, device="cuda",
                     **kwargs) -> "XTTSv2Engine":
         """Seeded random weights (numpy) through the same converter a real
         parameter set takes; GPT weights and the KV cache in `dtype`."""

@@ -221,7 +221,7 @@ def tree_to_torch(tree, device, dtype: torch.dtype | None = None):
     return t.to(device)
 
 
-def params_from_numpy(gpt: dict, core: dict, device="cpu",
+def params_from_numpy(gpt: dict, core: dict, device="cuda",
                       dtype: torch.dtype = torch.float32) -> tuple[dict, dict]:
     """JAX-layout numpy pytrees -> (GPT params in `dtype`, core params in
     float32) as torch tensors on `device`. The engine casts the vocoder to

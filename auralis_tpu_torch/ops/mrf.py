@@ -17,7 +17,10 @@ On the H100 (csrc/mrf.cu) each conv is one launch of a fused
 [+ residual]" kernel, the last of each chain carrying the stage-mean
 epilogue: 18 launches per 3-chain stage. The stage is FLOP-bound (~1.5 TFLOP
 of convs for a 600-token chunk); the TPU's time-into-lane folding is not
-carried over (see the .cu header).
+carried over (see the .cu header). In bf16 each conv is an implicit GEMM on
+the tensor cores, which reads its weights packed [K, O, I] (K-contiguous per
+output channel, `pack_conv_weight`); in f32 it is an FMA conv that reads the
+JAX [K, I, O] layout.
 """
 from __future__ import annotations
 
@@ -30,11 +33,20 @@ LRELU = 0.1
 DILATIONS = (1, 3, 5)
 
 
+def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
+    """[K, I, O] (the JAX layout) -> [K, O, I] contiguous: the bf16 kernel's
+    B operand, K-contiguous per output channel. `.transpose(1, 2)` of the
+    result is the [K, I, O] view again."""
+    return w.transpose(1, 2).contiguous()
+
+
 class PackedMRFStage:
-    """One MRF stage's weights in the kernel's layout: per chain, six
-    (w [k, C, C] (the JAX [K, I, O] layout), b [C], dilation) triples in
-    chain order (it0 conv1, it0 conv2, it1 conv1, ...), all in the block
-    dtype on the stage's device."""
+    """One MRF stage's weights: per chain, six (w, b [C], dilation) triples
+    in chain order (it0 conv1, it0 conv2, it1 conv1, ...), all in the block
+    dtype on the stage's device. w reads as the JAX [K, I, O] layout (the
+    plain version's). In bf16 it is a view of the weight packed once into
+    the tensor-core kernel's [K, O, I] layout (`pack_conv_weight`); in f32
+    it is [K, I, O] contiguous, as the FMA kernel reads it."""
 
     def __init__(self, blocks: list, kernels, dtype: torch.dtype, device):
         assert len(blocks) == len(kernels)
@@ -47,6 +59,8 @@ class PackedMRFStage:
                 for conv, dil in ((c1, DILATIONS[it]), (c2, 1)):
                     w = torch.as_tensor(conv["w"]).to(device=device, dtype=dtype).contiguous()
                     assert w.shape == (k, self.c, self.c), w.shape
+                    if dtype == torch.bfloat16:
+                        w = pack_conv_weight(w).transpose(1, 2)
                     b = torch.as_tensor(conv["b"]).to(device=device, dtype=dtype).contiguous()
                     convs.append((w, b, dil))
             self.chains.append(convs)
@@ -119,6 +133,10 @@ def run_fused_stage(x: torch.Tensor, stage: PackedMRFStage) -> torch.Tensor:
         n_it = len(convs) // 2
         for it in range(n_it):
             (w1, b1, d1), (w2, b2, d2) = convs[2 * it], convs[2 * it + 1]
+            if is_bf16:  # the packed [K, O, I] tensors behind the views
+                w1, w2 = w1.transpose(1, 2), w2.transpose(1, 2)
+            if not (w1.is_contiguous() and w2.is_contiguous()):
+                raise ValueError("MRF weights are not in the kernel's layout (PackedMRFStage)")
             src = x if it == 0 else y
             src_f32 = int(it > 0 or not is_bf16)
             _build.check(

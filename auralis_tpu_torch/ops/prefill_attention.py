@@ -13,10 +13,9 @@ On the H100 (csrc/prefill_attention.cu) the one-shot form does not fit: a
 shared memory. The kernel is flash-attention-2 shaped instead: one block per
 (head, 64-row query tile) walks 64-row key tiles up to min(causal end,
 length) with an online softmax in f32 registers, so scores never leave the
-SM. At T <= 1047, H = 16, D = 64 the work is tiny (~2.3 GFLOP causal) and the
-kernel is bound by latency and FMA issue, not by device memory; the first
-version uses plain f32 FMA on tiles staged in shared memory (tensor-core
-`mma` is later work).
+SM. bf16 inputs (serving) run QK^T and PV on the tensor cores (mma.sync,
+P split into bf16 hi + lo parts so it keeps ~16 bits); f32 inputs (the
+reference engine) run plain f32 FMA.
 """
 from __future__ import annotations
 
@@ -62,6 +61,10 @@ def prefill_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"length {length} outside [1, {t}]")
     if not (q.stride() == k.stride() == v.stride() and q.stride(2) == 1 and q.stride(1) == d):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # the bf16 kernel copies rows into shared memory 16 bytes at a time
+    if q.dtype == torch.bfloat16 and (
+            q.stride(0) % 8 or any(x.data_ptr() % 16 for x in (q, k, v))):
+        q, k, v = q.clone(), k.clone(), v.clone()
     out = torch.empty((t, h, d), dtype=torch.float32, device=q.device)
     lib = _build.library()
     _build.check(

@@ -87,7 +87,7 @@ class DecodeEngine:
 
     def __init__(self, params: dict, cfg: XTTSGPTConfig, num_slots: int = 16,
                  cache_dtype=torch.bfloat16, steps_per_sync: int = 16, seed: int = 0,
-                 device="cpu"):
+                 device="cuda"):
         self.params = params
         self.cfg = cfg
         self.num_slots = num_slots

@@ -4,15 +4,21 @@
 
 Phases:
  1. device: torch's device name, and name + power limit from nvidia-smi;
- 2. build: the hand-written CUDA kernels from auralis_tpu_torch/csrc (nvcc);
+ 2. build: the hand-written CUDA kernels from auralis_tpu_torch/csrc (nvcc),
+    and cuobjdump's SASS: tensor-core HMMA in the bf16 K1 and K3 kernels,
+    none in their f32 instantiations;
  3. each kernel against its plain PyTorch version on the card, at the main
     path's shapes: the error entry by entry and the share of entries that
     differ, each against a stated bound, and both device times (repeated
-    calls in one CUDA graph, timed with CUDA events);
+    calls in one CUDA graph, timed with CUDA events), beside the kernel's
+    bound (bytes over the memory rate or operations over the peak rate,
+    from the call's shapes) and, for K1 and K3, one PyTorch call computing
+    the same function; K1's and K3's f32 instantiations (phase 5's) too;
  4. the bf16 slice: an XTTSv2Engine at the full XTTSConfig() width with
     seeded random bf16 weights and a bf16 KV cache behind the TTS facade
     answers three requests (one sync, two concurrent); every waveform must
     be finite 24 kHz audio, and K1, K2 and K3 must launch during the phase;
+    then one 605-latent chunk through the vocoder is timed and profiled;
  4b. the int8 slice: the same with an int8 KV cache, W8A8 prefill and
     decode matmuls and ragged decode attention; K1, K4 and K3 must launch;
  4c. the dense int8 decode body (no K4) with W8A8 decode, one short request
@@ -39,6 +45,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -47,11 +54,17 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from auralis_tpu_torch import TTS, TTSRequest
 from auralis_tpu_torch.common import audio_io
 from auralis_tpu_torch.models.xttsv2.config import XTTSConfig
 from auralis_tpu_torch.models.xttsv2.engine import XTTSv2Engine
+from auralis_tpu_torch.models.xttsv2.hifigan import (
+    RESBLOCK_DILATIONS,
+    RESBLOCK_KERNELS,
+    UPSAMPLE_RATES,
+)
 from auralis_tpu_torch.models.xttsv2.gpt import (
     gpt_decode_step,
     gpt_prefill,
@@ -128,6 +141,58 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0].strip()
 
 
+def sass_check(so_path: str) -> str:
+    """`cuobjdump -sass` of the built library: the bf16 K1 and K3 kernels
+    must issue tensor-core HMMA instructions, their f32 instantiations none
+    (they stay FFMA). Raises on a kernel on the wrong side."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return "cuobjdump not found: tensor-core use not checked"
+    dump = subprocess.run([tool, "-sass", so_path], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in dump.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            counts[fn] = [0, 0]
+        elif fn:
+            counts[fn][0] += "HMMA" in line
+            counts[fn][1] += "FFMA" in line
+    groups = {
+        "K1 bf16": lambda f: "prefill_attention_mma_kernel" in f,
+        "K1 f32": lambda f: "prefill_attention_kernelIf" in f,
+        "K3 bf16": lambda f: "mrf_conv" in f and "_mma" in f,
+        "K3 f32": lambda f: "mrf_conv" in f and "kernelIff" in f,
+    }
+    report = []
+    for name, match in groups.items():
+        fns = [c for f, c in counts.items() if match(f)]
+        hmma = [h for h, _ in fns]
+        tensor = name.endswith("bf16")
+        if not fns or (tensor and min(hmma) == 0) or (not tensor and max(hmma) > 0):
+            raise AssertionError(f"{name}: HMMA counts {hmma} in {len(fns)} kernels")
+        report.append(f"{name} {len(fns)} kernel(s), HMMA {sum(hmma)}, "
+                      f"FFMA {sum(f for _, f in fns)}")
+    return "; ".join(report)
+
+
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet,
+# dense): device memory, and operations per second by operand type (f32 is
+# the rate outside the tensor cores).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+
+
+def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it): the larger of the
+    bytes over the memory rate (each input read once, each output written
+    once) and the operations over the peak rate for their type."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def time_ms(fn, calls: int) -> float:
     """Device time per call of fn(), without the host's launch overhead:
     `calls` calls are captured in one CUDA graph, the graph is replayed 5
@@ -155,32 +220,95 @@ def time_ms(fn, calls: int) -> float:
     return statistics.median(times)
 
 
+# ------------------------------------------------------------ yardsticks
+# One PyTorch call computing a kernel's function, timed beside the kernel as
+# `library_ms`. The port never calls these.
+def k1_mask(t: int, length: int, device) -> torch.Tensor:
+    """K1's mask as SDPA's boolean attn_mask: key k is seen by query q iff
+    (k <= q) & (k < length)."""
+    pos = torch.arange(t, device=device)
+    return (pos[None, :] <= pos[:, None]) & (pos[None, :] < length)
+
+
+def sdpa_yardstick(q, k, v, mask) -> torch.Tensor:
+    """K1's function in one scaled_dot_product_attention call on the same
+    [T, H, D] tensors as [1, H, T, D] views; mask None is is_causal=True
+    (equal to K1 on rows < length). Output [T, H, D] in q's dtype."""
+    qh, kh, vh = (x.permute(1, 0, 2)[None] for x in (q, k, v))
+    if mask is None:
+        out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    else:
+        out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    return out[0].permute(1, 0, 2)
+
+
+def library_convs(stage: PackedMRFStage) -> list:
+    """A stage's 18 convs as F.conv1d operands: (w [O, I, K], b, dilation)."""
+    return [(w.permute(2, 1, 0).contiguous(), b, dil)
+            for convs in stage.chains for w, b, dil in convs]
+
+
+def library_conv(x_nct: torch.Tensor, w_oik, b, dil: int) -> torch.Tensor:
+    """One dilated 'same' conv of [B, C, T] in one F.conv1d call."""
+    return F.conv1d(x_nct, w_oik, b, padding=(w_oik.shape[-1] - 1) // 2 * dil, dilation=dil)
+
+
+def library_stage(x_nct: torch.Tensor, convs: list) -> None:
+    """K3's convs alone, one F.conv1d each, all on one contiguous [B, C, T]
+    input: no lrelu, residual or mean passes (they favour the library)."""
+    for w, b, dil in convs:
+        library_conv(x_nct, w, b, dil)
+
+
 # ------------------------------------------------------------ kernel checks
 def check_prefill(dev, results) -> None:
     """K1 at the prefill buckets' shapes; q/k/v are strided views of one
-    fused qkv row, exactly as gpt_prefill hands them over."""
+    fused qkv row, exactly as gpt_prefill hands them over. Then the f32
+    instantiation (phase 5's) at T = 128."""
     gen = torch.Generator(device=dev).manual_seed(1)
     h, d = 16, 64
-    bound = 1e-3  # f32 in both; differences come from summation order and expf
-    worst, rows = 0.0, []
-    for t, length in ((128, 100), (512, 400), (1047, 1047)):
-        qkv = torch.randn((t, 3 * h * d), generator=gen, device=dev).to(torch.bfloat16)
+    tol = 1e-3  # f32 in both; differences come from summation order and expf
+    rows = {}
+    for t, length, dt in ((128, 100, torch.bfloat16), (512, 400, torch.bfloat16),
+                          (1047, 1047, torch.bfloat16), (128, 100, torch.float32)):
+        qkv = torch.randn((t, 3 * h * d), generator=gen, device=dev).to(dt)
         q, k, v = (x.view(t, h, d) for x in qkv.split(h * d, dim=-1))
         got = prefill_flash_attention(q, k, v, length)
         torch.cuda.synchronize()
         want = prefill_attention_plain(q, k, v, length)
         err = (got - want).abs().max().item()
-        worst = max(worst, err)
+        tag = "bf16" if dt == torch.bfloat16 else "f32"
+        if not err <= tol:
+            raise AssertionError(f"K1 prefill {tag} T={t}: error {err} > {tol}")
         ms = time_ms(lambda: prefill_flash_attention(q, k, v, length), 20)
         plain_ms = time_ms(lambda: prefill_attention_plain(q, k, v, length), 20)
-        rows.append((t, ms, plain_ms))
-        say(f"  K1 prefill T={t} len={length}: max_abs_err={err:.3e} (bound {bound:.0e}) "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        if not err <= bound:
-            raise AssertionError(f"K1 prefill T={t}: error {err} > {bound}")
-    t, ms, plain_ms = rows[-1]
-    results["prefill_attention"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                                    "shape": f"T={t},H=16,D=64 bf16"}
+        # bytes: q, k, v read once, f32 ctx written once; operations: QK^T
+        # and PV over the (query, key) pairs the mask keeps
+        pairs = sum(min(i + 1, length) for i in range(t))
+        bound_ms, bound_by = bound(t * h * d * (3 * q.element_size() + 4), 4 * d * h * pairs,
+                                   tag)
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        line = (f"  K1 prefill {tag} T={t} len={length}: max_abs_err={err:.3e} (bound "
+                f"{tol:.0e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bound_ms:.5f} ms ({bound_by}, {bound_ms / ms:.1%} of it)")
+        if dt == torch.bfloat16:
+            mask = k1_mask(t, length, dev)
+            lib = sdpa_yardstick(q, k, v, mask)
+            lib_err = (lib.float() - want).abs().max().item()
+            row["library_ms"] = time_ms(lambda: sdpa_yardstick(q, k, v, mask), 20)
+            causal_ms = time_ms(lambda: sdpa_yardstick(q, k, v, None), 20)
+            line += (f"; library SDPA with K1's mask {row['library_ms']:.4f} ms (bf16 out, "
+                     f"max_abs_err {lib_err:.3e}; kernel/library "
+                     f"{ms / row['library_ms']:.2f}x), is_causal=True {causal_ms:.4f} ms")
+        rows[(tag, t)] = row
+        say(line)
+    # the JSON row is the bucket the slice serves (T = 128)
+    main = rows[("bf16", 128)]
+    results["prefill_attention"] = {
+        **main, "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+        "shape": "T=128 (len 100),H=16,D=64 bf16",
+        "by_shape": {f"{tag} T={t}": r for (tag, t), r in rows.items()}}
 
 
 def check_decode(dev, results) -> None:
@@ -209,14 +337,27 @@ def check_decode(dev, results) -> None:
     ratio, mismatch = elementwise(got, want, 2.0 ** -7, 1e-5)
     ms = time_ms(lambda: flash_decode_append_attention(q, kn, vn, kc, vc, layer, wp), 50)
     plain_ms = time_ms(lambda: flash_decode_plain(q, kn, vn, kc2, vc2, layer, wp), 20)
+    # bytes: the live K and V rows (write_pos + 1 per slot: the cached
+    # ones and the new one) read once, the new rows written once more into
+    # the cache, q read and the bf16 ctx written; operations: QK^T and PV
+    # over the live rows
+    live = int((wp + 1).sum())
+    row_b = h * d * 2
+    bound_ms, bound_by = bound(2 * live * row_b + s * row_b * (2 + 1 + 1), 4 * live * h * d,
+                               "bf16")
     say(f"  K2 decode S={s} T={t} write_pos={wp.tolist()}: max_abs_err={err:.3e}, "
         f"worst |err|/bound {ratio:.3f} (bound 2^-7|ref| + 1e-5 per entry), mismatch "
-        f"{mismatch:.4%} (bound 1%); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per layer")
+        f"{mismatch:.4%} (bound 1%); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per layer, "
+        f"bound {bound_ms:.5f} ms ({bound_by}, {live} live rows; {bound_ms / ms:.1%} of it); "
+        f"library: none (no single call appends in place over ragged lengths)")
     if not (ratio <= 1.0 and mismatch <= 0.01):
         raise AssertionError(f"K2 decode: worst error/bound {ratio}, mismatch {mismatch}")
     del kc, vc, kc2, vc2
-    results["flash_decode_append"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                      "shape": "S=8,cache=[30,8,1280,1024] bf16, one layer"}
+    results["flash_decode_append"] = {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None,
+        "library_none": "no single call appends in place and attends over ragged lengths",
+        "shape": "S=8,cache=[30,8,1280,1024] bf16, one layer"}
 
 
 # K3's bound on the share of bf16 outputs that may differ from the plain
@@ -234,46 +375,90 @@ def check_decode(dev, results) -> None:
 MRF_MISMATCH_BOUND = {256: 0.30, 128: 0.10, 64: 0.05, 32: 0.02}
 
 
+def mrf_test_stage(gen, dev, c: int, dtype) -> PackedMRFStage:
+    """A 3-chain stage (k = 3/7/11) with weights at the scale of the model's
+    random init (0.02, init_hifigan_params)."""
+    blocks = []
+    for k in (3, 7, 11):
+        mk = lambda: {"w": 0.02 * torch.randn((k, c, c), generator=gen, device=dev),
+                      "b": 0.02 * torch.randn((c,), generator=gen, device=dev)}
+        blocks.append({"convs1": [mk() for _ in range(3)],
+                       "convs2": [mk() for _ in range(3)]})
+    return PackedMRFStage(blocks, (3, 7, 11), dtype, dev)
+
+
+def mrf_compare(x, stage) -> tuple:
+    """The kernel against the plain version: (max_abs_err, |ref| max, worst
+    |err| / (2^-7 |ref| + 2^-8 |ref|max), share of entries that differ)."""
+    got = run_fused_stage(x, stage)
+    torch.cuda.synchronize()
+    want = mrf_stage_plain(x, stage)
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    # per entry: one bf16 step (2^-7 of |ref|) for the output's own
+    # rounding, plus 2^-8 of the output scale for flips carried down the
+    # chain from earlier roundings (order noise reached 2^-10 off the card)
+    return (err, scale, *elementwise(got, want, 2.0 ** -7, 2.0 ** -8 * scale))
+
+
 def check_mrf(dev, results) -> None:
     """K3 at the four stage widths for a 600-token chunk's frame count:
     600 latents -> 2400 -> 2612 frames at 24 kHz; stage T = 8/64/128/256 x.
-    Weights at the scale of the model's random init (0.02, init_hifigan_params)."""
+    Then, per width, one short batch-2 stage in f32 (the instantiation phase
+    5 runs) and in bf16, with T off the 128-row tile grid, and one shorter
+    than a conv's reach (T = 5: the zero padding is the whole halo)."""
     gen = torch.Generator(device=dev).manual_seed(3)
     frames = math.floor(math.floor(600 * 1024 / 256) * 24000 / 22050)
-    worst, total_ms, total_plain = 0.0, 0.0, 0.0
+    worst, by_stage = 0.0, []
+    taps = 6 * sum((3, 7, 11))  # taps over a stage's 18 convs
     for c, mult in ((256, 8), (128, 64), (64, 128), (32, 256)):
         t = frames * mult
-        blocks = []
-        for k in (3, 7, 11):
-            mk = lambda: {"w": 0.02 * torch.randn((k, c, c), generator=gen, device=dev),
-                          "b": 0.02 * torch.randn((c,), generator=gen, device=dev)}
-            blocks.append({"convs1": [mk() for _ in range(3)],
-                           "convs2": [mk() for _ in range(3)]})
-        stage = PackedMRFStage(blocks, (3, 7, 11), torch.bfloat16, dev)
+        stage = mrf_test_stage(gen, dev, c, torch.bfloat16)
         x = torch.randn((1, t, c), generator=gen, device=dev).to(torch.bfloat16)
-        got = run_fused_stage(x, stage)
-        torch.cuda.synchronize()
-        want = mrf_stage_plain(x, stage)
-        err = (got.float() - want.float()).abs().max().item()
-        scale = want.float().abs().max().item()
-        # per entry: one bf16 step (2^-7 of |ref|) for the output's own
-        # rounding, plus 2^-8 of the output scale for flips carried down the
-        # chain from earlier roundings (order noise reached 2^-10 off the card)
-        ratio, mismatch = elementwise(got, want, 2.0 ** -7, 2.0 ** -8 * scale)
+        err, scale, ratio, mismatch = mrf_compare(x, stage)
         mis_bound = MRF_MISMATCH_BOUND[c]
         ms = time_ms(lambda: run_fused_stage(x, stage), 3)
         plain_ms = time_ms(lambda: mrf_stage_plain(x, stage), 3)
-        total_ms += ms
-        total_plain += plain_ms
+        x_nct, convs = x.transpose(1, 2).contiguous(), library_convs(stage)
+        library_ms = time_ms(lambda: library_stage(x_nct, convs), 3)
+        # bytes: x read and the stage mean written once, bf16, and every
+        # conv's weights and bias read once; operations: the 18 convs
+        weight_b = sum(w.numel() + b.numel() for w, b, _ in convs) * 2
+        ops = 2 * c * c * t * taps
+        bound_ms, bound_by = bound(2 * t * c * 2 + weight_b, ops, "bf16")
+        by_stage.append({"C": c, "T": t, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": library_ms, "bound_ms": bound_ms, "ops": ops,
+                         "bytes": 2 * t * c * 2 + weight_b})
         worst = max(worst, err)
         say(f"  K3 MRF stage C={c} T={t}: max_abs_err={err:.3e} (|ref|max {scale:.2f}), "
             f"worst |err|/bound {ratio:.3f} (bound 2^-7|ref| + 2^-8 |ref|max per entry), "
             f"mismatch {mismatch:.4%} (bound {mis_bound:.0%}); "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library 18 bf16 F.conv1d "
+            f"{library_ms:.3f} ms (kernel/library {ms / library_ms:.2f}x), bound "
+            f"{bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.1%} of it)")
         if not (ratio <= 1.0 and mismatch <= mis_bound):
             raise AssertionError(f"K3 C={c}: worst error/bound {ratio}, mismatch {mismatch}")
-    results["mrf_stage"] = {"max_abs_err": worst, "ms": total_ms, "plain_ms": total_plain,
-                            "shape": f"4 stages, {frames} frames (600 latents) bf16"}
+    gen = torch.Generator(device=dev).manual_seed(33)
+    for c, t in ((256, 700), (128, 700), (64, 700), (32, 700), (32, 5)):
+        for dt in (torch.float32, torch.bfloat16):
+            stage = mrf_test_stage(gen, dev, c, dt)
+            x = torch.randn((2, t, c), generator=gen, device=dev).to(dt)
+            err, scale, ratio, mismatch = mrf_compare(x, stage)
+            # f32: order noise changes most entries in their last bits, so
+            # only the per-entry bound applies
+            mis_bound = 1.0 if dt == torch.float32 else MRF_MISMATCH_BOUND[c]
+            say(f"  K3 MRF short stage {str(dt)[6:]} B=2 C={c} T={t}: max_abs_err={err:.3e} "
+                f"(|ref|max {scale:.2f}), worst |err|/bound {ratio:.3f}, mismatch "
+                f"{mismatch:.4%} (bound {mis_bound:.0%})")
+            if not (ratio <= 1.0 and mismatch <= mis_bound):
+                raise AssertionError(f"K3 {dt} C={c} B=2: ratio {ratio}, mismatch {mismatch}")
+    total = {key: sum(st[key] for st in by_stage)
+             for key in ("ms", "plain_ms", "library_ms", "ops", "bytes")}
+    bound_ms, bound_by = bound(total["bytes"], total["ops"], "bf16")
+    results["mrf_stage"] = {
+        "max_abs_err": worst, "ms": total["ms"], "plain_ms": total["plain_ms"],
+        "library_ms": total["library_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+        "shape": f"4 stages, {frames} frames (600 latents) bf16", "by_stage": by_stage}
 
 
 def check_ragged(dev, results) -> None:
@@ -307,15 +492,28 @@ def check_ragged(dev, results) -> None:
     ratio, mismatch = elementwise(got, want, 1e-5, 1e-6)
     ms = time_ms(lambda: ragged_decode_attention(q, kn, vn, 0.125, layer, wp, *mine), 50)
     plain_ms = time_ms(lambda: ragged_decode_plain(q, kn, vn, 0.125, layer, wp, *ref), 20)
+    # bytes: the cached int8 K and V rows and their f32 scales read once,
+    # q and the new bf16 rows read, the appended int8 rows and scales and
+    # the f32 ctx written; operations: QK^T and PV over the live rows, at
+    # the int8 rate (the lower bound: PV runs in f32)
+    live, row = int((wp + 1).sum()), h * d
+    nbytes = (2 * (live - s) * (row + 4) + s * row * 2 + 2 * s * row * 2 + 2 * s * (row + 4)
+              + s * row * 4)
+    bound_ms, bound_by = bound(nbytes, 4 * live * row, "int8")
     say(f"  K4 ragged int8 S={s} T={t} write_pos={wp.tolist()}: caches and scales bit-equal; "
         f"ctx max_abs_err={err:.3e}, worst |err|/bound {ratio:.3f} (bound 1e-5|ref| + 1e-6 "
         f"per entry), differing {mismatch:.4%}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-        f"per layer")
+        f"per layer, bound {bound_ms:.5f} ms ({bound_by}, {bound_ms / ms:.1%} of it); "
+        f"library: none (no single call appends and quantises in place over ragged lengths)")
     if not ratio <= 1.0:
         raise AssertionError(f"K4: worst error/bound {ratio}")
     del mine, ref
-    results["ragged_decode"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                "shape": "S=8,cache=[30,8,1280,1024] int8+f32 scales, one layer"}
+    results["ragged_decode"] = {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None,
+        "library_none": "no single call quantises, appends in place and attends over "
+                        "ragged int8 rows",
+        "shape": "S=8,cache=[30,8,1280,1024] int8+f32 scales, one layer"}
 
 
 def snr_db(ref: torch.Tensor, got: torch.Tensor) -> float:
@@ -363,17 +561,27 @@ def check_fused_mlp(dev, results) -> None:
     snr_plain, snr_serving = snr_db(want, got), snr_db(serving, got)
     ms = time_ms(lambda: fused_mlp_w8(*args_k), 50)
     plain_ms = time_ms(lambda: fused_mlp_w8_plain(*args), 20)
+    # bytes: x, the int8 weights, their scales and the biases read once, the
+    # bf16 output written; operations: both products at the int8 rate
+    nbytes = sum(a.numel() * a.element_size() for a in args_k) + got.numel() * 2
+    bound_ms, bound_by = bound(nbytes, 2 * 2 * s * d * i, "int8")
     say(f"  K5 fused W8A8 MLP S={s} D={d} I={i} tile_i=1024: max_abs_err={err:.3e} "
         f"(|ref|max {scale:.3f}), worst |err|/bound {ratio:.3f} (bound 2^-7|ref| + 2^-9 "
         f"|ref|max), differing {mismatch:.4%} in {rows_off} of {s} rows (bound 2 rows), "
         f"SNR vs plain {snr_plain:.1f} dB "
         f"(bound 50), vs the serving _dot_w8a8 chain {snr_serving:.1f} dB (bound 28); "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, "
+        f"{bound_ms / ms:.1%} of it); library: none (no single call does int8 fc + gelu + "
+        f"proj)")
     if not (ratio <= 1.0 and rows_off <= 2 and snr_plain > 50.0 and snr_serving > 28.0):
         raise AssertionError(f"K5: ratio {ratio}, mismatch {mismatch}, SNR {snr_plain} / "
                              f"{snr_serving} dB")
-    results["fused_mlp_w8"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                               "shape": "S=8,D=1024,I=4096,tile_i=1024, bf16 x, int8 weights"}
+    results["fused_mlp_w8"] = {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None,
+        "library_none": "no single call does the int8 fc + gelu + proj with per-row "
+                        "requantisation",
+        "shape": "S=8,D=1024,I=4096,tile_i=1024, bf16 x, int8 weights"}
 
 
 def elementwise(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float):
@@ -450,10 +658,56 @@ def build_engine(dev, tokenizer, gpt_flags: dict, engine_flags: dict, **kw) -> X
     return engine
 
 
+def profile_vocoder(engine, smi: str) -> None:
+    """One 605-latent chunk through the engine's row vocoder (the bucket a
+    full chunk takes): wall per chunk (host clock to the PCM on the host,
+    median of 3), then one chunk under torch.profiler for the device busy
+    share (union of device event intervals over the profiled wall) and K3's
+    share of the device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = engine.gpt_config
+    n = g.max_audio_tokens
+    gen = torch.Generator(device=engine.device).manual_seed(8)
+    row = torch.randn((n, g.hidden_size), generator=gen, device=engine.device)
+    spk = np.random.default_rng(8).standard_normal((1, 512)).astype(np.float32) * 0.1
+    engine.vocode_device_row(row, n, spk)  # warm
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        engine.vocode_device_row(row, n, spk)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    before = run_fused_stage.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.vocode_device_row(row, n, spk)
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    k3_launches = run_fused_stage.launches - before
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev_events:
+        say(f"  vocoder: {n} latents, wall {statistics.median(walls):.2f} ms per chunk; the "
+            f"profiler saw no device events: busy share not measured ({smi})")
+        return
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo, hi = busy + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    busy = (busy + hi - lo) / 1e3
+    k3_ms = sum(e.time_range.elapsed_us() for e in dev_events if "mrf_conv" in e.name) / 1e3
+    say(f"  vocoder: {n} latents, wall {statistics.median(walls):.2f} ms per chunk (median of "
+        f"3: {', '.join(f'{w:.2f}' for w in walls)}); profiled chunk {prof_wall:.2f} ms wall, "
+        f"device busy {busy:.2f} ms ({busy / prof_wall:.1%}), {len(dev_events)} device ops, "
+        f"K3 {k3_ms:.2f} ms in {k3_launches} launches ({smi})")
+
+
 def run_slice(dev, smi: str, tokenizer, gpt_flags: dict, engine_flags: dict,
-              must_launch: tuple) -> dict:
+              must_launch: tuple, profile: bool = False) -> dict:
     """Three requests through the TTS facade (one sync, two concurrent);
-    returns the launch counts of every kernel during them."""
+    returns the launch counts of every kernel during them. With `profile`,
+    one chunk through the vocoder is then timed and profiled."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     engine = build_engine(dev, tokenizer, gpt_flags, engine_flags)
@@ -497,6 +751,8 @@ def run_slice(dev, smi: str, tokenizer, gpt_flags: dict, engine_flags: dict,
     for name in must_launch:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the main path")
+    if profile:
+        profile_vocoder(engine, smi)
     del tts, engine
     return launches
 
@@ -694,9 +950,10 @@ def main() -> int:
 
     say("[2] build")
     t0 = time.perf_counter()
-    _build.library()
+    lib = _build.library()
     say(f"  kernels built/loaded in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'})")
+    say(f"  SASS: {sass_check(lib._name)}")
 
     say("[3] kernels vs plain")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -715,7 +972,7 @@ def main() -> int:
     tokenizer = build_tokenizer(XTTSConfig().gpt.number_text_tokens)
     say("[4] bf16 slice: full-width XTTSv2 on the TTS facade")
     bf16 = run_slice(dev, smi, tokenizer, {"flash_decode": True, "prefill_flash": True}, {},
-                     BF16_PATH)
+                     BF16_PATH, profile=True)
     say("[4b] int8 slice: int8 KV, W8A8 prefill and decode, ragged decode attention")
     int8 = run_slice(dev, smi, tokenizer, {"prefill_flash": True, "ragged_decode": True},
                      {"kv_int8": True, "decode_w8a8": True, "prefill_w8a8": True}, INT8_PATH)
@@ -730,11 +987,25 @@ def main() -> int:
     say("[5b] int8 reference check: card vs CPU, int8 KV + W8A8, teacher-forced")
     run_int8_reference_check(dev)
 
+    # launches per main-path unit: one K1 per GPT layer per prompt insert,
+    # one K2/K4 (and K5 on its path) per layer per decode step, one K3 per
+    # conv of every MRF stage per vocoded chunk
+    layers = XTTSConfig().gpt.num_hidden_layers
+    per_unit = {"prefill_attention": (layers, "insert"),
+                "flash_decode_append": (layers, "decode step"),
+                "mrf_stage": (len(UPSAMPLE_RATES) * len(RESBLOCK_KERNELS) * 2
+                              * len(RESBLOCK_DILATIONS), "vocoded chunk"),
+                "ragged_decode": (layers, "decode step"),
+                "fused_mlp_w8": (layers, "decode step")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
-         "launches": launches[name], "max_abs_err": results[name]["max_abs_err"],
-         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"],
-         "shape": results[name]["shape"]}
+         "launches": launches[name],
+         **{key: results[name][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")},
+         "launches_per_unit": per_unit[name][0], "unit": per_unit[name][1],
+         **{key: v for key, v in results[name].items()
+            if key not in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                           "library_ms")}}
         for name, k in KERNELS.items()
     ]}
     say(json.dumps(line))

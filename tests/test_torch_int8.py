@@ -342,7 +342,7 @@ def test_params_from_numpy_keeps_q8_types():
     p = _params(4)
     gpt = dict(p, blocks_q8=jax.device_get(
         jax.jit(jgpt.quantize_decode_weights)(jax.tree.map(jnp.asarray, p["blocks"]))))
-    params, _ = tw.params_from_numpy(gpt, {}, dtype=torch.bfloat16)
+    params, _ = tw.params_from_numpy(gpt, {}, device="cpu", dtype=torch.bfloat16)
     assert params["blocks"]["fc_w"].dtype == torch.bfloat16
     mine = tgpt.quantize_decode_weights(tw.tree_to_torch(p["blocks"], "cpu"))
     for name, arr in params["blocks_q8"].items():
@@ -380,11 +380,11 @@ def int8_engines(tmp_path_factory):
     jax_engine = build_tiny_engine(config=cfg, max_concurrency=1, vocoder_dtype=None,
                                    **INT8_FLAGS)
     params, core = tw.params_from_numpy(jax.device_get(jax_engine.params),
-                                        jax.device_get(jax_engine.core))
+                                        jax.device_get(jax_engine.core), device="cpu")
     torch_engine = XTTSv2Engine(
         jax_engine.hifi_config, dataclasses.replace(jax_engine.gpt_config, prefill_flash=True),
         params=params, core=core, tokenizer=TTSTokenizer(jax_engine.tokenizer.tokenizer),
-        max_concurrency=1, vocoder_dtype=torch.float32, **INT8_FLAGS)
+        max_concurrency=1, vocoder_dtype=torch.float32, device="cpu", **INT8_FLAGS)
     yield jax_engine, torch_engine, sine_wav(tmp_path_factory.mktemp("voice") / "spk.wav")
 
 
@@ -405,7 +405,8 @@ def test_engine_int8_flags_and_memory_plan(int8_engines):
     # defaults off, as the JAX engine's off a TPU: a config asking for
     # kv_int8 is overridden unless the flag is passed
     off = XTTSv2Engine(torch_engine.hifi_config, dataclasses.replace(g, ragged_decode=False),
-                       params=torch_engine.params, core=torch_engine.core, max_concurrency=1)
+                       params=torch_engine.params, core=torch_engine.core, max_concurrency=1,
+                       device="cpu")
     assert not off.gpt_config.kv_int8 and not off.decode_engine.state.cache.quantized
     assert jax_engine.gpt_config.kv_int8  # passed explicitly, as here
 

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from auralis_tpu.models.xttsv2.hifigan import _resblock1
 from auralis_tpu.ops.experimental.attention import (
@@ -20,8 +21,12 @@ from auralis_tpu.ops.experimental.attention import (
 from auralis_tpu.ops.mrf import PackedMRFStage as JaxPackedMRFStage
 from auralis_tpu.ops.prefill_attention import prefill_flash_attention as jax_prefill
 from auralis_tpu_torch.ops.experimental.attention import flash_decode_append_attention
-from auralis_tpu_torch.ops.mrf import PackedMRFStage, run_fused_stage
-from auralis_tpu_torch.ops.prefill_attention import prefill_flash_attention
+from auralis_tpu_torch.ops.mrf import PackedMRFStage, _conv, pack_conv_weight, run_fused_stage
+from auralis_tpu_torch.ops.prefill_attention import (
+    prefill_attention_plain,
+    prefill_flash_attention,
+)
+from chip_smoke import k1_mask, library_conv, library_convs, sdpa_yardstick
 
 
 # ------------------------------------------------------------ K1 prefill
@@ -203,3 +208,75 @@ def test_mrf_plain_matches_pallas_stage_bf16():
     # differ here), where skipping the bf16 conv inputs changes ~60%
     mismatch = float((got.float().numpy() != want).mean())
     assert mismatch <= 0.1, mismatch
+
+
+@pytest.mark.parametrize("k,dil", [(3, 1), (7, 3), (11, 5)])
+def test_mrf_weight_pack_round_trip(k, dil):
+    """The bf16 kernel's [K, O, I] packing: transposing back gives the JAX
+    [K, I, O] weight bit for bit, and a conv that reads the packed layout
+    equals `_conv` exactly in f32."""
+    rng = np.random.default_rng(k * 10 + dil)
+    c, t = 32, 90
+    w = torch.from_numpy((0.1 * rng.standard_normal((k, c, c))).astype(np.float32))
+    b = torch.from_numpy((0.1 * rng.standard_normal(c)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((2, t, c)).astype(np.float32))
+    packed = pack_conv_weight(w)
+    assert packed.shape == (k, c, c) and packed.is_contiguous()
+    assert torch.equal(packed.transpose(1, 2), w)
+    assert torch.equal(packed[:, 5, 7], w[:, 7, 5])  # [tap, co, ci] = [tap, ci, co]
+    y = F.conv1d(x.transpose(1, 2), packed.permute(1, 2, 0), b, padding=(k - 1) // 2 * dil,
+                 dilation=dil).transpose(1, 2)
+    torch.testing.assert_close(y, _conv(x, w, b, dil), rtol=0, atol=0)
+
+
+def test_packed_stage_layouts_per_dtype():
+    """bf16 stages hold each weight once, packed [K, O, I], behind a [K, I, O]
+    view with the JAX values; f32 stages keep [K, I, O] contiguous (the FMA
+    kernel's layout). The plain version reads the same values either way."""
+    kernels = (3, 7, 11)
+    blocks = _blocks(np.random.default_rng(4), 32, kernels)
+    bf = PackedMRFStage(blocks, kernels, torch.bfloat16, "cpu")
+    f32 = PackedMRFStage(blocks, kernels, torch.float32, "cpu")
+    for chain_b, chain_f, p in zip(bf.chains, f32.chains, blocks):
+        want = [c["w"] for pair in zip(p["convs1"], p["convs2"]) for c in pair]
+        for (wb, _, db), (wf, _, df), w in zip(chain_b, chain_f, want):
+            assert db == df
+            assert wb.transpose(1, 2).is_contiguous() and not wb.is_contiguous()
+            assert wf.is_contiguous()
+            assert torch.equal(wb, torch.from_numpy(w).bfloat16())
+            assert torch.equal(wf, torch.from_numpy(w))
+
+
+@pytest.mark.parametrize("t,length", [(64, 64), (128, 100), (256, 129)])
+def test_sdpa_yardstick_computes_k1(t, length):
+    """chip_smoke's K1 yardstick (one scaled_dot_product_attention call with
+    K1's boolean mask, on [1, H, T, D] views of the fused qkv rows) is K1's
+    function: equal to the plain version in f32."""
+    rng = np.random.default_rng(t + length)
+    h, d = 4, 64
+    qkv = torch.from_numpy(rng.standard_normal((t, 3 * h * d)).astype(np.float32))
+    q, k, v = (x.view(t, h, d) for x in qkv.split(h * d, dim=-1))
+    got = sdpa_yardstick(q, k, v, k1_mask(t, length, "cpu"))
+    assert got.shape == (t, h, d)
+    torch.testing.assert_close(got, prefill_attention_plain(q, k, v, length), rtol=1e-5,
+                               atol=1e-5)
+    # is_causal=True agrees on the rows below length
+    causal = sdpa_yardstick(q, k, v, None)
+    torch.testing.assert_close(causal[:length], got[:length], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("c", [32, 64])
+def test_conv1d_yardstick_computes_each_conv(c):
+    """chip_smoke's K3 yardstick: each of a stage's 18 convs as one
+    F.conv1d on [B, C, T], equal to the plain version's `_conv` in f32."""
+    kernels = (3, 7, 11)
+    rng = np.random.default_rng(c)
+    stage = PackedMRFStage(_blocks(rng, c, kernels), kernels, torch.float32, "cpu")
+    x = torch.from_numpy(rng.standard_normal((1, 150, c)).astype(np.float32))
+    convs = library_convs(stage)
+    assert len(convs) == 18
+    mine = [conv for chain in stage.chains for conv in chain]
+    for (w, b, dil), (w_kio, b_ref, dil_ref) in zip(convs, mine):
+        assert dil == dil_ref and w.shape == (c, c, w_kio.shape[0])
+        got = library_conv(x.transpose(1, 2).contiguous(), w, b, dil).transpose(1, 2)
+        torch.testing.assert_close(got, _conv(x, w_kio, b_ref, dil), rtol=1e-5, atol=1e-5)

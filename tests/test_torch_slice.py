@@ -37,12 +37,12 @@ PCM_TOL = 2.5 / 32767
 def engines(tmp_path_factory):
     jax_engine = build_tiny_engine(max_concurrency=2, vocoder_dtype=None)
     params, core = params_from_numpy(jax.device_get(jax_engine.params),
-                                     jax.device_get(jax_engine.core))
+                                     jax.device_get(jax_engine.core), device="cpu")
     gpt_cfg = dataclasses.replace(jax_engine.gpt_config, flash_decode=True, prefill_flash=True)
     torch_engine = XTTSv2Engine(
         jax_engine.hifi_config, gpt_cfg, params=params, core=core,
         tokenizer=TTSTokenizer(jax_engine.tokenizer.tokenizer), max_concurrency=2,
-        cache_dtype=torch.float32, vocoder_dtype=torch.float32,
+        cache_dtype=torch.float32, vocoder_dtype=torch.float32, device="cpu",
     )
     jax_tts = JaxTTS(scheduler_max_concurrency=2).with_engine(jax_engine)
     torch_tts = TTS(scheduler_max_concurrency=2).with_engine(torch_engine)
