@@ -97,3 +97,91 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
+
+// ---- split-K decode attention (K2 flash_decode.cu, K4 ragged_decode.cu).
+// One block of kSplitThreads threads runs per (head, slot, split). A split
+// is kSplitRows consecutive cache rows: one row per thread in the softmax
+// phase. The grid is (H, S, T / kSplitRows) whatever the write positions; a
+// block whose rows start past write_pos[s] returns at once. The split is the
+// grid's slowest index, so the blocks of the first splits, which have work
+// whenever a slot does, are dispatched before the (often empty) later ones.
+constexpr int kSplitRows = 128;
+constexpr int kSplitThreads = 128;
+constexpr int kHeadDim = 64;
+// one split's partial in the workspace: m, l, 2 floats of padding, acc[64]
+constexpr int kPartialFloats = 4 + kHeadDim;
+
+__device__ __forceinline__ float max4(const float* r) {
+  return fmaxf(fmaxf(r[0], r[1]), fmaxf(r[2], r[3]));
+}
+
+// max / sum of one value per thread over the 4 warps of a block, in a fixed
+// order (xor shuffles in the warp, then warps 0..3); every thread gets it.
+// `scratch` is 4 floats of shared memory that belong to this call site
+// alone: with one barrier, a warp may still read it when another warp
+// reaches the next reduction.
+__device__ __forceinline__ float block4_max(float v, float* scratch) {
+  v = warp_max(v);
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  return max4(scratch);
+}
+
+__device__ __forceinline__ float block4_sum(float v, float* scratch) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  return ((scratch[0] + scratch[1]) + scratch[2]) + scratch[3];
+}
+
+// The end of one split's block. The sum over the 4 warps' rows of `acc`
+// (shared memory, complete; summed in warp order) is the split's
+// unnormalised context sum(p_t v_t), m its largest logit and l its sum(p_t),
+// with p_t = exp(logit_t - m).
+// - A slot whose live rows fit in one split (n_live == 1) writes
+//   out = acc / max(l, 1e-9) at once.
+// - Otherwise the block stores its partial in `partials` (this (slot, head)'s
+//   n_splits records), fences, and takes an int32 ticket. The block that
+//   draws the last ticket merges the n_live partials in split order (M =
+//   max m_i; out = sum acc_i e^(m_i - M) / max(sum l_i e^(m_i - M), 1e-9))
+//   and resets the ticket to 0 for the next launch. The merge reads in a
+//   fixed order whichever block arrives last, and no float atomic is used,
+//   so two launches on the same inputs give the same bits.
+template <typename O>
+__device__ __forceinline__ void split_finish(const float (&acc)[4][kHeadDim], float m, float l,
+                                             int split, int n_live, float* partials,
+                                             int* ticket, O* out) {
+  __shared__ int last;
+  const int tid = threadIdx.x;
+  const float a = tid < kHeadDim
+                      ? ((acc[0][tid] + acc[1][tid]) + acc[2][tid]) + acc[3][tid] : 0.f;
+  if (n_live == 1) {
+    if (tid < kHeadDim) out[tid] = from_f32<O>(a / fmaxf(l, 1e-9f));
+    return;
+  }
+  float* rec = partials + (size_t)split * kPartialFloats;
+  if (tid < kHeadDim) rec[4 + tid] = a;
+  if (tid == 0) {
+    rec[0] = m;
+    rec[1] = l;
+  }
+  __threadfence();  // the partial is visible device-wide before the ticket
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(ticket, 1) == n_live - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (tid < kHeadDim) {
+    float mx = -INFINITY;
+    for (int i = 0; i < n_live; ++i) mx = fmaxf(mx, __ldcg(partials + i * kPartialFloats));
+    float lt = 0.f, at = 0.f;
+    for (int i = 0; i < n_live; ++i) {
+      const float* r = partials + i * kPartialFloats;
+      const float f = expf(__ldcg(r) - mx);
+      lt += __ldcg(r + 1) * f;
+      at += __ldcg(r + 4 + tid) * f;
+    }
+    out[tid] = from_f32<O>(at / fmaxf(lt, 1e-9f));
+  }
+  if (tid == 0) *ticket = 0;
+}

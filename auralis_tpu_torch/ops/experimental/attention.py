@@ -13,11 +13,24 @@ are quantised per slot over all H*D lanes, q per (slot, head); scores are
 int8 x int8 dot products scaled by the key's and the query's scale; the
 context sums p x v_scale x v_int8 in f32 (csrc/ragged_decode.cu).
 
-On the H100 (csrc/flash_decode.cu) one block runs per (slot, head); each
-block appends only its own head's 64-lane slice, so the append needs no
-cross-block ordering, and reads only the slot's live rows. The step is bound
-by device-memory bandwidth: ~sum(live rows) x 4 KB of K/V reads per layer in
-bf16 at H*D = 1024 (the header of the .cu file has the arithmetic).
+On the H100 both are split-K flash-decoding kernels (csrc/flash_decode.cu,
+csrc/ragged_decode.cu, shared helpers in csrc/common.cuh). The cache's T
+rows are cut into splits of DECODE_SPLIT rows (`split_plan`), and one block
+of 4 warps runs per (head, slot, split). The grid depends only on T, never
+on `write_pos`, which the host does not read (no sync; the launch can be
+captured in a CUDA graph). A block whose split starts past `write_pos[s]`
+returns at once; the others stage their live K and V rows in shared memory
+with coalesced 16-byte `cp.async` copies, run QK with lanes across each row,
+an f32 softmax over the split, and PV with lanes across the head dims. The
+block of the split that holds `write_pos[s]` alone appends the new row (K4:
+quantises it first), and no block reads it back from the cache. Each split
+leaves (m, l, acc) in a workspace that the wrapper allocates once per
+(device, S, H, splits); the last split of a (slot, head) to arrive merges
+them in split order (the math of `combine_splits_plain`), so ctx does not
+depend on the order in which blocks finish. Both kernels are bound by
+device-memory bandwidth: per layer, the live rows' K and V (~4 KB a row in
+bf16, ~2 KB in int8 at H*D = 1024), from HBM on a real step, since each
+layer's slab is a different one.
 """
 from __future__ import annotations
 
@@ -29,6 +42,47 @@ from .. import _build
 from ..quant import quantize_rows
 
 CHUNK = 256  # the cache's T dim is padded to a multiple of this (see gpt.make_kv_cache)
+DECODE_SPLIT = 128  # rows per split of K2 and K4 (kSplitRows in csrc/common.cuh)
+PARTIAL_FLOATS = 4 + 64  # one split's (m, l, 2 pad, acc[64]) record (kPartialFloats)
+
+
+def split_plan(t_max: int, split: int = DECODE_SPLIT) -> list[tuple[int, int]]:
+    """The row ranges [start, end) into which K2 and K4 cut a cache of
+    `t_max` rows: t_max / split splits of `split` rows, one block each per
+    (head, slot). The launch shape depends on nothing else."""
+    if t_max <= 0 or t_max % CHUNK or split <= 0 or CHUNK % split:
+        raise ValueError(f"cache T ({t_max}) must be a positive multiple of {CHUNK}, and the "
+                         f"split ({split}) must divide {CHUNK}")
+    return [(start, start + split) for start in range(0, t_max, split)]
+
+
+def combine_splits_plain(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernels' merge of per-split partials: m, l
+    [..., n] (each split's largest logit and sum of exp(logit - m)) and acc
+    [..., n, D] (its sum of exp(logit - m) v). An empty split has m = -inf,
+    l = 0 and weighs nothing; all splits empty give 0, not NaN. Returns
+    sum_i acc_i e^(m_i - M) / max(sum_i l_i e^(m_i - M), 1e-9), M = max_i m_i."""
+    mx = m.amax(dim=-1, keepdim=True)
+    w = torch.where(m == float("-inf"), torch.zeros_like(m), torch.exp(m - mx))
+    total = (l * w).sum(dim=-1)
+    return (acc * w[..., None]).sum(dim=-2) / torch.clamp(total, min=1e-9)[..., None]
+
+
+_workspaces: dict = {}
+
+
+def _split_workspace(device: torch.device, s: int, h: int, n_splits: int):
+    """(partials [S, H, n_splits, PARTIAL_FLOATS] f32, tickets [S, H] int32,
+    zero), allocated once per (device, S, H, n_splits) and reused by every
+    later launch: the kernels allocate nothing and leave the tickets at zero.
+    Launches that share a workspace must not run concurrently (one stream)."""
+    key = (device, s, h, n_splits)
+    ws = _workspaces.get(key)
+    if ws is None:
+        ws = (torch.empty((s, h, n_splits, PARTIAL_FLOATS), dtype=torch.float32, device=device),
+              torch.zeros((s, h), dtype=torch.int32, device=device))
+        _workspaces[key] = ws
+    return ws
 
 
 def flash_decode_plain(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
@@ -81,8 +135,7 @@ def flash_decode_append_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: t
         raise ValueError("k_cache and v_cache must match")
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError("caches must be contiguous (they are updated in place)")
-    if t % CHUNK:
-        raise ValueError(f"cache T dim ({t}) must be a multiple of {CHUNK}")
+    n_splits = len(split_plan(t))
     if s != n_slots or not 0 <= layer < n_layers:
         raise ValueError(f"slots {s} / layer {layer} outside cache {tuple(k_cache.shape)}")
     if k_cache.dtype not in (torch.bfloat16, torch.float32) or q.dtype != k_cache.dtype:
@@ -95,13 +148,14 @@ def flash_decode_append_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: t
     v_new = v_new.to(k_cache.dtype).contiguous()
     write_pos = write_pos.contiguous()
     ctx = torch.empty((s, h, d), dtype=q.dtype, device=q.device)
+    partials, tickets = _split_workspace(q.device, s, h, n_splits)
     lib = _build.library()
     _build.check(
         lib.flash_decode_append(
             q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
-            v_cache.data_ptr(), write_pos.data_ptr(), ctx.data_ptr(),
-            n_slots, h, t, int(layer), 1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
-            _build.stream_ptr(q.device),
+            v_cache.data_ptr(), write_pos.data_ptr(), ctx.data_ptr(), partials.data_ptr(),
+            tickets.data_ptr(), n_slots, h, t, int(layer), DECODE_SPLIT, 1.0 / math.sqrt(d),
+            int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device),
         ),
         "flash_decode_append",
     )
@@ -172,8 +226,7 @@ def ragged_decode_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.T
                              f"{tuple(sc.shape)}")
     if not all(x.is_contiguous() for x in (k_cache, v_cache, k_scale, v_scale)):
         raise ValueError("caches and scales must be contiguous (they are updated in place)")
-    if t % CHUNK:
-        raise ValueError(f"cache T dim ({t}) must be a multiple of {CHUNK}")
+    n_splits = len(split_plan(t))
     if s != n_slots or not 0 <= layer < n_layers:
         raise ValueError(f"slots {s} / layer {layer} outside cache {tuple(k_cache.shape)}")
     if not q.dtype == k_new.dtype == v_new.dtype == torch.bfloat16:
@@ -185,13 +238,14 @@ def ragged_decode_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.T
     v_new = v_new.contiguous()
     write_pos = write_pos.contiguous()
     ctx = torch.empty((s, hd), dtype=torch.float32, device=q.device)
+    partials, tickets = _split_workspace(q.device, s, h, n_splits)
     lib = _build.library()
     _build.check(
         lib.ragged_decode(
             q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), write_pos.data_ptr(),
-            ctx.data_ptr(), n_slots, h, t, int(layer), float(attn_scale),
-            _build.stream_ptr(q.device),
+            ctx.data_ptr(), partials.data_ptr(), tickets.data_ptr(), n_slots, h, t, int(layer),
+            DECODE_SPLIT, float(attn_scale), _build.stream_ptr(q.device),
         ),
         "ragged_decode",
     )

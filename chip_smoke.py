@@ -6,21 +6,29 @@ Phases:
  1. device: torch's device name, and name + power limit from nvidia-smi;
  2. build: the hand-written CUDA kernels from auralis_tpu_torch/csrc (nvcc),
     and cuobjdump's SASS: tensor-core HMMA in the bf16 K1 and K3 kernels,
-    none in their f32 instantiations;
+    none in their f32 instantiations; the registers and local-memory
+    (spill) bytes of the K2 and K4 kernels (cuobjdump -res-usage);
  3. each kernel against its plain PyTorch version on the card, at the main
     path's shapes: the error entry by entry and the share of entries that
     differ, each against a stated bound, and both device times (repeated
     calls in one CUDA graph, timed with CUDA events), beside the kernel's
     bound (bytes over the memory rate or operations over the peak rate,
     from the call's shapes) and, for K1 and K3, one PyTorch call computing
-    the same function; K1's and K3's f32 instantiations (phase 5's) too;
+    the same function; K1's and K3's f32 instantiations (phase 5's) too.
+    K2 and K4 run at every write-position set of decode_bench.py (the
+    ragged mix, split edges, all slots at 0, 127 and 1046), each launched
+    twice (bit-equal ctx), and are timed cold (call i on layer i % 30, as
+    a decode step reads them: `ms`) and hot (one layer, in L2: `ms_hot`);
  4. the bf16 slice: an XTTSv2Engine at the full XTTSConfig() width with
     seeded random bf16 weights and a bf16 KV cache behind the TTS facade
     answers three requests (one sync, two concurrent); every waveform must
     be finite 24 kHz audio, and K1, K2 and K3 must launch during the phase;
-    then one 605-latent chunk through the vocoder is timed and profiled;
+    then one 16-step decode block at 8 live slots is timed and profiled
+    (wall, device ms, K2 ms per step, device busy share), and one
+    605-latent chunk through the vocoder;
  4b. the int8 slice: the same with an int8 KV cache, W8A8 prefill and
     decode matmuls and ragged decode attention; K1, K4 and K3 must launch;
+    one decode block is profiled as in 4 (K4 ms per step);
  4c. the dense int8 decode body (no K4) with W8A8 decode, one short request
     each with bf16 and with requantised attention probabilities;
  4d. K5's path: the W8A8 MLP of every layer of the int8 engine at decode
@@ -42,6 +50,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -72,7 +81,7 @@ from auralis_tpu_torch.models.xttsv2.gpt import (
     layer_norm,
     quantize_decode_weights,
 )
-from auralis_tpu_torch.runtime.decode_loop import _assemble_prompt
+from auralis_tpu_torch.runtime.decode_loop import _assemble_prompt, decode_steps, pack_status
 from auralis_tpu_torch.models.xttsv2.weights import (
     init_gpt_params,
     params_from_numpy,
@@ -95,6 +104,18 @@ from auralis_tpu_torch.ops.mrf import PackedMRFStage, mrf_stage_plain, run_fused
 from auralis_tpu_torch.ops.prefill_attention import (
     prefill_attention_plain,
     prefill_flash_attention,
+)
+from decode_bench import (
+    HEAD_DIM,
+    HEADS,
+    HOT_LAYER,
+    LAYERS,
+    T_MAX,
+    WRITE_POS_SETS,
+    cold_hot_ms,
+    k2_inputs,
+    k4_inputs,
+    time_ms,
 )
 
 KERNELS = {
@@ -141,13 +162,39 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0].strip()
 
 
+def cuobjdump() -> str | None:
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    return tool if os.path.exists(tool) else None
+
+
+def decode_resource_usage(so_path: str) -> list[str]:
+    """`cuobjdump -res-usage` of the built library for the K2 and K4
+    kernels: registers per thread, stack, shared and local (spill) bytes."""
+    tool = cuobjdump()
+    if tool is None:
+        return ["cuobjdump not found: registers and spills not read"]
+    dump = subprocess.run([tool, "-res-usage", so_path], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    found, fn = [], None
+    for line in dump.splitlines():
+        if "Function " in line:
+            fn = line.split("Function ")[1].split(":")[0].strip()
+        if fn and "REG:" in line:
+            if "decode_split_kernel" in fn:
+                usage = [w for w in line.split() if w.split(":")[0] in
+                         ("REG", "STACK", "SHARED", "LOCAL")]
+                found.append(f"{fn}: {' '.join(usage)}")
+            fn = None
+    return found or ["no K2/K4 kernel in cuobjdump -res-usage"]
+
+
 def sass_check(so_path: str) -> str:
     """`cuobjdump -sass` of the built library: the bf16 K1 and K3 kernels
     must issue tensor-core HMMA instructions, their f32 instantiations none
     (they stay FFMA). Raises on a kernel on the wrong side."""
-    tool = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    if not os.path.exists(tool):
+    tool = cuobjdump()
+    if tool is None:
         return "cuobjdump not found: tensor-core use not checked"
     dump = subprocess.run([tool, "-sass", so_path], capture_output=True, text=True,
                           timeout=300, check=True).stdout
@@ -191,33 +238,6 @@ def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def time_ms(fn, calls: int) -> float:
-    """Device time per call of fn(), without the host's launch overhead:
-    `calls` calls are captured in one CUDA graph, the graph is replayed 5
-    times, each replay timed with CUDA events; the median replay / calls."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm up library handles before capture
-        fn()
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    times = []
-    for _ in range(5):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / calls)
-    del graph
-    return statistics.median(times)
 
 
 # ------------------------------------------------------------ yardsticks
@@ -312,52 +332,63 @@ def check_prefill(dev, results) -> None:
 
 
 def check_decode(dev, results) -> None:
-    """K2 on a [30, 8, 1280, 1024] bf16 cache, write positions across the
-    256-row chunk edges. Both sides update their own copy of the cache."""
-    gen = torch.Generator(device=dev).manual_seed(2)
-    l, s, t, h, d, layer = 30, 8, 1280, 16, 64, 17
-    wp = torch.tensor([0, 7, 255, 256, 511, 600, 1000, 1046], dtype=torch.int32, device=dev)
-    kc = torch.randn((l, s, t, h * d), generator=gen, device=dev, dtype=torch.bfloat16)
-    vc = torch.randn((l, s, t, h * d), generator=gen, device=dev, dtype=torch.bfloat16)
-    q = torch.randn((s, h, d), generator=gen, device=dev).to(torch.bfloat16)
-    kn = torch.randn((s, h * d), generator=gen, device=dev).to(torch.bfloat16)
-    vn = torch.randn((s, h * d), generator=gen, device=dev).to(torch.bfloat16)
+    """K2 on a [30, 8, 1280, 1024] bf16 cache at every write-position set of
+    decode_bench.WRITE_POS_SETS. Both sides update their own copy of the
+    cache, which must stay bit-equal; ctx must be within its bounds, and two
+    launches on the same inputs must give the same bits. Timed cold (call i
+    on layer i % 30, `ms`) and hot (layer 17, `ms_hot`); the plain version
+    cold."""
+    q, kn, vn, kc, vc = k2_inputs(dev)
     kc2, vc2 = kc.clone(), vc.clone()
-    got = flash_decode_append_attention(q, kn, vn, kc, vc, layer, wp)
-    torch.cuda.synchronize()
-    want = flash_decode_plain(q, kn, vn, kc2, vc2, layer, wp)
-    if not (torch.equal(kc, kc2) and torch.equal(vc, vc2)):
-        raise AssertionError("K2: caches after the append differ from the plain index-put")
-    err = (got.float() - want.float()).abs().max().item()
-    # ctx is bf16, the f32 result rounded once. Summation order may flip that
-    # rounding: one bf16 step, at most 2^-7 of |ctx|, plus 1e-5 for f32 noise
-    # on entries near zero. Flips are rare (2 of these 8192 entries on an
-    # H100), so at most 1% may differ at all; bf16 probabilities change ~37%
-    # (off the card).
-    ratio, mismatch = elementwise(got, want, 2.0 ** -7, 1e-5)
-    ms = time_ms(lambda: flash_decode_append_attention(q, kn, vn, kc, vc, layer, wp), 50)
-    plain_ms = time_ms(lambda: flash_decode_plain(q, kn, vn, kc2, vc2, layer, wp), 20)
-    # bytes: the live K and V rows (write_pos + 1 per slot: the cached
-    # ones and the new one) read once, the new rows written once more into
-    # the cache, q read and the bf16 ctx written; operations: QK^T and PV
-    # over the live rows
-    live = int((wp + 1).sum())
-    row_b = h * d * 2
-    bound_ms, bound_by = bound(2 * live * row_b + s * row_b * (2 + 1 + 1), 4 * live * h * d,
-                               "bf16")
-    say(f"  K2 decode S={s} T={t} write_pos={wp.tolist()}: max_abs_err={err:.3e}, "
-        f"worst |err|/bound {ratio:.3f} (bound 2^-7|ref| + 1e-5 per entry), mismatch "
-        f"{mismatch:.4%} (bound 1%); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per layer, "
-        f"bound {bound_ms:.5f} ms ({bound_by}, {live} live rows; {bound_ms / ms:.1%} of it); "
-        f"library: none (no single call appends in place over ragged lengths)")
-    if not (ratio <= 1.0 and mismatch <= 0.01):
-        raise AssertionError(f"K2 decode: worst error/bound {ratio}, mismatch {mismatch}")
+    s, row_b = q.shape[0], HEADS * HEAD_DIM * 2
+    rows = {}
+    for name, wp_list in WRITE_POS_SETS.items():
+        wp = torch.tensor(wp_list, dtype=torch.int32, device=dev)
+        got = flash_decode_append_attention(q, kn, vn, kc, vc, HOT_LAYER, wp)
+        again = flash_decode_append_attention(q, kn, vn, kc, vc, HOT_LAYER, wp)
+        torch.cuda.synchronize()
+        want = flash_decode_plain(q, kn, vn, kc2, vc2, HOT_LAYER, wp)
+        if not (torch.equal(kc, kc2) and torch.equal(vc, vc2)):
+            raise AssertionError(f"K2 {name}: caches after the append differ from the plain "
+                                 f"index-put")
+        if not torch.equal(got, again):
+            raise AssertionError(f"K2 {name}: two launches on the same inputs differ")
+        err = (got.float() - want.float()).abs().max().item()
+        # ctx is bf16, the f32 result rounded once. Summation order may flip
+        # that rounding: one bf16 step, at most 2^-7 of |ctx|, plus 1e-5 for
+        # f32 noise on entries near zero. Flips are rare (2 of these 8192
+        # entries on an H100), so at most 1% may differ at all; bf16
+        # probabilities change ~37% (off the card).
+        ratio, mismatch = elementwise(got, want, 2.0 ** -7, 1e-5)
+        if not (ratio <= 1.0 and mismatch <= 0.01):
+            raise AssertionError(f"K2 {name}: worst error/bound {ratio}, mismatch {mismatch}")
+        ms, ms_hot = cold_hot_ms(
+            lambda layer: flash_decode_append_attention(q, kn, vn, kc, vc, layer, wp))
+        rot = itertools.count()
+        plain_ms = time_ms(
+            lambda: flash_decode_plain(q, kn, vn, kc2, vc2, next(rot) % LAYERS, wp), LAYERS)
+        # bytes: the live K and V rows (write_pos + 1 per slot: the cached
+        # ones and the new one) read once, the new rows written once more
+        # into the cache, q read and the bf16 ctx written; operations: QK^T
+        # and PV over the live rows
+        live = int((wp + 1).sum())
+        bound_ms, bound_by = bound(2 * live * row_b + s * row_b * (2 + 1 + 1),
+                                   4 * live * HEADS * HEAD_DIM, "bf16")
+        rows[name] = {"write_pos": wp_list, "max_abs_err": err, "ms": ms, "ms_hot": ms_hot,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        say(f"  K2 decode S={s} T={T_MAX} {name} write_pos={wp_list}: max_abs_err={err:.3e}, "
+            f"worst |err|/bound {ratio:.3f} (bound 2^-7|ref| + 1e-5 per entry), mismatch "
+            f"{mismatch:.4%} (bound 1%), repeat bit-equal; kernel cold {ms:.4f} ms, hot "
+            f"{ms_hot:.4f} ms, plain cold {plain_ms:.4f} ms per layer, bound {bound_ms:.5f} ms "
+            f"({bound_by}, {live} live rows; {bound_ms / ms:.1%} of cold)")
     del kc, vc, kc2, vc2
+    main = rows["ragged"]
     results["flash_decode_append"] = {
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None,
+        **{k: v for k, v in main.items() if k != "write_pos"}, "library_ms": None,
         "library_none": "no single call appends in place and attends over ragged lengths",
-        "shape": "S=8,cache=[30,8,1280,1024] bf16, one layer"}
+        "shape": "S=8,cache=[30,8,1280,1024] bf16, ragged write_pos",
+        "timing": "ms cold: call i on layer i % 30; ms_hot: every call on layer 17",
+        "by_shape": rows}
 
 
 # K3's bound on the share of bf16 outputs that may differ from the plain
@@ -462,58 +493,67 @@ def check_mrf(dev, results) -> None:
 
 
 def check_ragged(dev, results) -> None:
-    """K4 on a [30, 8, 1280, 1024] int8 cache with f32 scale rows, write
-    positions across the 256-row chunk edges. Both sides update their own
-    copy of the caches and scales."""
-    gen = torch.Generator(device=dev).manual_seed(4)
-    l, s, t, h, d, layer = 30, 8, 1280, 16, 64, 17
-    wp = torch.tensor([0, 7, 255, 256, 511, 600, 1000, 1046], dtype=torch.int32, device=dev)
-    kc, vc = (torch.randint(-127, 128, (l, s, t, h * d), generator=gen, device=dev,
-                            dtype=torch.int8) for _ in range(2))
-    # scale rows at the size randn rows of 1024 lanes give (max|x| / 127)
-    ks, vs = (0.02 + 0.01 * torch.rand((l, s, t), generator=gen, device=dev) for _ in range(2))
-    q = torch.randn((s, h, d), generator=gen, device=dev).to(torch.bfloat16)
-    kn = torch.randn((s, h * d), generator=gen, device=dev).to(torch.bfloat16)
-    vn = torch.randn((s, h * d), generator=gen, device=dev).to(torch.bfloat16)
-    mine = (kc, vc, ks, vs)
+    """K4 on a [30, 8, 1280, 1024] int8 cache with f32 scale rows at every
+    write-position set of decode_bench.WRITE_POS_SETS. Both sides update
+    their own copy of the caches and scales, which must stay bit-equal; ctx
+    must be within its bound, and two launches on the same inputs must give
+    the same bits. Timed as K2."""
+    q, kn, vn, mine = k4_inputs(dev)
     ref = tuple(x.clone() for x in mine)
-    got = ragged_decode_attention(q, kn, vn, 0.125, layer, wp, *mine)
-    torch.cuda.synchronize()
-    want = ragged_decode_plain(q, kn, vn, 0.125, layer, wp, *ref)
-    for name, a, b in zip(("k_cache", "v_cache", "k_scale", "v_scale"), mine, ref):
-        if not torch.equal(a, b):
-            raise AssertionError(f"K4: {name} after the append differs from the plain version")
-    err = (got - want).abs().max().item()
-    # ctx is f32 on both sides, from the same int8 rows and scales: the
-    # scores are exact integers, so only expf and the order of the f32 sums
-    # differ. On the CPU the plain version in f32 against an f64 evaluation
-    # reaches 0.24 of this bound (1.2e-6 at |ctx| up to 3.2). One wrong key,
-    # scale or mask row among ~1,000 live keys moves ctx by ~1e-3, far past it.
-    ratio, mismatch = elementwise(got, want, 1e-5, 1e-6)
-    ms = time_ms(lambda: ragged_decode_attention(q, kn, vn, 0.125, layer, wp, *mine), 50)
-    plain_ms = time_ms(lambda: ragged_decode_plain(q, kn, vn, 0.125, layer, wp, *ref), 20)
-    # bytes: the cached int8 K and V rows and their f32 scales read once,
-    # q and the new bf16 rows read, the appended int8 rows and scales and
-    # the f32 ctx written; operations: QK^T and PV over the live rows, at
-    # the int8 rate (the lower bound: PV runs in f32)
-    live, row = int((wp + 1).sum()), h * d
-    nbytes = (2 * (live - s) * (row + 4) + s * row * 2 + 2 * s * row * 2 + 2 * s * (row + 4)
-              + s * row * 4)
-    bound_ms, bound_by = bound(nbytes, 4 * live * row, "int8")
-    say(f"  K4 ragged int8 S={s} T={t} write_pos={wp.tolist()}: caches and scales bit-equal; "
-        f"ctx max_abs_err={err:.3e}, worst |err|/bound {ratio:.3f} (bound 1e-5|ref| + 1e-6 "
-        f"per entry), differing {mismatch:.4%}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-        f"per layer, bound {bound_ms:.5f} ms ({bound_by}, {bound_ms / ms:.1%} of it); "
-        f"library: none (no single call appends and quantises in place over ragged lengths)")
-    if not ratio <= 1.0:
-        raise AssertionError(f"K4: worst error/bound {ratio}")
+    s, row = q.shape[0], HEADS * HEAD_DIM
+    rows = {}
+    for name, wp_list in WRITE_POS_SETS.items():
+        wp = torch.tensor(wp_list, dtype=torch.int32, device=dev)
+        got = ragged_decode_attention(q, kn, vn, 0.125, HOT_LAYER, wp, *mine)
+        again = ragged_decode_attention(q, kn, vn, 0.125, HOT_LAYER, wp, *mine)
+        torch.cuda.synchronize()
+        want = ragged_decode_plain(q, kn, vn, 0.125, HOT_LAYER, wp, *ref)
+        for what, a, b in zip(("k_cache", "v_cache", "k_scale", "v_scale"), mine, ref):
+            if not torch.equal(a, b):
+                raise AssertionError(f"K4 {name}: {what} after the append differs from the "
+                                     f"plain version")
+        if not torch.equal(got, again):
+            raise AssertionError(f"K4 {name}: two launches on the same inputs differ")
+        err = (got - want).abs().max().item()
+        # ctx is f32 on both sides, from the same int8 rows and scales: the
+        # scores are exact integers, so only expf and the order of the f32
+        # sums differ. On the CPU the plain version in f32 against an f64
+        # evaluation reaches 0.24 of this bound (1.2e-6 at |ctx| up to 3.2).
+        # One wrong key, scale or mask row among ~1,000 live keys moves ctx
+        # by ~1e-3, far past it.
+        ratio, mismatch = elementwise(got, want, 1e-5, 1e-6)
+        if not ratio <= 1.0:
+            raise AssertionError(f"K4 {name}: worst error/bound {ratio}")
+        ms, ms_hot = cold_hot_ms(
+            lambda layer: ragged_decode_attention(q, kn, vn, 0.125, layer, wp, *mine))
+        rot = itertools.count()
+        plain_ms = time_ms(
+            lambda: ragged_decode_plain(q, kn, vn, 0.125, next(rot) % LAYERS, wp, *ref), LAYERS)
+        # bytes: the cached int8 K and V rows and their f32 scales read once,
+        # q and the new bf16 rows read, the appended int8 rows and scales and
+        # the f32 ctx written; operations: QK^T and PV over the live rows, at
+        # the int8 rate (the lower bound: PV runs in f32)
+        live = int((wp + 1).sum())
+        nbytes = (2 * (live - s) * (row + 4) + s * row * 2 + 2 * s * row * 2
+                  + 2 * s * (row + 4) + s * row * 4)
+        bound_ms, bound_by = bound(nbytes, 4 * live * row, "int8")
+        rows[name] = {"write_pos": wp_list, "max_abs_err": err, "ms": ms, "ms_hot": ms_hot,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        say(f"  K4 ragged int8 S={s} T={T_MAX} {name} write_pos={wp_list}: caches and scales "
+            f"bit-equal; ctx max_abs_err={err:.3e}, worst |err|/bound {ratio:.3f} (bound "
+            f"1e-5|ref| + 1e-6 per entry), differing {mismatch:.4%}, repeat bit-equal; kernel "
+            f"cold {ms:.4f} ms, hot {ms_hot:.4f} ms, plain cold {plain_ms:.4f} ms per layer, "
+            f"bound {bound_ms:.5f} ms ({bound_by}, {live} live rows; {bound_ms / ms:.1%} of "
+            f"cold)")
     del mine, ref
+    main = rows["ragged"]
     results["ragged_decode"] = {
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None,
+        **{k: v for k, v in main.items() if k != "write_pos"}, "library_ms": None,
         "library_none": "no single call quantises, appends in place and attends over "
                         "ragged int8 rows",
-        "shape": "S=8,cache=[30,8,1280,1024] int8+f32 scales, one layer"}
+        "shape": "S=8,cache=[30,8,1280,1024] int8+f32 scales, ragged write_pos",
+        "timing": "ms cold: call i on layer i % 30; ms_hot: every call on layer 17",
+        "by_shape": rows}
 
 
 def snr_db(ref: torch.Tensor, got: torch.Tensor) -> float:
@@ -658,6 +698,73 @@ def build_engine(dev, tokenizer, gpt_flags: dict, engine_flags: dict, **kw) -> X
     return engine
 
 
+def device_events(prof) -> list:
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def busy_ms(dev_events) -> float:
+    """The union of the device events' intervals, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo, hi = busy + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    return (busy + hi - lo) / 1e3
+
+
+def profile_decode(engine, smi: str, kernel: str) -> None:
+    """One block of `decode_steps` (the runner's 16 steps, then its one host
+    sync, the packed status) with every slot live at the phase-3 ragged
+    write positions: wall per step (host clock, median of 3 blocks), then one
+    block under torch.profiler for the device ms per step (sum of device
+    event times), the decode kernel's ms per step (device events whose name
+    holds `kernel`) and the device busy share (union of device intervals
+    over the profiled wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    de = engine.decode_engine
+    st, n = de.state, de.steps_per_sync
+    lens = torch.tensor(WRITE_POS_SETS["ragged"][:de.num_slots], dtype=torch.int32,
+                        device=engine.device)
+
+    def block():
+        st.seq_lens.copy_(lens)
+        st.audio_pos.fill_(1)
+        st.n_generated.zero_()
+        st.active.fill_(True)
+        st.done.fill_(False)
+        decode_steps(de.params, de.cfg, st, n)
+        return pack_status(st).cpu()
+
+    block()  # warm
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        block()
+        walls.append((time.perf_counter() - t0) * 1e3 / n)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        block()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof)
+    head = (f"  decode block: {n} steps x {de.num_slots} live slots (write_pos "
+            f"{lens.tolist()}), wall {statistics.median(walls):.3f} ms per step (median of 3: "
+            f"{', '.join(f'{w:.3f}' for w in walls)})")
+    if not events:
+        say(f"{head}; the profiler saw no device events: device ms not measured ({smi})")
+        return
+    dev_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    k_ms = sum(e.time_range.elapsed_us() for e in events if kernel in e.name) / 1e3
+    k_n = sum(kernel in e.name for e in events)
+    busy = busy_ms(events)
+    say(f"{head}; profiled block {prof_wall / n:.3f} ms wall per step, device "
+        f"{dev_ms / n:.3f} ms per step in {len(events) / n:.0f} device ops, {kernel} "
+        f"{k_ms / n:.4f} ms per step ({k_n / n:.0f} launches), device busy "
+        f"{busy / prof_wall:.1%} ({smi})")
+
+
 def profile_vocoder(engine, smi: str) -> None:
     """One 605-latent chunk through the engine's row vocoder (the bucket a
     full chunk takes): wall per chunk (host clock to the PCM on the host,
@@ -683,19 +790,12 @@ def profile_vocoder(engine, smi: str) -> None:
         engine.vocode_device_row(row, n, spk)
         prof_wall = (time.perf_counter() - t0) * 1e3
     k3_launches = run_fused_stage.launches - before
-    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_events = device_events(prof)
     if not dev_events:
         say(f"  vocoder: {n} latents, wall {statistics.median(walls):.2f} ms per chunk; the "
             f"profiler saw no device events: busy share not measured ({smi})")
         return
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
-    busy, (lo, hi) = 0.0, spans[0]
-    for a, b in spans[1:]:
-        if a > hi:
-            busy, lo, hi = busy + hi - lo, a, b
-        else:
-            hi = max(hi, b)
-    busy = (busy + hi - lo) / 1e3
+    busy = busy_ms(dev_events)
     k3_ms = sum(e.time_range.elapsed_us() for e in dev_events if "mrf_conv" in e.name) / 1e3
     say(f"  vocoder: {n} latents, wall {statistics.median(walls):.2f} ms per chunk (median of "
         f"3: {', '.join(f'{w:.2f}' for w in walls)}); profiled chunk {prof_wall:.2f} ms wall, "
@@ -704,10 +804,11 @@ def profile_vocoder(engine, smi: str) -> None:
 
 
 def run_slice(dev, smi: str, tokenizer, gpt_flags: dict, engine_flags: dict,
-              must_launch: tuple, profile: bool = False) -> dict:
+              must_launch: tuple, decode_kernel: str, vocoder: bool = False) -> dict:
     """Three requests through the TTS facade (one sync, two concurrent);
-    returns the launch counts of every kernel during them. With `profile`,
-    one chunk through the vocoder is then timed and profiled."""
+    returns the launch counts of every kernel during them. Then one decode
+    block is profiled (`decode_kernel`: the device name of the decode
+    attention kernel) and, with `vocoder`, one chunk through the vocoder."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     engine = build_engine(dev, tokenizer, gpt_flags, engine_flags)
@@ -751,7 +852,8 @@ def run_slice(dev, smi: str, tokenizer, gpt_flags: dict, engine_flags: dict,
     for name in must_launch:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the main path")
-    if profile:
+    profile_decode(engine, smi, decode_kernel)
+    if vocoder:
         profile_vocoder(engine, smi)
     del tts, engine
     return launches
@@ -954,6 +1056,8 @@ def main() -> int:
     say(f"  kernels built/loaded in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'})")
     say(f"  SASS: {sass_check(lib._name)}")
+    for line in decode_resource_usage(lib._name):
+        say(f"  K2/K4 resources: {line}")
 
     say("[3] kernels vs plain")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -972,10 +1076,11 @@ def main() -> int:
     tokenizer = build_tokenizer(XTTSConfig().gpt.number_text_tokens)
     say("[4] bf16 slice: full-width XTTSv2 on the TTS facade")
     bf16 = run_slice(dev, smi, tokenizer, {"flash_decode": True, "prefill_flash": True}, {},
-                     BF16_PATH, profile=True)
+                     BF16_PATH, "flash_decode_split_kernel", vocoder=True)
     say("[4b] int8 slice: int8 KV, W8A8 prefill and decode, ragged decode attention")
     int8 = run_slice(dev, smi, tokenizer, {"prefill_flash": True, "ragged_decode": True},
-                     {"kv_int8": True, "decode_w8a8": True, "prefill_w8a8": True}, INT8_PATH)
+                     {"kv_int8": True, "decode_w8a8": True, "prefill_w8a8": True}, INT8_PATH,
+                     "ragged_decode_split_kernel")
     say("[4c] dense int8 decode body with W8A8 decode")
     run_dense_int8(dev, tokenizer)
     say("[4d] K5 path: the int8 slice's decode MLPs through the fused W8A8 kernel")

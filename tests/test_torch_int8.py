@@ -18,6 +18,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from helpers import build_tiny_engine, sine_wav
+from test_torch_kernels import split_partials
 
 from auralis_tpu.models.xttsv2 import gpt as jgpt
 from auralis_tpu.models.xttsv2.config import tiny_test_config as jax_tiny
@@ -31,7 +32,12 @@ from auralis_tpu_torch.models.xttsv2 import gpt as tgpt
 from auralis_tpu_torch.models.xttsv2 import weights as tw
 from auralis_tpu_torch.models.xttsv2.config import tiny_test_config as torch_tiny
 from auralis_tpu_torch.models.xttsv2.engine import XTTSv2Engine
-from auralis_tpu_torch.ops.experimental.attention import ragged_decode_attention
+from auralis_tpu_torch.ops.experimental.attention import (
+    DECODE_SPLIT,
+    combine_splits_plain,
+    ragged_decode_attention,
+    split_plan,
+)
 from auralis_tpu_torch.ops.experimental.fused_mlp import (
     fused_mlp_w8,
     fused_mlp_w8_plain,
@@ -262,6 +268,47 @@ def test_ragged_plain_matches_pallas(seed):
     np.testing.assert_allclose(ctx_t.numpy(), np.asarray(ctx_j), rtol=0, atol=1e-5)
     for got, want in zip(caches_t, caches_j):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("split", [DECODE_SPLIT, 64])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_combine_splits_matches_pallas_ragged(seed, split):
+    """Split-K K4 in plain PyTorch: per-split partials (int8 scores x
+    k-scale x q-scale x attn_scale; values v_int8 x v-scale) over the
+    appended int8 cache, merged by combine_splits_plain, against the Pallas
+    kernel in interpret mode at test_ragged_plain_matches_pallas's shapes
+    and tolerance; NaN-free where a split is empty."""
+    rng = np.random.default_rng(seed + 10)
+    l, s, t, h, d = 2, 16, 2 * CHUNK, 4, 32
+    layer = seed % l
+    k_f, v_f = (rng.standard_normal((l, s, t, h * d)).astype(np.float32) for _ in range(2))
+    ks, vs = (np.maximum(np.abs(a).max(-1), 1e-8) / np.float32(127.0) for a in (k_f, v_f))
+    k_i8 = np.round(k_f / ks[..., None]).astype(np.int8)
+    v_i8 = np.round(v_f / vs[..., None]).astype(np.int8)
+    q = rng.standard_normal((s, h, d)).astype(np.float32)
+    k_new, v_new = (rng.standard_normal((s, h * d)).astype(np.float32) for _ in range(2))
+    pos = rng.integers(0, t - 2, size=(s,)).astype(np.int32)
+    pos[:5] = (0, split - 1, split, split + 1, t - 1)  # one-row splits, split edges, the last row
+    scale = 1.0 / math.sqrt(d)
+    ctx_j, *_ = jax_ragged(
+        jnp.asarray(q), jnp.asarray(k_new), jnp.asarray(v_new), scale, jnp.int32(layer),
+        jnp.asarray(pos), jnp.asarray(k_i8), jnp.asarray(v_i8), jnp.asarray(ks),
+        jnp.asarray(vs), interpret=True)
+    caches = [torch.from_numpy(a.copy()) for a in (k_i8, v_i8, ks, vs)]
+    wpt = torch.from_numpy(pos)
+    ragged_decode_attention(torch.from_numpy(q), torch.from_numpy(k_new),
+                            torch.from_numpy(v_new), scale, layer, wpt, *caches)  # the append
+    kc, vc, kscale, vscale = (c[layer] for c in caches)
+    q_i8, q_s = tgpt._quantize_rows(torch.from_numpy(q))
+    scores = torch.einsum("shd,sthd->sht", q_i8.float(), kc.float().reshape(s, t, h, d))
+    logits = scores * kscale[:, None, :] * (q_s * scale)[:, :, None]
+    logits = logits.masked_fill(torch.arange(t)[None, None] > wpt[:, None, None], -torch.inf)
+    vals = vc.float().reshape(s, t, h, d) * vscale[:, :, None, None]
+    m, l_sum, acc = split_partials(logits, vals, split_plan(t, split))
+    assert torch.isinf(m).any()  # empty splits occur
+    ctx = combine_splits_plain(m, l_sum, acc).reshape(s, h * d)
+    assert torch.isfinite(ctx).all()
+    np.testing.assert_allclose(ctx.numpy(), np.asarray(ctx_j), rtol=0, atol=1e-5)
 
 
 def test_ragged_rejects_write_pos_outside_cache():

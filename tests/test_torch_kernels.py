@@ -20,7 +20,12 @@ from auralis_tpu.ops.experimental.attention import (
 )
 from auralis_tpu.ops.mrf import PackedMRFStage as JaxPackedMRFStage
 from auralis_tpu.ops.prefill_attention import prefill_flash_attention as jax_prefill
-from auralis_tpu_torch.ops.experimental.attention import flash_decode_append_attention
+from auralis_tpu_torch.ops.experimental.attention import (
+    DECODE_SPLIT,
+    combine_splits_plain,
+    flash_decode_append_attention,
+    split_plan,
+)
 from auralis_tpu_torch.ops.mrf import PackedMRFStage, _conv, pack_conv_weight, run_fused_stage
 from auralis_tpu_torch.ops.prefill_attention import (
     prefill_attention_plain,
@@ -134,6 +139,90 @@ def test_flash_decode_plain_uses_f32_probabilities():
     # rare rounding, but bf16 probabilities would change ~40% of the entries
     mismatch = (ctx != want.to(torch.bfloat16)).float().mean().item()
     assert mismatch <= 0.01, mismatch
+
+
+def split_partials(logits: torch.Tensor, vals: torch.Tensor, plan) -> tuple:
+    """Each split's partial as a K2/K4 block leaves it, in plain PyTorch:
+    logits [S, H, T] (-inf past the live rows), vals [S, T, H, D]; per split
+    m = max logit, l = sum exp(logit - m), acc = sum exp(logit - m) v, and
+    (-inf, 0, 0) for a split with no live row."""
+    ms, ls, accs = [], [], []
+    for a, b in plan:
+        lg = logits[..., a:b]
+        m = lg.amax(dim=-1)
+        p = torch.where(lg == -torch.inf, torch.zeros_like(lg), torch.exp(lg - m[..., None]))
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("sht,sthd->shd", p, vals[:, a:b]))
+    return torch.stack(ms, -1), torch.stack(ls, -1), torch.stack(accs, -2)
+
+
+@pytest.mark.parametrize("t_max", range(CHUNK, 16 * CHUNK + 1, CHUNK))
+def test_split_plan_tiles_every_cache_length(t_max):
+    """The kernels' grid: t_max / DECODE_SPLIT splits of DECODE_SPLIT rows
+    that tile [0, t_max) in order, for every T the cache can have."""
+    plan = split_plan(t_max)
+    assert len(plan) == t_max // DECODE_SPLIT
+    assert plan[0][0] == 0 and plan[-1][1] == t_max
+    assert all(b - a == DECODE_SPLIT for a, b in plan)
+    assert all(plan[i][1] == plan[i + 1][0] for i in range(len(plan) - 1))
+    assert split_plan(t_max, 64) == [(a, a + 64) for a in range(0, t_max, 64)]
+
+
+@pytest.mark.parametrize("t_max,split", [(CHUNK + 128, DECODE_SPLIT), (0, DECODE_SPLIT),
+                                         (CHUNK, 96), (CHUNK, 0)])
+def test_split_plan_rejects_bad_lengths(t_max, split):
+    with pytest.raises(ValueError):
+        split_plan(t_max, split)
+
+
+def test_combine_splits_plain_empty_splits():
+    """Empty splits weigh nothing; all splits empty give 0, not NaN."""
+    m = torch.tensor([[1.0, -torch.inf, 0.5], [-torch.inf] * 3])
+    l = torch.tensor([[2.0, 0.0, 1.0], [0.0] * 3])
+    acc = torch.arange(2 * 3 * 4, dtype=torch.float32).reshape(2, 3, 4)
+    out = combine_splits_plain(m, l, acc)
+    w = torch.exp(torch.tensor([0.0, -0.5]))
+    want0 = (acc[0, 0] * w[0] + acc[0, 2] * w[1]) / (2.0 * w[0] + 1.0 * w[1])
+    torch.testing.assert_close(out[0], want0)
+    assert torch.equal(out[1], torch.zeros(4))
+
+
+@pytest.mark.parametrize("split", [DECODE_SPLIT, 64])
+@pytest.mark.parametrize("write_pos", [
+    [0, 127, 128, 129, 2 * CHUNK - 1, 300],   # one-row splits, split edges, the last row
+    [0, 0, 1, 1, 64, 65],                     # every split but the first empty
+])
+def test_combine_splits_matches_pallas_flash_decode(write_pos, split):
+    """Split-K K2 in plain PyTorch: per-split partials over the appended
+    cache, merged by combine_splits_plain, against the Pallas kernel in
+    interpret mode (the JAX flash-decode test's tolerance); NaN-free where
+    a split is empty."""
+    rng = np.random.default_rng(sum(write_pos) + split)
+    s, h, d, l, t, layer = len(write_pos), 4, 64, 2, 2 * CHUNK, 1
+    q = rng.standard_normal((s, h, d)).astype(np.float32)
+    k_new, v_new = ((0.3 * rng.standard_normal((s, h * d))).astype(np.float32) for _ in range(2))
+    k_cache, v_cache = ((0.3 * rng.standard_normal((l, s, t, h * d))).astype(np.float32)
+                        for _ in range(2))
+    wp = np.asarray(write_pos, np.int32)
+    ctx_j, _, _ = jax_flash_decode(
+        jnp.asarray(q), jnp.asarray(k_new), jnp.asarray(v_new), jnp.asarray(k_cache),
+        jnp.asarray(v_cache), jnp.int32(layer), jnp.asarray(wp), interpret=True)
+    kc, vc = torch.from_numpy(k_cache), torch.from_numpy(v_cache)
+    wpt = torch.from_numpy(wp)
+    flash_decode_append_attention(torch.from_numpy(q), torch.from_numpy(k_new),
+                                  torch.from_numpy(v_new), kc, vc, layer, wpt)  # the append
+    kh, vh = (c[layer].reshape(s, t, h, d) for c in (kc, vc))
+    logits = torch.einsum("shd,sthd->sht", torch.from_numpy(q) / math.sqrt(d), kh)
+    logits = logits.masked_fill(torch.arange(t)[None, None] > wpt[:, None, None], -torch.inf)
+    plan = split_plan(t, split)
+    m, l_sum, acc = split_partials(logits, vh, plan)
+    lens = (wpt[:, None] + 1 - torch.tensor([a for a, _ in plan])[None]).clamp(0, split)
+    assert (lens == 0).any() and (lens == 1).any()  # empty and one-row splits occur
+    assert torch.isinf(m[lens[:, None, :].expand_as(m) == 0]).all()
+    ctx = combine_splits_plain(m, l_sum, acc)
+    assert torch.isfinite(ctx).all()
+    np.testing.assert_allclose(ctx.numpy(), np.asarray(ctx_j), rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("bad", [-1, CHUNK])
