@@ -69,8 +69,9 @@ class KVCache:
 
 
 def make_kv_cache(cfg: XTTSGPTConfig, num_slots: int, dtype=torch.bfloat16,
-                  device="cpu") -> KVCache:
-    """Zeroed cache in `dtype`; under cfg.kv_int8 int8 rows with scales
+                  device="cuda") -> KVCache:
+    """Zeroed cache in `dtype` on `device` (the card unless the caller names
+    another; raises without one); under cfg.kv_int8 int8 rows with scales
     initialised to ones (`dtype` is then unused)."""
     t_pad = -(-cfg.max_seq_len // CHUNK) * CHUNK
     shape = (cfg.num_hidden_layers, num_slots, t_pad, cfg.num_attention_heads * cfg.head_dim)

@@ -42,9 +42,11 @@ SIGNATURES = {
     # q, k_new, v_new (bf16), k_cache, v_cache, k_scale, v_scale, write_pos, ctx,
     # partials, tickets, S, H, T, layer, split, attn_scale, stream
     "ragged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    # x (bf16), fc_wq, fc_ws, fc_b, proj_wq, proj_ws, proj_b, g, part, out (bf16),
-    # S, D, I, tile_i, stream
-    "fused_mlp_w8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x (bf16), fc_wq, fc_ws, fc_b, proj_wq, proj_ws, proj_b, g, gmax, part,
+    # tickets, out (bf16), S, D, I, tile_i, stream
+    "fused_mlp_w8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # cudaGraph_t, counts (int[2]: full and programmatic edges)
+    "graph_edge_types": [_P, _P],
     # src, w, b, out, B, T, C, K, dilation, is_bf16, src_is_f32, stream
     "mrf_conv_lrelu": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # act, res, w, b, y, acc, out, B, T, C, K, dilation, is_bf16, res_is_f32,

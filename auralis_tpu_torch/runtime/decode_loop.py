@@ -29,7 +29,7 @@ from .sampler import SamplingState, init_sampling_state, sample_tokens
 PREFILL_BUCKETS = (64, 128, 256, 512)
 
 
-def _prompt_seen_row(cfg: XTTSGPTConfig, device="cpu") -> torch.Tensor:
+def _prompt_seen_row(cfg: XTTSGPTConfig, device="cuda") -> torch.Tensor:
     """Initial seen-mask row for a fresh sequence: with
     cfg.reppen_penalize_prompt_ids (reference parity) ids {1,
     start_audio_token} are penalized from step 0."""
@@ -65,7 +65,9 @@ class DecodeState:
 
 
 def init_decode_state(cfg: XTTSGPTConfig, num_slots: int, seed: int = 0,
-                      dtype=torch.bfloat16, device="cpu") -> DecodeState:
+                      dtype=torch.bfloat16, device="cuda") -> DecodeState:
+    """The decode state of `num_slots` slots on `device`: the card unless the
+    caller names another (raises without one)."""
     assert cfg.max_audio_tokens < (1 << 14), (
         f"max_audio_tokens={cfg.max_audio_tokens} overflows the packed status word"
     )

@@ -36,7 +36,7 @@ class SamplingState:
         return [getattr(self, f.name) for f in fields(self)]
 
 
-def init_sampling_state(num_slots: int, vocab_size: int, device="cpu") -> SamplingState:
+def init_sampling_state(num_slots: int, vocab_size: int, device="cuda") -> SamplingState:
     s = num_slots
     return SamplingState(
         temperature=torch.full((s,), 0.75, dtype=torch.float32, device=device),

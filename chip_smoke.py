@@ -7,7 +7,7 @@ Phases:
  2. build: the hand-written CUDA kernels from auralis_tpu_torch/csrc (nvcc),
     and cuobjdump's SASS: tensor-core HMMA in the bf16 K1 and K3 kernels,
     none in their f32 instantiations; the registers and local-memory
-    (spill) bytes of the K2 and K4 kernels (cuobjdump -res-usage);
+    (spill) bytes of the K2, K4 and K5 kernels (cuobjdump -res-usage);
  3. each kernel against its plain PyTorch version on the card, at the main
     path's shapes: the error entry by entry and the share of entries that
     differ, each against a stated bound, and both device times (repeated
@@ -19,6 +19,10 @@ Phases:
     ragged mix, split edges, all slots at 0, 127 and 1046), each launched
     twice (bit-equal ctx), and are timed cold (call i on layer i % 30, as
     a decode step reads them: `ms`) and hot (one layer, in L2: `ms_hot`);
+    K5 the same over 30 layers' MLP weights in the serving layout, beside
+    the serving chain's cold time (`serving_chain_ms`), with two launches
+    bit-equal and its fc -> proj overlap kept in a CUDA graph (the
+    captured graph's programmatic edge);
  4. the bf16 slice: an XTTSv2Engine at the full XTTSConfig() width with
     seeded random bf16 weights and a bf16 KV cache behind the TTS facade
     answers three requests (one sync, two concurrent); every waveform must
@@ -49,6 +53,7 @@ script exits non-zero when no CUDA device is visible. JAX is never imported.
 from __future__ import annotations
 
 import asyncio
+import ctypes
 import dataclasses
 import itertools
 import json
@@ -115,6 +120,7 @@ from decode_bench import (
     cold_hot_ms,
     k2_inputs,
     k4_inputs,
+    k5_inputs,
     time_ms,
 )
 
@@ -168,8 +174,8 @@ def cuobjdump() -> str | None:
     return tool if os.path.exists(tool) else None
 
 
-def decode_resource_usage(so_path: str) -> list[str]:
-    """`cuobjdump -res-usage` of the built library for the K2 and K4
+def kernel_resource_usage(so_path: str) -> list[str]:
+    """`cuobjdump -res-usage` of the built library for the K2, K4 and K5
     kernels: registers per thread, stack, shared and local (spill) bytes."""
     tool = cuobjdump()
     if tool is None:
@@ -181,12 +187,12 @@ def decode_resource_usage(so_path: str) -> list[str]:
         if "Function " in line:
             fn = line.split("Function ")[1].split(":")[0].strip()
         if fn and "REG:" in line:
-            if "decode_split_kernel" in fn:
+            if "decode_split_kernel" in fn or "mlp_" in fn:
                 usage = [w for w in line.split() if w.split(":")[0] in
                          ("REG", "STACK", "SHARED", "LOCAL")]
                 found.append(f"{fn}: {' '.join(usage)}")
             fn = None
-    return found or ["no K2/K4 kernel in cuobjdump -res-usage"]
+    return found or ["no K2/K4/K5 kernel in cuobjdump -res-usage"]
 
 
 def sass_check(so_path: str) -> str:
@@ -562,66 +568,105 @@ def snr_db(ref: torch.Tensor, got: torch.Tensor) -> float:
                                                           1e-30))
 
 
+def k5_graph_edges(args) -> tuple[list[int] | None, str]:
+    """One K5 call captured in a CUDA graph, its edges counted by type
+    (graph_edge_types in csrc/fused_mlp_w8.cu): ([full, programmatic], how
+    read), or (None, why not read)."""
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fused_mlp_w8(*args)
+    counts = (ctypes.c_int * 2)()
+    code = _build.library().graph_edge_types(graph.raw_cuda_graph(), ctypes.addressof(counts))
+    del graph
+    if code != 0:
+        return None, f"cudaGraphGetEdges returned {code} (edge types need CUDA 12.3): not read"
+    return list(counts), "cudaGraphGetEdges on the captured graph"
+
+
 def check_fused_mlp(dev, results) -> None:
-    """K5 at decode shape: S 8, D 1024, I 4096, tile_i 1024, bf16
-    activations, weights at the 0.02 init scale quantised by
-    quantize_decode_weights (as the JAX test builds them)."""
-    gen = torch.Generator(device=dev).manual_seed(5)
-    s, d, i = 8, 1024, 4096
-    fc_w = 0.02 * torch.randn((1, d, i), generator=gen, device=dev)
-    proj_w = 0.02 * torch.randn((1, i, d), generator=gen, device=dev)
-    q8 = quantize_decode_weights({"attn_w": fc_w, "attn_proj_w": proj_w, "fc_w": fc_w,
-                                  "fc_proj_w": proj_w})
-    fc_b = 0.01 * torch.randn((i,), generator=gen, device=dev)
-    proj_b = 0.01 * torch.randn((d,), generator=gen, device=dev)
-    x = torch.randn((s, d), generator=gen, device=dev).to(torch.bfloat16)
-    # the library GEMMs of the plain side read the weights in quantize_decode_
-    # weights' column-major layout; K5 reads row-major copies, made once
-    args = (x, q8["fc_w_q"][0], q8["fc_w_s"][0], fc_b, q8["fc_proj_w_q"][0],
-            q8["fc_proj_w_s"][0], proj_b)
-    args_k = tuple(a.contiguous() for a in args)
-    got = fused_mlp_w8(*args_k)
-    torch.cuda.synchronize()
-    want = fused_mlp_w8_plain(*args)
-    serving = mlp_w8_reference(*args)
-    err = (got.float() - want.float()).abs().max().item()
-    # The kernel follows the plain version's operations one by one (same
-    # int8 values, exact int32 products, no contracted multiply-adds, erff
-    # in both gelus), so it should be bit-equal. Allowed for: a gelu value
-    # one ulp apart that is the largest of its (row, tile) moves that scale
-    # and redraws the row's requantisation, which moves its D outputs at the
-    # quantisation-noise level (3.3e-4 of a 0.37 output scale on the CPU
-    # against the Pallas polynomial gelu); one bf16 step is 2^-7 of |ref|.
-    # Bounds: per entry 2^-7 |ref| + 2^-9 of the output scale, at most 2 of
-    # the 8 rows differing at all, and SNR against the plain version above
-    # 50 dB.
-    scale = want.float().abs().max().item()
-    ratio, mismatch = elementwise(got, want, 2.0 ** -7, 2.0 ** -9 * scale)
-    rows_off = int((got != want).any(dim=1).sum())
-    snr_plain, snr_serving = snr_db(want, got), snr_db(serving, got)
-    ms = time_ms(lambda: fused_mlp_w8(*args_k), 50)
-    plain_ms = time_ms(lambda: fused_mlp_w8_plain(*args), 20)
+    """K5 at decode shape: S 8, D 1024, I 4096, bf16 activations, 30 layers
+    of weights in the serving layout (decode_bench.k5_inputs: 240 MB against
+    the 50 MB L2). On layer 17: at tile_i 1024 (the main path's) against
+    the plain version and the serving `_dot_w8a8` chain; at tile_i 256 (16
+    tiles to merge) and at S 3 and 1 (part of a row block live) against the
+    plain version; every shape launched twice (bit-equal). Timed cold (call
+    i on layer i % 30, `ms`) and hot (layer 17, `ms_hot`), the plain
+    version and the serving chain cold. One call captured in a CUDA graph
+    must keep its programmatic fc -> proj edge."""
+    x, fc_wq, fc_ws, fc_b, proj_wq, proj_ws, proj_b = k5_inputs(dev)
+    s, d, i = x.shape[0], x.shape[1], fc_wq.shape[-1]
+
+    def layer_args(layer: int, rows: int = s) -> tuple:
+        return (x[:rows], fc_wq[layer], fc_ws[layer], fc_b[layer], proj_wq[layer],
+                proj_ws[layer], proj_b[layer])
+
+    checks = {}
+    for rows, tile in ((s, 1024), (s, 256), (3, 256), (1, 1024)):
+        args = layer_args(HOT_LAYER, rows)
+        got = fused_mlp_w8(*args, tile_i=tile)
+        again = fused_mlp_w8(*args, tile_i=tile)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"K5 S={rows} tile_i={tile}: two launches differ")
+        want = fused_mlp_w8_plain(*args, tile_i=tile)
+        err = (got.float() - want.float()).abs().max().item()
+        # The kernel follows the plain version's operations one by one (same
+        # int8 values, exact int32 products, no contracted multiply-adds,
+        # erff in both gelus), so it should be bit-equal. Allowed for: a
+        # gelu value one ulp apart that is the largest of its (row, tile)
+        # moves that scale and redraws the row's requantisation, which moves
+        # its D outputs at the quantisation-noise level (3.3e-4 of a 0.37
+        # output scale on the CPU against the Pallas polynomial gelu); one
+        # bf16 step is 2^-7 of |ref|. Bounds: per entry 2^-7 |ref| + 2^-9 of
+        # the output scale, at most 2 of the 8 rows differing at all, and
+        # SNR against the plain version above 50 dB.
+        scale = want.float().abs().max().item()
+        ratio, mismatch = elementwise(got, want, 2.0 ** -7, 2.0 ** -9 * scale)
+        rows_off = int((got != want).any(dim=1).sum())
+        snr_plain = snr_db(want, got)
+        line = (f"  K5 fused W8A8 MLP S={rows} D={d} I={i} tile_i={tile}: max_abs_err={err:.3e} "
+                f"(|ref|max {scale:.3f}), worst |err|/bound {ratio:.3f} (bound 2^-7|ref| + "
+                f"2^-9 |ref|max), differing {mismatch:.4%} in {rows_off} of {rows} rows (bound "
+                f"2 rows), SNR vs plain {snr_plain:.1f} dB (bound 50), repeat bit-equal")
+        ok = ratio <= 1.0 and rows_off <= 2 and snr_plain > 50.0
+        if (rows, tile) == (s, 1024):
+            snr_serving = snr_db(mlp_w8_reference(*args), got)
+            line += f"; vs the serving _dot_w8a8 chain {snr_serving:.1f} dB (bound 28)"
+            ok = ok and snr_serving > 28.0
+        say(line)
+        if not ok:
+            raise AssertionError(f"K5 S={rows} tile_i={tile}: ratio {ratio}, rows off "
+                                 f"{rows_off}, SNR {snr_plain} dB")
+        checks[f"S={rows} tile_i={tile}"] = {"max_abs_err": err, "rows_differing": rows_off,
+                                             "snr_plain_db": snr_plain}
+    edges, how = k5_graph_edges(layer_args(HOT_LAYER))
+    say(f"  K5 in a CUDA graph: edges (full, programmatic) {edges} ({how})")
+    if edges is not None and edges[1] < 1:
+        raise AssertionError(f"K5: the captured graph lost the fc -> proj programmatic edge "
+                             f"({edges})")
+    ms, ms_hot = cold_hot_ms(lambda layer: fused_mlp_w8(*layer_args(layer)))
+    rot = itertools.count()
+    plain_ms = time_ms(lambda: fused_mlp_w8_plain(*layer_args(next(rot) % LAYERS)), LAYERS)
+    rot = itertools.count()
+    serving_ms = time_ms(lambda: mlp_w8_reference(*layer_args(next(rot) % LAYERS)), LAYERS)
     # bytes: x, the int8 weights, their scales and the biases read once, the
     # bf16 output written; operations: both products at the int8 rate
-    nbytes = sum(a.numel() * a.element_size() for a in args_k) + got.numel() * 2
+    args = layer_args(HOT_LAYER)
+    nbytes = sum(a.numel() * a.element_size() for a in args) + s * d * 2
     bound_ms, bound_by = bound(nbytes, 2 * 2 * s * d * i, "int8")
-    say(f"  K5 fused W8A8 MLP S={s} D={d} I={i} tile_i=1024: max_abs_err={err:.3e} "
-        f"(|ref|max {scale:.3f}), worst |err|/bound {ratio:.3f} (bound 2^-7|ref| + 2^-9 "
-        f"|ref|max), differing {mismatch:.4%} in {rows_off} of {s} rows (bound 2 rows), "
-        f"SNR vs plain {snr_plain:.1f} dB "
-        f"(bound 50), vs the serving _dot_w8a8 chain {snr_serving:.1f} dB (bound 28); "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, "
-        f"{bound_ms / ms:.1%} of it); library: none (no single call does int8 fc + gelu + "
-        f"proj)")
-    if not (ratio <= 1.0 and rows_off <= 2 and snr_plain > 50.0 and snr_serving > 28.0):
-        raise AssertionError(f"K5: ratio {ratio}, mismatch {mismatch}, SNR {snr_plain} / "
-                             f"{snr_serving} dB")
+    say(f"  K5 S={s} tile_i=1024 timing: kernel cold {ms:.4f} ms, hot {ms_hot:.4f} ms; plain "
+        f"cold {plain_ms:.4f} ms; serving chain (_dot_w8a8 x2 around gelu) cold "
+        f"{serving_ms:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}, {bound_ms / ms:.1%} of "
+        f"cold); library: none (no single call does int8 fc + gelu + proj)")
     results["fused_mlp_w8"] = {
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None,
+        "max_abs_err": checks[f"S={s} tile_i=1024"]["max_abs_err"], "ms": ms, "ms_hot": ms_hot,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "library_none": "no single call does the int8 fc + gelu + proj with per-row "
                         "requantisation",
-        "shape": "S=8,D=1024,I=4096,tile_i=1024, bf16 x, int8 weights"}
+        "serving_chain_ms": serving_ms, "graph_edges_full_programmatic": edges,
+        "shape": "S=8,D=1024,I=4096,tile_i=1024, bf16 x, int8 weights column-major",
+        "timing": "ms cold: call i on layer i % 30 of 30 layers' weights; ms_hot: layer 17",
+        "checks": checks}
 
 
 def elementwise(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float):
@@ -898,7 +943,6 @@ def run_fused_mlp_path(dev) -> int:
     g = XTTSConfig().gpt
     bp = tree_to_torch(init_gpt_params(g, 0)["blocks"], dev, torch.bfloat16)
     bq = quantize_decode_weights(bp)
-    fc_rm, proj_rm = bq["fc_w_q"].contiguous(), bq["fc_proj_w_q"].contiguous()  # K5's layout
     gen = torch.Generator(device=dev).manual_seed(6)
     fused_mlp_w8.launches = 0
     worst = math.inf
@@ -907,7 +951,8 @@ def run_fused_mlp_path(dev) -> int:
         xn = layer_norm(x, bp["ln2_scale"][layer], bp["ln2_bias"][layer])
         scales = (bq["fc_w_s"][layer], bp["fc_b"][layer], bq["fc_proj_w_s"][layer],
                   bp["fc_proj_b"][layer])
-        got = fused_mlp_w8(xn, fc_rm[layer], scales[0], scales[1], proj_rm[layer], *scales[2:])
+        got = fused_mlp_w8(xn, bq["fc_w_q"][layer], scales[0], scales[1],
+                           bq["fc_proj_w_q"][layer], *scales[2:])
         want = mlp_w8_reference(xn, bq["fc_w_q"][layer], scales[0], scales[1],
                                 bq["fc_proj_w_q"][layer], *scales[2:])
         worst = min(worst, snr_db(want, got))
@@ -1056,8 +1101,8 @@ def main() -> int:
     say(f"  kernels built/loaded in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'})")
     say(f"  SASS: {sass_check(lib._name)}")
-    for line in decode_resource_usage(lib._name):
-        say(f"  K2/K4 resources: {line}")
+    for line in kernel_resource_usage(lib._name):
+        say(f"  K2/K4/K5 resources: {line}")
 
     say("[3] kernels vs plain")
     torch.backends.cuda.matmul.allow_tf32 = False

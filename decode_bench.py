@@ -1,22 +1,26 @@
-"""The decode-attention kernels K2 and K4 at chip_smoke phase 3's shapes,
-timed cold and hot, for one tree or for two trees in turns.
+"""The decode kernels K2, K4 and K5 at chip_smoke phase 3's shapes, timed
+cold and hot, for one tree or for two trees in turns.
 
     python3 decode_bench.py OTHER_TREE [--out chiprun_out/decode_ab.json]
 
 Times K2 (`flash_decode_append_attention`) and K4 (`ragged_decode_attention`)
 of OTHER_TREE's `auralis_tpu_torch` (for example a `git archive` of an
 earlier commit, unpacked) and of this tree's, at every write-position set
-of WRITE_POS_SETS, in four processes in the order other, this, this, other,
-on one card. Each process imports only its own tree's package and builds
-its kernels; the timing is this file's. Prints one line per (shape, kernel)
-and writes every number to --out. Needs a CUDA device.
+of WRITE_POS_SETS, and K5 (`fused_mlp_w8`) at S = 8, D = 1024, I = 4096,
+tile_i 1024, in four processes in the order other, this, this, other, on
+one card. Each process imports only its own tree's package and builds its
+kernels; the timing is this file's. K5 gets its weights in the layout its
+tree's wrapper takes: the module's WEIGHT_LAYOUT, and row-major (contiguous)
+copies for a tree whose module has none (before K5 read the serving
+layout). Prints one line per (shape, kernel) and writes every number to
+--out. Needs a CUDA device.
 
 Timing (`time_ms`): repeated calls captured in one CUDA graph, the graph
 replayed 5 times and timed with CUDA events, the median replay over the
-calls. "cold": call i reads layer i % 30 of a [30, 8, 1280, 1024] cache, so
-each call finds its slab outside the 50 MB L2, as a decode step does (it
-reads each of the 30 layers once). "hot": every call reads layer 17, whose
-live rows then stay in L2.
+calls. "cold": call i reads layer i % 30 (of a [30, 8, 1280, 1024] cache,
+or of 30 layers' MLP weights, 240 MB), so each call finds its slab outside
+the 50 MB L2, as a decode step does (it reads each of the 30 layers once).
+"hot": every call reads layer 17, whose rows or weights then stay in L2.
 
 chip_smoke.py imports `time_ms`, the shapes and the input builders.
 """
@@ -31,6 +35,7 @@ import subprocess
 import sys
 
 LAYERS, SLOTS, T_MAX, HEADS, HEAD_DIM, HOT_LAYER = 30, 8, 1280, 16, 64, 17
+INNER = 4 * HEADS * HEAD_DIM  # K5's I: the GPT MLP's inner width
 COLD_CALLS, HOT_CALLS = 2 * LAYERS, 50
 # write_pos per slot: the ragged mix across the 256-row chunk edges; the
 # 128-row split edges and the cache's last row; every split but the first
@@ -113,8 +118,37 @@ def k4_inputs(dev, seed: int = 4):
     return q, kn, vn, (kc, vc, ks, vs)
 
 
+def k5_inputs(dev, seed: int = 5):
+    """x [8, 1024] bf16 standard normal; fc_wq [30, 1024, 4096] and proj_wq
+    [30, 4096, 1024] int8 in the serving layout (each matrix column-major,
+    as quantize_decode_weights stores it) with their per-output-channel f32
+    scales [30, 4096] / [30, 1024], quantised from 0.02 x standard normal
+    weights by that function's recipe; f32 biases 0.01 x standard normal."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d, i = HEADS * HEAD_DIM, INNER
+
+    def q8(din: int, dout: int):
+        wq = torch.empty((LAYERS, dout, din), dtype=torch.int8, device=dev)
+        ws = torch.empty((LAYERS, dout), device=dev)
+        for layer in range(LAYERS):  # one f32 layer at a time
+            w = 0.02 * torch.randn((dout, din), generator=gen, device=dev)
+            ws[layer] = torch.clamp(w.abs().amax(dim=1), min=1e-8) * (1.0 / 127.0)
+            wq[layer] = torch.round(w / ws[layer][:, None]).to(torch.int8)
+        return wq.transpose(-1, -2), ws
+
+    fc_wq, fc_ws = q8(d, i)
+    proj_wq, proj_ws = q8(i, d)
+    fc_b = 0.01 * torch.randn((LAYERS, i), generator=gen, device=dev)
+    proj_b = 0.01 * torch.randn((LAYERS, d), generator=gen, device=dev)
+    x = torch.randn((SLOTS, d), generator=gen, device=dev).to(torch.bfloat16)
+    return x, fc_wq, fc_ws, fc_b, proj_wq, proj_ws, proj_b
+
+
 def worker(tree: str) -> dict:
-    """Cold and hot ms of TREE's K2 and K4 at every write-position set."""
+    """Cold and hot ms of TREE's K2 and K4 at every write-position set, and
+    of its K5."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     from auralis_tpu_torch.ops.experimental import attention
@@ -132,6 +166,16 @@ def worker(tree: str) -> dict:
         wp = torch.tensor(wp_list, dtype=torch.int32, device=dev)
         out["ms"][f"K4 {name}"] = cold_hot_ms(
             lambda layer: attention.ragged_decode_attention(q, kn, vn, 0.125, layer, wp, *caches))
+    del caches
+    from auralis_tpu_torch.ops.experimental import fused_mlp
+
+    x, fc_wq, fc_ws, fc_b, proj_wq, proj_ws, proj_b = k5_inputs(dev)
+    out["k5_layout"] = getattr(fused_mlp, "WEIGHT_LAYOUT", "row-major")
+    if out["k5_layout"] == "row-major":
+        fc_wq, proj_wq = fc_wq.contiguous(), proj_wq.contiguous()
+    out["ms"]["K5 S=8 tile_i=1024"] = cold_hot_ms(lambda layer: fused_mlp.fused_mlp_w8(
+        x, fc_wq[layer], fc_ws[layer], fc_b[layer], proj_wq[layer], proj_ws[layer],
+        proj_b[layer]))
     return out
 
 
@@ -164,7 +208,8 @@ def main() -> int:
             print(proc.stdout, proc.stderr, file=sys.stderr)
             return 1
         runs.append((label, json.loads(proc.stdout.strip().splitlines()[-1])))
-        print(f"  {label} run {len(runs)}: {runs[-1][1]['module']}", flush=True)
+        print(f"  {label} run {len(runs)}: {runs[-1][1]['module']} (K5 weights "
+              f"{runs[-1][1]['k5_layout']})", flush=True)
     rows = {}
     for key in runs[0][1]["ms"]:
         by = {lab: [r["ms"][key] for lab2, r in runs if lab2 == lab] for lab in ("other", "this")}

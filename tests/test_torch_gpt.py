@@ -149,7 +149,7 @@ def test_decode_loop_greedy_matches_jax():
     jc, tc = _cfgs(flash_decode=True, prefill_flash=True)
     jp, tp = _both(_params(10))
     js = jloop.init_decode_state(jc, 3, jax.random.PRNGKey(0), dtype=jnp.float32)
-    ts = tloop.init_decode_state(tc, 3, seed=0, dtype=torch.float32)
+    ts = tloop.init_decode_state(tc, 3, seed=0, dtype=torch.float32, device="cpu")
     rng = np.random.default_rng(11)
     for slot, n_ids in ((0, 9), (2, 20)):
         cond = rng.standard_normal((8, 64)).astype(np.float32)

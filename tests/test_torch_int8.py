@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from helpers import build_tiny_engine, sine_wav
@@ -38,11 +39,15 @@ from auralis_tpu_torch.ops.experimental.attention import (
     ragged_decode_attention,
     split_plan,
 )
+from auralis_tpu_torch.ops.experimental.fused_mlp import COLS, ROWS, WEIGHT_LAYOUT
+from auralis_tpu_torch.ops.experimental.fused_mlp import MAX_K as MLP_MAX_K
 from auralis_tpu_torch.ops.experimental.fused_mlp import (
     fused_mlp_w8,
     fused_mlp_w8_plain,
+    mlp_plan,
     mlp_w8_reference,
 )
+from auralis_tpu_torch.ops.quant import int8_weight, quantize_rows
 from auralis_tpu_torch.runtime import decode_loop as tloop
 
 Q8_NAMES = ("attn_w", "attn_proj_w", "fc_w", "fc_proj_w")
@@ -381,6 +386,126 @@ def test_fused_mlp_single_tile_is_the_serving_chain(mlp_weights):
     assert snr_db(serving.numpy(), fused_mlp_w8_plain(*args, tile_i=256).numpy()) > 28.0
 
 
+def _lane_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a [S, K] @ w [K, C] as the kernel's warps take it: the contraction in
+    16-byte chunks, chunk q to lane q % 32, each lane's int32 partial, then
+    the sum over the 32 lanes (the reduce-scatter). Returns int64 [S, C]."""
+    (s, k), c = a.shape, w.shape[1]
+    per_chunk = torch.einsum("sqk,qkc->qsc", a.long().reshape(s, k // 16, 16),
+                             w.long().reshape(k // 16, 16, c))
+    lanes = torch.zeros((32, s, c), dtype=torch.int64).index_add_(
+        0, torch.arange(k // 16) % 32, per_chunk)
+    assert lanes.abs().max() < 2 ** 31  # each lane's partial is an int32
+    return lanes.sum(0)
+
+
+def _k5_blocked(x, fc_wq, fc_ws, fc_b, proj_wq, proj_ws, proj_b, tile_i):
+    """K5 in plain PyTorch in the kernel's own order, block by block over
+    mlp_plan's grids: per fc block of COLS inner columns the lane-split int32
+    product, gelu and the block's per-row max |g| (gmax); per proj block (COLS
+    output columns x one tile) the (row, tile) scale folded from the tile's
+    gmax entries, the requantised tile, the lane-split int32 product x the
+    scale into part; then per column block the tiles summed in order from 0
+    in f32, x proj-scale + proj-bias."""
+    s, d = x.shape
+    i = fc_wq.shape[1]
+    plan = mlp_plan(s, d, i, tile_i)
+    xq, xs = quantize_rows(x)
+    g = torch.zeros((s, i))
+    gmax = torch.zeros(plan.gmax_shape)
+    for cb in range(plan.fc_grid[0]):
+        cols = slice(cb * COLS, (cb + 1) * COLS)
+        y = _lane_product(xq, fc_wq[:, cols]).float()
+        g[:, cols] = F.gelu(y * xs[:, None] * fc_ws[cols][None] + fc_b[cols][None])
+        gmax[:, cb] = g[:, cols].abs().amax(dim=1)
+    per_tile = tile_i // COLS
+    part = torch.zeros((plan.proj_grid[1], s, d))
+    for t in range(plan.proj_grid[1]):
+        gs = torch.clamp(gmax[:, t * per_tile:(t + 1) * per_tile].amax(dim=1),
+                         min=1e-20).mul_(1.0 / 127.0)
+        gq = torch.div(g[:, t * tile_i:(t + 1) * tile_i], gs[:, None]).round_().to(torch.int8)
+        for cb in range(plan.proj_grid[0]):
+            cols = slice(cb * COLS, (cb + 1) * COLS)
+            p = _lane_product(gq, proj_wq[t * tile_i:(t + 1) * tile_i, cols])
+            part[t, :, cols] = p.float() * gs[:, None]
+    out = torch.zeros((s, d))
+    for t in range(plan.proj_grid[1]):
+        out = out + part[t]
+    return (out * proj_ws[None] + proj_b[None]).to(x.dtype)
+
+
+@pytest.mark.parametrize("s", [1, 3, 8])
+@pytest.mark.parametrize("tile_i", [256, 1024])
+def test_fused_mlp_kernel_order_is_bit_equal_to_plain(mlp_weights, tile_i, s):
+    """The kernel's order (lane-split int32 partials, per-block maxima
+    folded per tile, f32 sum over the tiles in order) changes no bit against
+    fused_mlp_w8_plain: int32 sums and maxima are exact in any order, and the
+    f32 steps are the plain version's, one by one."""
+    args = _mlp_args(mlp_weights, "torch")
+    args[0] = args[0][:s]
+    got = _k5_blocked(*args, tile_i)
+    assert torch.equal(got, fused_mlp_w8_plain(*args, tile_i=tile_i))
+
+
+@pytest.mark.parametrize("d", range(128, MLP_MAX_K + 1, 128))
+def test_mlp_plan_covers_every_column_once(d):
+    """For every supported D, I (up to 4096) and tile_i: fc blocks cover each
+    inner column once, proj blocks each (output column, inner tile) once, a
+    tile's gmax entries are exactly the fc blocks inside it, the row blocks
+    each row once, and the lanes' 16-byte chunks each contraction byte of a
+    block once."""
+    for k_len in range(32, MLP_MAX_K + 1, 32):  # every D and tile_i a block contracts over
+        chunks = [lane + 32 * it for it in range(MLP_MAX_K // 16 // 32) for lane in range(32)]
+        bytes_ = np.bincount([16 * q + b for q in chunks if 16 * q < k_len for b in range(16)])
+        assert len(bytes_) == k_len and (bytes_ == 1).all()
+    for i in range(128, 4097, 128):
+        for tile_i in range(COLS, min(i, MLP_MAX_K) + 1, COLS):
+            if i % tile_i:
+                continue
+            for s in (1, 8, 9):
+                plan = mlp_plan(s, d, i, tile_i)
+                fc_cols = np.bincount(np.arange(plan.fc_grid[0] * COLS), minlength=i)
+                assert len(fc_cols) == i and (fc_cols == 1).all()
+                out_cols = np.arange(plan.proj_grid[0] * COLS)
+                tiles = np.arange(plan.proj_grid[1] * tile_i)
+                assert (np.bincount(out_cols) == 1).all() and len(out_cols) == d
+                assert (np.bincount(tiles) == 1).all() and len(tiles) == i
+                per_tile = tile_i // COLS
+                for t in range(plan.proj_grid[1]):
+                    folded = range(t * per_tile, (t + 1) * per_tile)
+                    assert [cb for cb in range(plan.fc_grid[0])
+                            if t * tile_i <= cb * COLS < (t + 1) * tile_i] == list(folded)
+                assert plan.gmax_shape == (s, plan.fc_grid[0])
+                rows = plan.fc_grid[1] * ROWS
+                assert plan.proj_grid[2] == plan.fc_grid[1] and s <= rows < s + ROWS
+                assert plan.part_shape == (plan.fc_grid[1], plan.proj_grid[1], ROWS, d)
+                assert plan.tickets_shape == (plan.fc_grid[1], plan.proj_grid[0])
+
+
+@pytest.mark.parametrize("s, d, i, tile_i", [(8, 1152, 4096, 1024), (8, 1000, 4096, 1024),
+                                             (8, 1024, 4000, 1000), (8, 1024, 4096, 2048),
+                                             (8, 1024, 4096, 48), (0, 1024, 4096, 1024)])
+def test_mlp_plan_rejects_shapes_the_kernel_does_not_take(s, d, i, tile_i):
+    with pytest.raises(ValueError):
+        mlp_plan(s, d, i, tile_i)
+
+
+def test_fused_mlp_cpu_takes_any_layout(mlp_weights):
+    """On the CPU the wrapper runs the plain version whatever the weights'
+    layout (the kernel takes only WEIGHT_LAYOUT) and launches nothing."""
+    args = _mlp_args(mlp_weights, "torch")
+    assert args[1].is_contiguous()  # row-major here
+    col_major = list(args)
+    col_major[1], col_major[4] = (int8_weight(args[n]) for n in (1, 4))
+    assert col_major[1].t().is_contiguous() and col_major[4].t().is_contiguous()
+    assert WEIGHT_LAYOUT == "column-major"
+    before = fused_mlp_w8.launches
+    row = fused_mlp_w8(*args, tile_i=256)
+    col = fused_mlp_w8(*col_major, tile_i=256)
+    assert fused_mlp_w8.launches == before
+    assert torch.equal(row, col) and torch.equal(row, fused_mlp_w8_plain(*args, tile_i=256))
+
+
 # --------------------------------------------------------- weights, guards
 def test_params_from_numpy_keeps_q8_types():
     """A JAX blocks_q8 pytree given as numpy maps onto the port unchanged:
@@ -403,17 +528,17 @@ def test_config_guards_raise_as_in_jax():
         with pytest.raises(AssertionError):
             jgpt.make_kv_cache(jc, 2)
         with pytest.raises(ValueError):
-            tgpt.make_kv_cache(tc, 2)
+            tgpt.make_kv_cache(tc, 2, device="cpu")
 
 
 def test_int8_cache_layout():
     _, tc = _cfgs(kv_int8=True)
-    cache = tgpt.make_kv_cache(tc, 3)
+    cache = tgpt.make_kv_cache(tc, 3, device="cpu")
     want = jgpt.make_kv_cache(_cfgs(kv_int8=True)[0], 3)
     assert cache.quantized and cache.k.dtype == cache.v.dtype == torch.int8
     assert tuple(cache.k.shape) == want.k.shape and tuple(cache.k_scale.shape) == want.k_scale.shape
     assert cache.k_scale.dtype == torch.float32 and (cache.k_scale == 1).all()
-    assert not tgpt.make_kv_cache(torch_tiny().gpt, 3).quantized
+    assert not tgpt.make_kv_cache(torch_tiny().gpt, 3, device="cpu").quantized
 
 
 # ----------------------------------------------------------------- engine
@@ -481,7 +606,7 @@ def test_engine_int8_teacher_forced_matches_jax(int8_engines):
     h, cache_j = jgpt.gpt_prefill(jp, jg, emb_j, jnp.int32(length), jnp.int32(0), cache_j)
     outs_j = [jgpt.heads(jp, h[None])]
     emb_t = tloop._assemble_prompt(tp, tg, torch.from_numpy(cond), torch.from_numpy(ids), 12)
-    cache_t = tgpt.make_kv_cache(tg, 2)
+    cache_t = tgpt.make_kv_cache(tg, 2, device="cpu")
     h = tgpt.gpt_prefill(tp, tg, emb_t.to(torch.bfloat16), length, 0, cache_t)
     outs_t = [tgpt.heads(tp, h[None])]
     for i, tok in enumerate(forced):
