@@ -98,6 +98,23 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Allow `kernel` the device's largest opt-in dynamic shared memory. A kernel
+// launched with sizes that vary from call to call calls this once (a
+// function-local static), not cudaFuncSetAttribute with each call's size:
+// the attribute belongs to the kernel, so two host threads that set it to
+// their own sizes and then launch can leave one launch above the other's
+// limit (cudaErrorLaunchOutOfResources).
+template <typename Kernel>
+inline cudaError_t allow_max_dynamic_smem(Kernel kernel) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  return e;
+}
+
 // ---- split-K decode attention (K2 flash_decode.cu, K4 ragged_decode.cu).
 // One block of kSplitThreads threads runs per (head, slot, split). A split
 // is kSplitRows consecutive cache rows: one row per thread in the softmax

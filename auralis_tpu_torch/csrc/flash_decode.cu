@@ -21,6 +21,9 @@
 //   bf16), so no block walks more than 128 rows and the longest slot no
 //   longer sets the launch time. Shorter splits would add partials and merge
 //   work without adding bytes in flight.
+// - Slot bound: the grid's S is the step's slot count (q's rows), which may
+//   be below the cache's (a step over the live low slots only); the cache's
+//   slot count is only its stride, and slots >= S are not touched.
 // - Staging: the split's K rows, then its V rows, go to shared memory as
 //   16-byte cp.async copies in two groups, so V is in flight while QK runs.
 //   Neighbouring threads copy neighbouring 16 bytes of a row's head slice.
@@ -73,8 +76,8 @@ __global__ void __launch_bounds__(kSplitThreads)
 flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                           const T* __restrict__ v_new, T* k_cache, T* v_cache,
                           const int* __restrict__ write_pos, T* __restrict__ ctx,
-                          float* partials, int* tickets, int n_slots, int n_heads, int t_max,
-                          int layer, float scale) {
+                          float* partials, int* tickets, int cache_slots, int n_heads,
+                          int t_max, int layer, float scale) {
   constexpr int EPC = 16 / sizeof(T);   // lanes per 16-byte chunk
   constexpr int CPR = kHeadDim / EPC;   // chunks per row's head slice
   constexpr int RPP = kSplitThreads / CPR;  // rows per QK pass
@@ -100,8 +103,8 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   const size_t head = (size_t)h * kHeadDim;
   const T* kn = k_new + (size_t)s * width + head;
   const T* vn = v_new + (size_t)s * width + head;
-  T* kc = k_cache + ((size_t)layer * n_slots + s) * (size_t)t_max * width + head;
-  T* vc = v_cache + ((size_t)layer * n_slots + s) * (size_t)t_max * width + head;
+  T* kc = k_cache + ((size_t)layer * cache_slots + s) * (size_t)t_max * width + head;
+  T* vc = v_cache + ((size_t)layer * cache_slots + s) * (size_t)t_max * width + head;
 
   // ---- stage K, then V (two cp.async groups); row wp from the new rows
   for (int i = tid; i < n_rows * CPR; i += kSplitThreads) {
@@ -172,7 +175,8 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
 template <typename T>
 int launch(const void* q, const void* k_new, const void* v_new, void* k_cache, void* v_cache,
            const void* write_pos, void* ctx, void* partials, void* tickets, int n_slots,
-           int n_heads, int t_max, int layer, float scale, cudaStream_t stream) {
+           int cache_slots, int n_heads, int t_max, int layer, float scale,
+           cudaStream_t stream) {
   const int smem = 2 * kSplitRows * kHeadDim * (int)sizeof(T);  // 32 KB bf16, 64 KB f32
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -183,27 +187,30 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_cache, v
   flash_decode_split_kernel<T><<<grid, kSplitThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_new), static_cast<const T*>(v_new),
       static_cast<T*>(k_cache), static_cast<T*>(v_cache), static_cast<const int*>(write_pos),
-      static_cast<T*>(ctx), static_cast<float*>(partials), static_cast<int*>(tickets), n_slots,
-      n_heads, t_max, layer, scale);
+      static_cast<T*>(ctx), static_cast<float*>(partials), static_cast<int*>(tickets),
+      cache_slots, n_heads, t_max, layer, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q [S, H, 64], k_new/v_new [S, H*64], caches [L, S, T, H*64] (updated in
-// place), write_pos [S], ctx [S, H, 64], all of one dtype (is_bf16: bf16,
-// else f32); partials [S, H, T / split, kPartialFloats] f32 and tickets
-// [S, H] int32 (zero) are the workspace; split must be kSplitRows
+// q [S, H, 64], k_new/v_new [S, H*64], caches [L, S_cache, T, H*64] with
+// S <= S_cache (updated in place; the step covers cache slots 0..S-1 and
+// leaves the others untouched), write_pos [S], ctx [S, H, 64], all of one
+// dtype (is_bf16: bf16, else f32); partials [S, H, T / split,
+// kPartialFloats] f32 and tickets [S, H] int32 (zero) are the workspace;
+// split must be kSplitRows
 extern "C" int flash_decode_append(const void* q, const void* k_new, const void* v_new,
                                    void* k_cache, void* v_cache, const void* write_pos,
                                    void* ctx, void* partials, void* tickets, int n_slots,
-                                   int n_heads, int t_max, int layer, int split, float scale,
-                                   int is_bf16, void* stream) {
-  if (split != kSplitRows || t_max % kSplitRows) return (int)cudaErrorInvalidValue;
+                                   int cache_slots, int n_heads, int t_max, int layer, int split,
+                                   float scale, int is_bf16, void* stream) {
+  if (split != kSplitRows || t_max % kSplitRows || n_slots > cache_slots)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch<bf16>(q, k_new, v_new, k_cache, v_cache, write_pos, ctx, partials, tickets,
-                        n_slots, n_heads, t_max, layer, scale, st);
+                        n_slots, cache_slots, n_heads, t_max, layer, scale, st);
   return launch<float>(q, k_new, v_new, k_cache, v_cache, write_pos, ctx, partials, tickets,
-                       n_slots, n_heads, t_max, layer, scale, st);
+                       n_slots, cache_slots, n_heads, t_max, layer, scale, st);
 }

@@ -384,8 +384,7 @@ template <int BN, typename TIn>
 int launch_lrelu(const void* src, const void* w, const void* b, void* out, int batch, int t_len,
                  int c, int k, int dil, cudaStream_t st) {
   const size_t smem = smem_bytes(BN, c, k, dil);
-  cudaError_t err = cudaFuncSetAttribute(mrf_conv_lrelu_mma<BN, TIn>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static const cudaError_t err = allow_max_dynamic_smem(mrf_conv_lrelu_mma<BN, TIn>);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((t_len + BM - 1) / BM, c / BN, batch);
   mrf_conv_lrelu_mma<BN, TIn><<<grid, THREADS, smem, st>>>(
@@ -399,8 +398,7 @@ int launch_residual(const void* act, const void* res, const void* w, const void*
                     void* acc, void* out, int batch, int t_len, int c, int k, int dil,
                     int epilogue, int first_chain, int n_chains, cudaStream_t st) {
   const size_t smem = smem_bytes(BN, c, k, dil);
-  cudaError_t err = cudaFuncSetAttribute(mrf_conv_residual_mma<BN, TRes>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static const cudaError_t err = allow_max_dynamic_smem(mrf_conv_residual_mma<BN, TRes>);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((t_len + BM - 1) / BM, c / BN, batch);
   mrf_conv_residual_mma<BN, TRes><<<grid, THREADS, smem, st>>>(

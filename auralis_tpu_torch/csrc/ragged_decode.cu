@@ -16,8 +16,10 @@
 // Design: K2's split-K layout (flash_decode.cu, helpers in common.cuh). One
 // block of 4 warps per (head, slot, split of 128 rows); the grid (H, S,
 // T / 128) depends only on the cache's T, and a block whose rows start past
-// write_pos[s] returns at once. q and the new rows are bf16, the activation
-// dtype of the int8 decode path.
+// write_pos[s] returns at once. As in K2, the grid's S is the step's slot
+// count, which may be below the cache's (its stride; slots >= S are not
+// touched). q and the new rows are bf16, the activation dtype of the int8
+// decode path.
 // - Quantisation, fused into the launch: q per (slot, head) in every busy
 //   block. The new K/V rows are quantised per slot over all H*D lanes, so
 //   the blocks of the split that holds row write_pos[s] (one per head)
@@ -53,7 +55,7 @@ __global__ void __launch_bounds__(kSplitThreads)
 ragged_decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
                            const bf16* __restrict__ v_new, int8_t* k_cache, int8_t* v_cache,
                            float* k_scale, float* v_scale, const int* __restrict__ write_pos,
-                           float* __restrict__ ctx, float* partials, int* tickets, int n_slots,
+                           float* __restrict__ ctx, float* partials, int* tickets, int cache_slots,
                            int n_heads, int t_max, int layer, float attn_scale) {
   constexpr int CPR = kHeadDim / 16;         // 16-byte chunks per row's head slice
   constexpr int RPP = kSplitThreads / CPR;   // rows per QK pass
@@ -78,7 +80,7 @@ ragged_decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   const int n_rows = min(kSplitRows, wp + 1 - base);
   const int n_live = wp / kSplitRows + 1;
   const bool holds_wp = split == wp / kSplitRows;
-  const size_t row0 = ((size_t)layer * n_slots + s) * t_max;  // row index of (layer, s, 0)
+  const size_t row0 = ((size_t)layer * cache_slots + s) * t_max;  // row index of (layer, s, 0)
   const size_t head = (size_t)h * kHeadDim;
   int8_t* kc = k_cache + row0 * width + head;
   int8_t* vc = v_cache + row0 * width + head;
@@ -216,15 +218,19 @@ ragged_decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 
 }  // namespace
 
-// q [S, H, 64] and k_new/v_new [S, H*64] bf16; caches [L, S, T, H*64] int8
-// and scales [L, S, T] f32, updated in place; write_pos [S]; ctx [S, H*64]
-// f32; partials [S, H, T / split, kPartialFloats] f32 and tickets [S, H]
-// int32 (zero) are the workspace; split must be kSplitRows
+// q [S, H, 64] and k_new/v_new [S, H*64] bf16; caches [L, S_cache, T, H*64]
+// int8 and scales [L, S_cache, T] f32 with S <= S_cache, updated in place
+// (the step covers cache slots 0..S-1 and leaves the others untouched);
+// write_pos [S]; ctx [S, H*64] f32; partials [S, H, T / split,
+// kPartialFloats] f32 and tickets [S, H] int32 (zero) are the workspace;
+// split must be kSplitRows
 extern "C" int ragged_decode(const void* q, const void* k_new, const void* v_new, void* k_cache,
                              void* v_cache, void* k_scale, void* v_scale, const void* write_pos,
-                             void* ctx, void* partials, void* tickets, int n_slots, int n_heads,
-                             int t_max, int layer, int split, float attn_scale, void* stream) {
-  if (split != kSplitRows || t_max % kSplitRows) return (int)cudaErrorInvalidValue;
+                             void* ctx, void* partials, void* tickets, int n_slots,
+                             int cache_slots, int n_heads, int t_max, int layer, int split,
+                             float attn_scale, void* stream) {
+  if (split != kSplitRows || t_max % kSplitRows || n_slots > cache_slots)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(n_heads, n_slots, t_max / kSplitRows);
   ragged_decode_split_kernel<<<grid, kSplitThreads, 0, st>>>(
@@ -232,7 +238,7 @@ extern "C" int ragged_decode(const void* q, const void* k_new, const void* v_new
       static_cast<const bf16*>(v_new), static_cast<int8_t*>(k_cache),
       static_cast<int8_t*>(v_cache), static_cast<float*>(k_scale), static_cast<float*>(v_scale),
       static_cast<const int*>(write_pos), static_cast<float*>(ctx),
-      static_cast<float*>(partials), static_cast<int*>(tickets), n_slots, n_heads, t_max, layer,
-      attn_scale);
+      static_cast<float*>(partials), static_cast<int*>(tickets), cache_slots, n_heads, t_max,
+      layer, attn_scale);
   return (int)cudaGetLastError();
 }

@@ -13,11 +13,17 @@ non-streaming path:
 - each finished chunk's latent row is vocoded on the device (HiFi-GAN, the
   MRF stages through kernel K3 on CUDA) and shipped to the host as int16.
 
-The JAX engine arms int8 KV and W8A8 by default only on a TPU; on any
-other backend they are off unless passed, and so they are here. Not ported
-yet (ROADMAP.md, queue 1): streaming (`stream=True` raises), the vocode
-batcher, the speculative first segment, the device-memory slot fit, the
-per-program W8A8 policy and checkpoint loading (`from_pretrained` raises).
+The JAX engine arms int8 KV, W8A8, the per-program W8A8 policy and slot
+bucketing by default only on a TPU; on any other backend they are off
+unless passed, and so they are here until an H100 measurement sets them.
+`slot_bucketing=True` turns bucketing on; the policy the JAX engine would
+arm is `w8a8_policy()`, which a caller hands to `DecodeEngine`. The slot
+count is fitted to the card's free memory after the weights
+(`_fit_slots_to_hbm`). Options the port lacks are dropped with a warning,
+except `tensor_parallel_size > 1`, which raises (ROADMAP.md, queue 1 item
+10). Not ported yet (ROADMAP.md, queue 1): streaming (`stream=True`
+raises), the vocode batcher, the speculative first segment and checkpoint
+loading (`from_pretrained` raises).
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ from ...common.logger import setup_logger
 from ...common.output import TTSOutput
 from ...common.requests import TTSRequest
 from ...common.tracing import record as trace_record, span
+from ...ops.experimental.attention import CHUNK
 from ...ops.mel import wav_to_mel_cloning
 from ...ops.mrf import pack_hifigan_mrf
 from ...ops.resample import resample_np
@@ -56,6 +63,14 @@ LATENT_BUCKETS_STEP = 64
 # true length + 4 (more than the generator's post-interp receptive field),
 # so the trimmed output equals the full-row program's
 VOCODER_LATENT_BUCKETS = (256, 384, 512, 640)
+
+# The per-program W8A8 policy runs the int8 decode weights while a block's KV
+# read is below this multiple of the bf16 weight bytes: the JAX engine's
+# crossover, fitted on a TPU v5e, not an H100 measurement
+W8A8_KV_TO_WEIGHT_CROSSOVER_TPU = 3
+# headroom the slot fit leaves on the card for activations and the
+# allocator, as a share of its memory (the JAX engine's 8%)
+HBM_HEADROOM = 0.08
 
 _STREAMING_TODO = (
     "streaming synthesis is not ported yet (ROADMAP.md, queue 1: 'streaming "
@@ -85,11 +100,18 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         kv_int8: Optional[bool] = None,
         decode_w8a8: Optional[bool] = None,
         prefill_w8a8: Optional[bool] = None,
+        slot_bucketing: Optional[bool] = None,
+        tensor_parallel_size: int = 1,
         conditioning_cache_size: int = 32,
         ref_length_quantum_s: float = 1.0,
         seed: int = 0,
         **kwargs,
     ):
+        if tensor_parallel_size > 1:
+            raise NotImplementedError(
+                f"tensor_parallel_size={tensor_parallel_size}: tensor parallelism is not "
+                "ported yet (ROADMAP.md, queue 1 item 10: 'Parallel'); the port serves on "
+                "one GPU")
         # the JAX engine's non-TPU defaults: kv_int8 off unless passed (it
         # keeps the config's value only under flash_decode), the W8A8 flags
         # as the config has them unless passed
@@ -117,10 +139,12 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
             # accumulate in f32 (kernel K3's precision contract)
             self.core["hifigan"] = _cast_floats(core["hifigan"], vocoder_dtype)
         self.cache_dtype = cache_dtype
-        self.decode_slots = decode_slots or max(2, 2 * max_concurrency)
+        self.decode_slots = self._fit_slots_to_hbm(
+            decode_slots or max(2, 2 * max_concurrency), slots_explicit=decode_slots is not None)
         self.decode_engine = DecodeEngine(
             self.params, gpt_config, num_slots=self.decode_slots, cache_dtype=cache_dtype,
-            steps_per_sync=steps_per_sync, seed=seed, device=self.device)
+            steps_per_sync=steps_per_sync, seed=seed, slot_bucketing=bool(slot_bucketing),
+            device=self.device)
         hifigan = self.core["hifigan"]
         self._packed_stages = pack_hifigan_mrf(
             hifigan["resblocks"], RESBLOCK_KERNELS, hifigan["conv_pre_w"].dtype, self.device)
@@ -134,29 +158,74 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
     def conditioning_config(self) -> ConditioningConfig:
         return ConditioningConfig(speaker_embeddings=True, gpt_like_decoder_conditioning=True)
 
+    def _hbm_plan_bytes(self) -> tuple[int, int]:
+        """(weight bytes, bytes per slot) of the device-memory plan: weights
+        are the params (blocks_q8 included) and core as held; a slot is its
+        KV rows as `make_kv_cache` allocates them (T padded to the cache's
+        chunk; int8 rows and f32 scale rows under kv_int8) and its latent
+        row."""
+        cfg = self.gpt_config
+        weights = _nbytes(self.params) + _nbytes(self.core)
+        t_pad = -(-cfg.max_seq_len // CHUNK) * CHUNK
+        per_row = 2 * cfg.hidden_size * (1 if cfg.kv_int8 else self.cache_dtype.itemsize)
+        per_row += 2 * 4 if cfg.kv_int8 else 0
+        slot = cfg.num_hidden_layers * t_pad * per_row + cfg.max_audio_tokens * cfg.hidden_size * 4
+        return weights, slot
+
+    def _fit_slots_to_hbm(self, num_slots: int, *, slots_explicit: bool) -> int:
+        """The slot count that fits the card: what `torch.cuda.mem_get_info`
+        leaves free after the weights (already resident; memory the
+        allocator holds but has not handed out counts as free), less
+        HBM_HEADROOM of the card, divided by the bytes per slot. A default
+        count above that is clamped; an explicit one raises, as does a card
+        that cannot hold 2 slots. On the CPU nothing is enforced."""
+        if self.device.type != "cuda":
+            return num_slots
+        _, slot_bytes = self._hbm_plan_bytes()
+        free, total = torch.cuda.mem_get_info(self.device)
+        free += torch.cuda.memory_reserved(self.device) - torch.cuda.memory_allocated(self.device)
+        budget = free - int(total * HBM_HEADROOM)
+        fit = max(0, budget) // slot_bytes
+        if fit < 2 or (slots_explicit and fit < num_slots):
+            raise ValueError(
+                f"decode_slots={num_slots} needs {num_slots * slot_bytes / 1024**3:.2f} GiB of KV "
+                f"and latent rows, but {max(0, budget) / 1024**3:.2f} GiB of the card's "
+                f"{total / 1024**3:.2f} GiB are left after the weights ({fit} slots fit)")
+        if fit < num_slots:
+            logger.warning("decode_slots=%d does not fit the card's free memory; clamping to %d",
+                           num_slots, fit)
+            return fit
+        return num_slots
+
     def get_memory_usage_curve(self) -> float:
         """Device-memory plan in GiB: weights (blocks_q8 included) + per slot
         its KV rows as allocated (int8 rows and f32 scale rows under kv_int8)
         and its latent row."""
-        cfg = self.gpt_config
-
-        def nbytes(tree) -> int:
-            if isinstance(tree, dict):
-                return sum(nbytes(v) for v in tree.values())
-            if isinstance(tree, (list, tuple)):
-                return sum(nbytes(v) for v in tree)
-            return tree.numel() * tree.element_size() if torch.is_tensor(tree) else 0
-
-        weights = nbytes(self.params) + nbytes(self.core)
-        cache = self.decode_engine.state.cache
-        slot = sum(t[:, 0].numel() * t.element_size()
-                   for t in (cache.k, cache.v, cache.k_scale, cache.v_scale) if t is not None)
-        slot += cfg.max_audio_tokens * cfg.hidden_size * 4
+        weights, slot = self._hbm_plan_bytes()
         self.max_gb_for_model = (weights + slot * self.decode_slots) / 1024**3
         logger.info("memory plan: %.2f GiB (weights %.2f GiB + %d slots x %.1f MiB)",
                     self.max_gb_for_model, weights / 1024**3, self.decode_slots,
                     slot / 1024**2)
         return self.max_gb_for_model
+
+    def w8a8_policy(self):
+        """The per-program W8A8 policy the JAX engine arms on a TPU: a
+        function of (len_bound, slot_bound) that is True (run the int8
+        decode weights) while the block's KV read is below
+        W8A8_KV_TO_WEIGHT_CROSSOVER_TPU times the bytes of the block
+        weights. Off by default on the card (no H100 measurement has set
+        it): pass it to `DecodeEngine(w8a8_policy=...)` with `blocks_q8` in
+        the params."""
+        g = self.gpt_config
+        d, nl = g.hidden_size, g.num_hidden_layers
+        kv_elem = 1 if g.kv_int8 else self.cache_dtype.itemsize
+        w_bytes = _nbytes(self.params["blocks"])
+
+        def policy(len_bound: int, slot_bound: int) -> bool:
+            kv_bytes = slot_bound * len_bound * 2 * d * nl * kv_elem
+            return kv_bytes < W8A8_KV_TO_WEIGHT_CROSSOVER_TPU * w_bytes
+
+        return policy
 
     # -------------------------------------------------------- construction
     @classmethod
@@ -442,6 +511,14 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
 
     async def shutdown(self) -> None:
         await self.decode_engine.shutdown()
+
+
+def _nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if torch.is_tensor(tree) else 0
 
 
 def _cast_floats(tree: Any, dtype: torch.dtype):

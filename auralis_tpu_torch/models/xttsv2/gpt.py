@@ -22,7 +22,9 @@ Differences from the JAX module:
 - the int8 x int8 products that XLA runs as int32 dots are `torch._int_mm`
   (ops/quant.py) for the W8A8 matmuls and exact f32/f64 sums of integers in
   the dense int8 attention body;
-- the batched prefill is not ported yet.
+- the batched prefill takes its target slots as host ints (the runner knows
+  them), so padding lanes are skipped on the host instead of by a dropping
+  scatter.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ from ...ops.experimental.attention import (
     ragged_decode_attention,
 )
 from ...ops.prefill_attention import prefill_flash_attention
-from ...ops.quant import int8_mm, int8_weight
+from ...ops.quant import int8_mm, int8_weight, pad_rows
 from ...ops.quant import quantize_rows as _quantize_rows
 from .config import XTTSGPTConfig
 
@@ -162,12 +164,15 @@ def heads(params: dict, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _mm(params: dict, layer: int, name: str, x: torch.Tensor, w8: bool) -> torch.Tensor:
-    """x [T, Din] @ blocks[name][layer] + its bias; W8A8 against blocks_q8
-    when `w8`."""
+    """x [..., Din] @ blocks[name][layer] + its bias; W8A8 against blocks_q8
+    when `w8`, on the rows of x flattened to [N, Din] (each row quantised on
+    its own, as the JAX batched prefill flattens [K, T])."""
     bias = params["blocks"][name[:-2] + "_b"][layer]
     if w8:
         bq = params["blocks_q8"]
-        return _dot_w8a8(x, bq[name + "_q"][layer], bq[name + "_s"][layer], bias)
+        flat = _dot_w8a8(x.reshape(-1, x.shape[-1]), bq[name + "_q"][layer],
+                         bq[name + "_s"][layer], bias)
+        return flat.reshape(*x.shape[:-1], flat.shape[-1])
     return _dot(x, params["blocks"][name][layer], bias)
 
 
@@ -220,6 +225,61 @@ def gpt_prefill(params: dict, cfg: XTTSGPTConfig, embeds: torch.Tensor, length: 
     return x[length - 1]
 
 
+@torch.no_grad()
+def gpt_prefill_batched(params: dict, cfg: XTTSGPTConfig, embeds: torch.Tensor,
+                        lengths, slots, cache: KVCache) -> torch.Tensor:
+    """Burst prefill (the JAX `gpt_prefill_batched`): K prompts `embeds`
+    [K, T_pad, D] through all layers together, so the weights stream once
+    for the burst instead of once per prompt. `lengths` [K] are the true
+    prompt lengths (0 on padding lanes), `slots` [K] host ints, the target
+    cache slots (>= num_slots on padding lanes). Each real lane's K/V rows
+    (int8 + scales under cfg.kv_int8) are written into
+    cache[:, slot, :T_pad] IN PLACE; padding lanes write nothing. Returns
+    the last real position's hidden state (pre-ln_f) per lane, [K, D].
+
+    Attention is a dense masked softmax in PyTorch matmuls (causal and key
+    within the lane's length), whatever cfg.prefill_flash says, as in the
+    JAX function: probabilities rounded to the activation dtype, f32
+    accumulation. With cfg.prefill_w8a8 and `blocks_q8` the four matmuls run
+    W8A8 over the [K * T_pad] flattened rows."""
+    kb, t_pad, d = embeds.shape
+    nh, hd = cfg.num_attention_heads, cfg.head_dim
+    bp = params["blocks"]
+    dev = embeds.device
+    w8 = cfg.prefill_w8a8 and "blocks_q8" in params
+    lengths = torch.as_tensor(lengths, dtype=torch.long, device=dev)
+    slots = [int(s) for s in slots]
+    lanes = [i for i, s in enumerate(slots) if s < cache.num_slots]
+    lane_idx = torch.tensor(lanes, dtype=torch.long, device=dev)
+    slot_idx = torch.tensor([slots[i] for i in lanes], dtype=torch.long, device=dev)
+    pos = torch.arange(t_pad, device=dev)
+    # [K, T, T]: causal and key within each prompt's real length
+    mask = ((pos[None, None, :] <= pos[None, :, None])
+            & (pos[None, None, :] < lengths[:, None, None]))
+    neg = torch.finfo(torch.float32).min
+    x = embeds
+    for layer in range(cfg.num_hidden_layers):
+        xn = layer_norm(x, bp["ln1_scale"][layer], bp["ln1_bias"][layer])
+        qkv = _mm(params, layer, "attn_w", xn, w8)  # [K, T, 3D]
+        q, k, v = (t.reshape(kb, t_pad, nh, hd) for t in qkv.split(d, dim=-1))
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(hd))
+        scores = scores.masked_fill(~mask[:, None], neg)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
+        x = x + _mm(params, layer, "attn_proj_w", ctx.reshape(kb, t_pad, d).to(x.dtype), w8)
+        x = _mlp(params, layer, x, w8)
+        if not lanes:
+            continue
+        k_rows, v_rows = k.reshape(kb, t_pad, d)[lane_idx], v.reshape(kb, t_pad, d)[lane_idx]
+        if cfg.kv_int8:
+            k_rows, cache.k_scale[layer, slot_idx, :t_pad] = _quantize_rows(k_rows)
+            v_rows, cache.v_scale[layer, slot_idx, :t_pad] = _quantize_rows(v_rows)
+        cache.k[layer, slot_idx, :t_pad] = k_rows.to(cache.k.dtype)
+        cache.v[layer, slot_idx, :t_pad] = v_rows.to(cache.v.dtype)
+    last = torch.clamp(lengths - 1, min=0)
+    return x[torch.arange(kb, device=dev), last]
+
+
 # ------------------------------------------------------------- decode step
 
 
@@ -228,17 +288,18 @@ def _int8_attention(cfg: XTTSGPTConfig, cache: KVCache, layer: int, q: torch.Ten
                     live: torch.Tensor) -> torch.Tensor:
     """The dense int8 body of the JAX decode step (gpt.py:505-573): scatter
     this step's quantised rows and scales, int8 scores x k-scale x q-scale,
-    masked f32 softmax, and the context either from bf16 probabilities
+    masked f32 softmax over the first `live.shape[1]` rows (the length
+    bound), and the context either from bf16 probabilities
     (cfg.decode_attn_fp) or from probabilities requantised per (slot, head).
     Returns ctx [S, H, Dh] f32."""
-    s = q.shape[0]
-    nh, hd, t = cfg.num_attention_heads, cfg.head_dim, cache.max_len
+    s, t = live.shape
+    nh, hd = cfg.num_attention_heads, cfg.head_dim
     slot_idx = torch.arange(s, device=q.device)
     for rows, scales, new in ((cache.k, cache.k_scale, k), (cache.v, cache.v_scale, v)):
         rows[layer, slot_idx, lens], scales[layer, slot_idx, lens] = _quantize_rows(new)
-    k_all = cache.k[layer, :s].view(s, t, nh, hd)
-    v_all = cache.v[layer, :s].view(s, t, nh, hd)
-    k_sc, v_sc = cache.k_scale[layer, :s], cache.v_scale[layer, :s]  # [S, T]
+    k_all = cache.k[layer, :s, :t].reshape(s, t, nh, hd)
+    v_all = cache.v[layer, :s, :t].reshape(s, t, nh, hd)
+    k_sc, v_sc = cache.k_scale[layer, :s, :t], cache.v_scale[layer, :s, :t]  # [S, T]
     # q per (slot, head): the head with the smallest keys keeps its precision
     q_i8, q_s = _quantize_rows(q.reshape(s, nh, hd))  # [S, H, Dh], [S, H]
     # each score sums 64 products of magnitude <= 127^2: an integer below
@@ -261,30 +322,44 @@ def _int8_attention(cfg: XTTSGPTConfig, cache: KVCache, layer: int, q: torch.Ten
 @torch.no_grad()
 def gpt_decode_step(params: dict, cfg: XTTSGPTConfig, tokens: torch.Tensor,
                     audio_pos: torch.Tensor, seq_lens: torch.Tensor,
-                    cache: KVCache) -> torch.Tensor:
-    """One decode step for every slot: tokens/audio_pos/seq_lens [S] int32.
-    Appends this step's K/V at `seq_lens` IN PLACE and returns the hidden
-    state (pre-ln_f) [S, D]. Activations are bf16 under cfg.kv_int8, else
-    in the cache dtype; with cfg.decode_w8a8 and `blocks_q8` in params the
-    four matmuls run W8A8."""
+                    cache: KVCache, len_bound: int | None = None) -> torch.Tensor:
+    """One decode step for slots 0..S-1 of the cache: tokens/audio_pos/
+    seq_lens [S] int32, S at most the cache's slot count (a slot-bounded
+    step covers the live low slots only). Appends this step's K/V at
+    `seq_lens` IN PLACE and returns the hidden state (pre-ln_f) [S, D].
+    `len_bound` caps the rows the dense bodies read (cache[:, :S, :bound]);
+    the caller guarantees max(seq_lens) < bound. Kernels K2 and K4 read only
+    live rows, so it changes nothing for them. Activations are bf16 under
+    cfg.kv_int8, else in the cache dtype; with cfg.decode_w8a8 and
+    `blocks_q8` in params the four matmuls run W8A8.
+
+    The row-wise work (LayerNorms, matmuls, gelu) runs on the cache's slot
+    count of rows, the step's S rows zero-padded: cuBLAS picks a product's
+    algorithm by its shape, so otherwise a slot's result would depend on how
+    many slots the step covers, and a slot-bounded step would part from the
+    full-width one at greedy near-ties. The matmuls stream their weights
+    once at any row count, so the padding costs little on the device; it
+    adds two ops per layer to a bounded step (none at full width)."""
     s = tokens.shape[0]
+    rows = cache.num_slots
     d, nh, hd = cfg.hidden_size, cfg.num_attention_heads, cfg.head_dim
     scale = 1.0 / math.sqrt(hd)
     bp = params["blocks"]
     w8 = cfg.decode_w8a8 and "blocks_q8" in params
     pos = torch.clamp(audio_pos.long(), 0, cfg.audio_position_table - 1)
-    x = (params["wte"][tokens.long()] + params["wpe"][pos]).to(
-        torch.bfloat16 if cfg.kv_int8 else cache.k.dtype)
+    x = pad_rows((params["wte"][tokens.long()] + params["wpe"][pos]).to(
+        torch.bfloat16 if cfg.kv_int8 else cache.k.dtype), rows)
     if not (cfg.flash_decode or cfg.ragged_decode):
         slot_idx = torch.arange(s, device=x.device)
         lens = seq_lens.long()
-        live = torch.arange(cache.max_len, device=x.device)[None, :] <= lens[:, None]
+        bound = min(len_bound or cache.max_len, cache.max_len)
+        live = torch.arange(bound, device=x.device)[None, :] <= lens[:, None]
         onehot = (torch.arange(d, device=x.device)[:, None] // hd
                   == torch.arange(nh, device=x.device)[None, :]).float()  # [HD, H]
     for layer in range(cfg.num_hidden_layers):
         xn = layer_norm(x, bp["ln1_scale"][layer], bp["ln1_bias"][layer])
         qkv = _mm(params, layer, "attn_w", xn, w8)
-        q, k, v = qkv.split(d, dim=-1)  # each [S, D]
+        q, k, v = qkv[:s].split(d, dim=-1)  # each [S, D]
         if cfg.flash_decode:
             ctx = flash_decode_append_attention(
                 q.reshape(s, nh, hd), k, v, cache.k, cache.v, layer, seq_lens)
@@ -299,8 +374,8 @@ def gpt_decode_step(params: dict, cfg: XTTSGPTConfig, tokens: torch.Tensor,
             # the new rows, then masked softmax over the flat [T, H*Dh] cache
             cache.k[layer, slot_idx, lens] = k.to(cache.k.dtype)
             cache.v[layer, slot_idx, lens] = v.to(cache.v.dtype)
-            k_all = cache.k[layer, :s].float()  # [S, T, HD]
-            v_all = cache.v[layer, :s].float()
+            k_all = cache.k[layer, :s, :bound].float()  # [S, bound, HD]
+            v_all = cache.v[layer, :s, :bound].float()
             qmat = (q.float() * scale)[:, :, None] * onehot[None]  # [S, HD, H]
             qmat = qmat.to(cache.k.dtype).float()
             scores = torch.einsum("stc,sch->sht", k_all, qmat)
@@ -308,10 +383,10 @@ def gpt_decode_step(params: dict, cfg: XTTSGPTConfig, tokens: torch.Tensor,
             probs = torch.softmax(scores, dim=-1).to(cache.v.dtype).float()
             ctx_full = torch.einsum("sht,stc->shc", probs, v_all)  # [S, H, HD]
             ctx = (ctx_full * onehot.T[None]).sum(dim=1)
-        ctx = ctx.reshape(s, d).to(x.dtype)
+        ctx = pad_rows(ctx.reshape(s, d).to(x.dtype), rows)
         x = x + _mm(params, layer, "attn_proj_w", ctx, w8)
         x = _mlp(params, layer, x, w8)
-    return x
+    return x[:s]
 
 
 # --------------------------------------------------- reference-shape prompt

@@ -73,7 +73,8 @@ _workspaces: dict = {}
 
 def _split_workspace(device: torch.device, s: int, h: int, n_splits: int):
     """(partials [S, H, n_splits, PARTIAL_FLOATS] f32, tickets [S, H] int32,
-    zero), allocated once per (device, S, H, n_splits) and reused by every
+    zero), allocated once per (device, S, H, n_splits), S the grid's (the
+    step's slot count, not the cache's), and reused by every
     later launch: the kernels allocate nothing and leave the tickets at zero.
     Launches that share a workspace must not run concurrently (one stream)."""
     key = (device, s, h, n_splits)
@@ -114,9 +115,11 @@ def flash_decode_plain(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor
 def flash_decode_append_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                                   k_cache: torch.Tensor, v_cache: torch.Tensor, layer: int,
                                   write_pos: torch.Tensor) -> torch.Tensor:
-    """q [S, H, D]; k_new/v_new [S, H*D]; caches [L, S, T, H*D] (updated in
-    place); write_pos [S] int32 (= keys already cached = append index), each
-    in [0, T). Returns ctx [S, H, D] in q's dtype.
+    """q [S, H, D]; k_new/v_new [S, H*D]; caches [L, S_cache, T, H*D]
+    (updated in place) with S <= S_cache: the step covers cache slots
+    0..S-1 and leaves the others untouched, as the JAX kernel's grid over
+    q's slots does; write_pos [S] int32 (= keys already cached = append
+    index), each in [0, T). Returns ctx [S, H, D] in q's dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise. The kernel takes q and caches of one dtype, bf16 or f32. It reads
@@ -136,7 +139,7 @@ def flash_decode_append_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: t
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError("caches must be contiguous (they are updated in place)")
     n_splits = len(split_plan(t))
-    if s != n_slots or not 0 <= layer < n_layers:
+    if not 0 < s <= n_slots or not 0 <= layer < n_layers:
         raise ValueError(f"slots {s} / layer {layer} outside cache {tuple(k_cache.shape)}")
     if k_cache.dtype not in (torch.bfloat16, torch.float32) or q.dtype != k_cache.dtype:
         raise ValueError(f"decode kernel needs q and caches in one dtype, bf16 or f32; "
@@ -154,7 +157,7 @@ def flash_decode_append_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: t
         lib.flash_decode_append(
             q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), write_pos.data_ptr(), ctx.data_ptr(), partials.data_ptr(),
-            tickets.data_ptr(), n_slots, h, t, int(layer), DECODE_SPLIT, 1.0 / math.sqrt(d),
+            tickets.data_ptr(), s, n_slots, h, t, int(layer), DECODE_SPLIT, 1.0 / math.sqrt(d),
             int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device),
         ),
         "flash_decode_append",
@@ -200,7 +203,8 @@ def ragged_decode_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.T
                             k_cache: torch.Tensor, v_cache: torch.Tensor,
                             k_scale: torch.Tensor, v_scale: torch.Tensor) -> torch.Tensor:
     """q [S, H, D] and k_new/v_new [S, H*D] (before quantisation); int8
-    caches [L, S, T, H*D] and f32 scales [L, S, T] (updated in place);
+    caches [L, S_cache, T, H*D] and f32 scales [L, S_cache, T] (updated in
+    place) with S <= S_cache: the step covers cache slots 0..S-1 only;
     write_pos [S] int32 (= keys already cached = append index), each in
     [0, T). Returns ctx [S, H*D] f32.
 
@@ -227,7 +231,7 @@ def ragged_decode_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.T
     if not all(x.is_contiguous() for x in (k_cache, v_cache, k_scale, v_scale)):
         raise ValueError("caches and scales must be contiguous (they are updated in place)")
     n_splits = len(split_plan(t))
-    if s != n_slots or not 0 <= layer < n_layers:
+    if not 0 < s <= n_slots or not 0 <= layer < n_layers:
         raise ValueError(f"slots {s} / layer {layer} outside cache {tuple(k_cache.shape)}")
     if not q.dtype == k_new.dtype == v_new.dtype == torch.bfloat16:
         raise ValueError(f"K4 takes bf16 q and rows, got {q.dtype}, {k_new.dtype}, {v_new.dtype}")
@@ -244,7 +248,7 @@ def ragged_decode_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.T
         lib.ragged_decode(
             q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), write_pos.data_ptr(),
-            ctx.data_ptr(), partials.data_ptr(), tickets.data_ptr(), n_slots, h, t, int(layer),
+            ctx.data_ptr(), partials.data_ptr(), tickets.data_ptr(), s, n_slots, h, t, int(layer),
             DECODE_SPLIT, float(attn_scale), _build.stream_ptr(q.device),
         ),
         "ragged_decode",

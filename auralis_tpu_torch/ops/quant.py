@@ -18,6 +18,13 @@ import torch
 import torch.nn.functional as F
 
 
+def pad_rows(a: torch.Tensor, rows: int) -> torch.Tensor:
+    """a [M, ...] with zero rows appended up to `rows` when M is smaller."""
+    if a.shape[0] >= rows:
+        return a
+    return torch.cat([a, a.new_zeros((rows - a.shape[0], *a.shape[1:]))])
+
+
 def quantize_rows(x: torch.Tensor, eps: float = 1e-8) -> tuple[torch.Tensor, torch.Tensor]:
     """x [..., D] -> (int8 [..., D], f32 scale [...]) with x ~ int8 * scale.
     Written for few launches (decode is host-bound): max |x| as one
@@ -44,6 +51,4 @@ def int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     are zero-padded to 32 (zero rows give zero products and are cut off
     again)."""
     m = a.shape[0]
-    if m <= 16:
-        a = F.pad(a, (0, 0, 0, 32 - m))
-    return torch._int_mm(a.contiguous(), b)[:m]
+    return torch._int_mm((pad_rows(a, 32) if m <= 16 else a).contiguous(), b)[:m]

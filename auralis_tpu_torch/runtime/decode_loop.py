@@ -10,10 +10,17 @@ dataclass of device tensors that every function below updates IN PLACE
 (including the KV cache, through gpt.py). Sampling noise comes from the
 state's torch.Generator unless a caller injects it.
 
-Ported: the single insert (`_insert_body`), N-step decode blocks without
-`len_bound`/`slot_bound` (kernels K2 and K4 read only live rows), status
-packing, release and harvest, with a bf16/f32 or an int8 KV cache. Not
-ported yet: batched inserts and slot migration.
+Ported: the single insert (`_insert_body`), the burst insert
+(`_insert_batch_body`: K prompts through one batched prefill), N-step decode
+blocks with `len_bound` (the dense bodies' read bound) and `slot_bound`
+(the step covers the first `slot_bound` slots only), the block with its
+packed status left on the device, slot migration, status packing, release
+and harvest, with a bf16/f32 or an int8 KV cache.
+
+A slot-bounded step needs no merge: `_slice_state` returns views of the
+first `sb` slots of every per-slot tensor (the cache stays whole, its rows
+addressed by slot), and every update below is in place, so it writes
+through the views into the full state.
 """
 from __future__ import annotations
 
@@ -23,7 +30,15 @@ import numpy as np
 import torch
 
 from ..models.xttsv2.config import XTTSGPTConfig
-from ..models.xttsv2.gpt import KVCache, gpt_decode_step, gpt_prefill, heads, make_kv_cache
+from ..models.xttsv2.gpt import (
+    KVCache,
+    gpt_decode_step,
+    gpt_prefill,
+    gpt_prefill_batched,
+    heads,
+    make_kv_cache,
+)
+from ..ops.quant import pad_rows
 from .sampler import SamplingState, init_sampling_state, sample_tokens
 
 PREFILL_BUCKETS = (64, 128, 256, 512)
@@ -164,6 +179,92 @@ def insert_sequence(params: dict, cfg: XTTSGPTConfig, state: DecodeState,
     _record_and_advance(cfg, state, latent_full, tokens, onehot)
 
 
+@torch.no_grad()
+def insert_sequences(params: dict, cfg: XTTSGPTConfig, state: DecodeState,
+                     embeds: torch.Tensor, lengths, slots, temperature, top_p, top_k,
+                     repetition_penalty, do_sample, max_new=0,
+                     gumbel: torch.Tensor | None = None) -> None:
+    """Burst insert (the JAX `_insert_batch_body`): prefill K prompts
+    `embeds` [K, T_pad, D] in one batched pass (gpt_prefill_batched), set
+    the K slots' sampling rows and seen rows, sample all K first tokens in
+    one `sample_tokens` call over [S, V] and record them. `lengths` [K] (0
+    on padding lanes); `slots` [K] host ints (>= num_slots on padding lanes,
+    which touch nothing); the sampling arguments are [K] sequences or
+    tensors, or scalars for every lane. `gumbel` [S, V] optionally injects
+    the noise. One draw covers the burst, so sampled tokens differ from K
+    single inserts; greedy ones are equal. In place."""
+    s = state.seq_lens.shape[0]
+    dev = state.seq_lens.device
+    kb = embeds.shape[0]
+    slots = [int(x) for x in slots]
+    lanes = [i for i, x in enumerate(slots) if x < s]
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    h_last = gpt_prefill_batched(params, cfg, embeds, lengths, slots, state.cache)
+    if not lanes:
+        return
+    logits, latent = heads(params, h_last)  # [K, V], [K, D]
+    lane_idx = torch.tensor(lanes, dtype=torch.long, device=dev)
+    slot_idx = torch.tensor([slots[i] for i in lanes], dtype=torch.long, device=dev)
+    khot = torch.zeros((s,), dtype=torch.bool, device=dev)
+    khot[slot_idx] = True
+
+    sp = state.sampling
+    for field, values in ((sp.temperature, temperature), (sp.top_p, top_p), (sp.top_k, top_k),
+                          (sp.repetition_penalty, repetition_penalty),
+                          (sp.do_sample, do_sample), (sp.max_new, max_new)):
+        lane_vals = torch.as_tensor(values, device=dev).to(field.dtype).expand(kb)
+        field[slot_idx] = lane_vals[lane_idx]
+    sp.seen[slot_idx] = _prompt_seen_row(cfg, dev)
+
+    logits_s = torch.zeros((s, logits.shape[-1]), dtype=logits.dtype, device=dev)
+    logits_s[slot_idx] = logits[lane_idx]
+    tokens = sample_tokens(logits_s, sp, state.generator, gumbel=gumbel, mark=khot)
+
+    state.seq_lens[slot_idx] = lengths[lane_idx] - 1
+    state.audio_pos[slot_idx] = 0
+    state.active[slot_idx] = True
+    state.done[slot_idx] = False
+    state.n_generated[slot_idx] = 0
+    latent_full = torch.zeros((s, latent.shape[-1]), dtype=latent.dtype, device=dev)
+    latent_full[slot_idx] = latent[lane_idx]
+    _record_and_advance(cfg, state, latent_full, tokens, khot)
+
+
+def _assemble_prompts(params: dict, cfg: XTTSGPTConfig, cond: torch.Tensor,
+                      ids: torch.Tensor, n_ids: torch.Tensor) -> torch.Tensor:
+    """`_assemble_prompt` for every lane at once: cond [K, C, D], padded
+    ids [K, Tb], true id counts n_ids [K] (on the device; no host read) ->
+    [K, C + Tb, D]."""
+    tb = ids.shape[1]
+    pos = torch.arange(tb, device=ids.device)
+    text = params["text_wte"][ids.long()] + params["text_wpe"][
+        torch.clamp(pos, max=params["text_wpe"].shape[0] - 1)][None]
+    start = params["wte"][cfg.start_audio_token] + params["wpe"][0]
+    text = torch.where((pos[None, :] == n_ids[:, None])[..., None], start, text)
+    return torch.cat([cond.to(text.dtype), text], dim=1)
+
+
+def insert_sequences_tokens(params: dict, cfg: XTTSGPTConfig, state: DecodeState,
+                            cond: torch.Tensor, ids: torch.Tensor, n_ids, slots, temperature,
+                            top_p, top_k, repetition_penalty, do_sample, max_new=0,
+                            gumbel: torch.Tensor | None = None) -> None:
+    """Transfer-thin burst insert: per-lane prompt assembly from device
+    conditioning latents cond [K, C, D] (often one voice repeated) and
+    padded text ids [K, Tb] (one upload for the burst), then
+    `insert_sequences`. Lengths are C + n_ids + 1, and 0 on padding lanes
+    (slots >= num_slots), as in JAX. The prompts are in the cache dtype, or
+    bf16 under cfg.kv_int8."""
+    dev = state.seq_lens.device
+    num_slots = state.seq_lens.shape[0]
+    n_ids = torch.as_tensor(n_ids, dtype=torch.long, device=dev)
+    embeds = _assemble_prompts(params, cfg, cond, ids.to(dev), n_ids).to(
+        torch.bfloat16 if cfg.kv_int8 else state.cache.k.dtype)
+    real = torch.tensor([int(x) < num_slots for x in slots], device=dev)
+    lengths = torch.where(real, cond.shape[1] + n_ids + 1, 0)
+    insert_sequences(params, cfg, state, embeds, lengths, slots, temperature, top_p, top_k,
+                     repetition_penalty, do_sample, max_new, gumbel=gumbel)
+
+
 def insert_sequence_tokens(params: dict, cfg: XTTSGPTConfig, state: DecodeState,
                            cond: torch.Tensor, ids: torch.Tensor, n_ids: int, slot: int,
                            temperature: float, top_p: float, top_k: int,
@@ -179,20 +280,84 @@ def insert_sequence_tokens(params: dict, cfg: XTTSGPTConfig, state: DecodeState,
                     repetition_penalty, do_sample, max_new, gumbel=gumbel)
 
 
+def _slice_state(state: DecodeState, sb: int) -> DecodeState:
+    """Views of the first `sb` slots of every per-slot tensor; the cache is
+    whole (its rows are addressed by slot, and a step over [sb] tokens
+    reads and writes slots 0..sb-1 only). In-place updates of the views
+    write through into `state`: this is the JAX `_slice_state` and
+    `_merge_state` together."""
+    return DecodeState(
+        cache=state.cache,
+        sampling=SamplingState(*(t[:sb] for t in state.sampling.tensors())),
+        seq_lens=state.seq_lens[:sb],
+        audio_pos=state.audio_pos[:sb],
+        last_token=state.last_token[:sb],
+        active=state.active[:sb],
+        done=state.done[:sb],
+        tokens_buf=state.tokens_buf[:sb],
+        latents_buf=state.latents_buf[:sb],
+        n_generated=state.n_generated[:sb],
+        generator=state.generator,
+    )
+
+
 @torch.no_grad()
 def decode_steps(params: dict, cfg: XTTSGPTConfig, state: DecodeState, n_steps: int = 1,
+                 len_bound: int | None = None, slot_bound: int | None = None,
                  gumbel: torch.Tensor | None = None) -> None:
-    """Run `n_steps` decode iterations over all slots (inactive slots are
-    masked out of the bookkeeping). `gumbel` [n_steps, S, V] optionally
-    injects the sampling noise. In place."""
+    """Run `n_steps` decode iterations (inactive slots are masked out of
+    the bookkeeping). `len_bound` caps the dense bodies' attention read: the
+    caller guarantees max(seq_lens) + n_steps < len_bound. `slot_bound`
+    restricts the steps to the first `slot_bound` slots (the runner fills
+    the lowest free slot and compacts stragglers down, so few live slots sit
+    low); slots >= slot_bound must not be active. The noise is then drawn
+    for [slot_bound, V], so sampled trajectories depend on the bound and
+    greedy ones do not. `gumbel` [n_steps, S', V] (S' = the stepped slots)
+    optionally injects the noise. In place."""
+    if slot_bound is not None and slot_bound < state.seq_lens.shape[0]:
+        state = _slice_state(state, slot_bound)
     for i in range(n_steps):
         was_active = state.active.clone()
         h = gpt_decode_step(params, cfg, state.last_token, state.audio_pos, state.seq_lens,
-                            state.cache)
-        logits, latent = heads(params, h)
+                            state.cache, len_bound=len_bound)
+        # the heads' product at the cache's slot count of rows, as in
+        # gpt_decode_step: a slot's logits do not depend on the bound
+        s = h.shape[0]
+        logits, latent = (t[:s] for t in heads(params, pad_rows(h, state.cache.num_slots)))
         tokens = sample_tokens(logits, state.sampling, state.generator,
                                gumbel=None if gumbel is None else gumbel[i], mark=was_active)
         _record_and_advance(cfg, state, latent, tokens, was_active)
+
+
+def decode_steps_status(params: dict, cfg: XTTSGPTConfig, state: DecodeState,
+                        n_steps: int = 1, len_bound: int | None = None,
+                        slot_bound: int | None = None,
+                        gumbel: torch.Tensor | None = None) -> torch.Tensor:
+    """`decode_steps`, then the packed status vector of every slot as a
+    device tensor (no host sync: the caller copies it when it chooses)."""
+    decode_steps(params, cfg, state, n_steps, len_bound, slot_bound, gumbel)
+    return pack_status(state)
+
+
+@torch.no_grad()
+def migrate_slot(state: DecodeState, src: int, dst: int) -> None:
+    """Move slot `src`'s whole decode state into slot `dst` (which must be
+    free): KV rows (and int8 scales), the sampling rows including `seen`,
+    the counters, and the token and latent buffers; then clear `src`'s
+    `active`, `done` and `n_generated`. Device-local copies, no host sync.
+    The runner migrates drain stragglers down so the slot bound can narrow.
+    A packed status read before the move indexes stale slots. In place."""
+    cache = state.cache
+    for t in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+        if t is not None:
+            t[:, dst].copy_(t[:, src])
+    for t in (*state.sampling.tensors(), state.seq_lens, state.audio_pos, state.last_token,
+              state.active, state.done, state.tokens_buf, state.latents_buf,
+              state.n_generated):
+        t[dst].copy_(t[src])
+    state.active[src] = False
+    state.done[src] = False
+    state.n_generated[src] = 0
 
 
 def pack_status(state: DecodeState) -> torch.Tensor:

@@ -1,30 +1,46 @@
 """Async host coordinator for the decode loop.
 
 Counterpart of the `DecodeEngine` runner in auralis_tpu/runtime/engine_core.py:
-callers submit prompts, the runner inserts each into a free decode slot
+callers submit prompts, the runner inserts them into free decode slots
 (continuous batching), steps fixed-size decode blocks, and resolves
 per-sequence futures with (tokens, latent_row, n): latent_row is a device
 copy of the slot's full [T_audio, D] latent row, of which the first n rows
 are live, so the vocoder reads it without a host round trip.
 
-What the port runs: a FIFO queue of TokenPrompts; one insert per free slot (every insert is
-one prefill, through kernel K1 under `prefill_flash`); decode blocks of
-`steps_per_sync` steps with ONE host sync per block (the packed status
-vector); harvest of finished slots; cancellation that releases the slot.
-Device work runs in a worker thread (`asyncio.to_thread`), so the event loop
-keeps serving other coroutines while a block is on the card. Not ported yet:
-burst inserts, slot compaction/bucketing, young/steady block sizes, the
-per-program W8A8 policy (`w8a8_policy`: it keys on the length and slot
-bounds that slot bucketing brings), stream snapshots and precompile.
+What the runner does, as the JAX one does:
+- burst inserts: free slots are filled lowest-first; the inserts of one
+  pass are grouped by prefill bucket and cut into exact K buckets of 8, 4
+  and 2, each one batched prefill (`insert_sequences_tokens`: the weights
+  stream once per burst), and the remainder goes through single inserts;
+- slot bucketing (`slot_bucketing=True`): a block steps only the first
+  quarter or half of the slots when every live slot sits below that bound,
+  and `_compact_slots` migrates drain stragglers down so the bound narrows;
+- a length bound per block (`_len_bucket`), the read bound of the dense
+  attention bodies;
+- the per-program W8A8 policy (`w8a8_policy`): a block runs the int8 decode
+  weights or the bf16 ones by its (length bound, slot bound);
+- a pipelined loop: block k+1 is dispatched before block k's packed status
+  is read, so the status read (a non-blocking copy into pinned host memory
+  behind a CUDA event) overlaps the next block. Done-detection lags one
+  block; the extra masked steps of a finished slot are no-ops.
+
+Device work runs in a worker thread (`asyncio.to_thread`): the port issues
+every op eagerly, and issuing a block's ops takes host time, so the event
+loop keeps serving other coroutines while a block is issued. Prompts are
+TokenPrompts only: the JAX runner's legacy embeds-prompt branch (an uploaded
+[T, D] embedding matrix per chunk) is not on the port's path. Not ported:
+streaming (stream snapshots, young blocks, speculative hooks) and
+precompile (JAX AOT workarounds).
 """
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -34,11 +50,12 @@ from ..common.tracing import record
 from ..models.xttsv2.config import XTTSGPTConfig
 from .decode_loop import (
     DecodeState,
-    decode_steps,
+    decode_steps_status,
     harvest_latents_device,
     init_decode_state,
     insert_sequence_tokens,
-    pack_status,
+    insert_sequences_tokens,
+    migrate_slot,
     prefill_bucket,
     release_slots,
     unpack_status,
@@ -81,27 +98,82 @@ class _Pending:
     cancelled: bool = False
 
 
+@dataclass
+class _Status:
+    """A dispatched block's packed status: the pinned host buffer it is
+    being copied into and the event behind the copy (None on the CPU)."""
+
+    host: torch.Tensor
+    event: Optional[torch.cuda.Event]
+
+    def ready(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def wait(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
 class DecodeEngine:
     """Continuous-batching decode coordinator over one device. Drive it from
     a single asyncio loop."""
 
+    # the length-bound buckets of the dense attention bodies, the JAX
+    # runner's grid copied for parity: they were fitted on a TPU and are not
+    # an H100 measurement (a benchmark of the port refits them)
+    LEN_BUCKETS = (256, 512, 768, 1024)
+    # burst sizes of one batched prefill; a group is cut into exact buckets
+    # (a padded lane costs a real prompt's prefill compute)
+    _INSERT_K_BUCKETS = (2, 4, 8)
+
     def __init__(self, params: dict, cfg: XTTSGPTConfig, num_slots: int = 16,
                  cache_dtype=torch.bfloat16, steps_per_sync: int = 16, seed: int = 0,
+                 slot_bucketing: bool = False,
+                 w8a8_policy: Optional[Callable[[int, int], bool]] = None,
                  device="cuda"):
         self.params = params
         self.cfg = cfg
+        # per-program int8 decode weights: the policy picks, from a block's
+        # (length bound, slot bound), the W8A8 program or the bf16 one; it is
+        # armed only where the int8 weights exist
+        self._w8a8_policy = w8a8_policy if "blocks_q8" in params else None
+        self._cfg_w8a8 = (dataclasses.replace(cfg, decode_w8a8=True)
+                          if self._w8a8_policy is not None else cfg)
+        # the dense int8 body's bf16-probabilities variant for small blocks
+        # (at most this many slot x row cells), where the policy steers;
+        # the JAX runner's TPU-measured region, kept for parity
+        self._attn_fp_max_cells = 16 * 256
+        self._cfg_w8a8_fp = (dataclasses.replace(self._cfg_w8a8, decode_attn_fp=True)
+                             if self._w8a8_policy is not None and cfg.kv_int8
+                             else self._cfg_w8a8)
         self.num_slots = num_slots
         self.steps_per_sync = steps_per_sync
+        self.slot_bucketing = slot_bucketing
         self.device = torch.device(device)
         self.state: DecodeState = init_decode_state(
             cfg, num_slots, seed=seed, dtype=cache_dtype, device=self.device)
-        # the worker thread mutates the state during a block; the event-loop
-        # side (release, harvest) takes this lock before touching it
-        self._state_lock = threading.Lock()
+        # the worker thread mutates the state during a pass; the event-loop
+        # side (release, harvest, compaction) takes this lock before touching it
+        self._state_lock = threading.RLock()
         self._queue: deque[_Pending] = deque()
         self._slot_owner: dict[int, _Pending] = {}
-        self.stats = {"blocks": 0, "block_s": 0.0, "insert_s": 0.0, "inserts": 0,
-                      "occupancy_sum": 0, "idle_waits": 0}
+        # per owned slot: its prompt length and the runner's step count at
+        # its insert (the length bound's input)
+        self._slot_meta: dict[int, dict] = {}
+        self._steps_total = 0
+        # two pinned status buffers: block k's is read while block k+1's fills
+        self._status_bufs = [self._host_buffer((num_slots,), torch.int32) for _ in range(2)]
+        self._status_turn = 0
+        self._harvest_tasks: set[asyncio.Task] = set()  # held until each resolves
+        self.stats = {
+            "blocks": 0, "dispatch_s": 0.0, "status_wait_s": 0.0, "insert_s": 0.0,
+            "harvest_s": 0.0, "occupancy_sum": 0, "idle_waits": 0, "migrations": 0,
+            "inserts": 0, "insert_upload_s": 0.0, "insert_dispatch_s": 0.0,
+            # port additions: batched prefills run, and blocks stepped below
+            # full width
+            "insert_batches": 0, "slot_bound_blocks": 0,
+        }
         self._runner: Optional[asyncio.Task] = None
         self._wake = asyncio.Event()
         self._loop: Optional[asyncio.AbstractEventLoop] = None
@@ -163,7 +235,16 @@ class DecodeEngine:
     def num_active(self) -> int:
         return len(self._slot_owner)
 
+    def reset_stats(self) -> None:
+        """Zero the runner telemetry in place (after a warm-up, so build and
+        first-call costs stay out of a timed region)."""
+        for k in self.stats:
+            self.stats[k] = 0 if isinstance(self.stats[k], int) else 0.0
+
     # ------------------------------------------------------------ internals
+    def _host_buffer(self, shape, dtype) -> torch.Tensor:
+        return torch.empty(shape, dtype=dtype, pin_memory=self.device.type == "cuda")
+
     def _ensure_runner(self) -> None:
         loop = asyncio.get_running_loop()
         if loop is not self._loop:
@@ -193,6 +274,7 @@ class DecodeEngine:
             except RuntimeError:
                 pass  # stale future from a closed event loop
         self._slot_owner.clear()
+        self._slot_meta.clear()
         self._queue.clear()
 
     def _release(self, slots: list[int]) -> None:
@@ -202,84 +284,299 @@ class DecodeEngine:
             release_slots(self.state, mask.to(self.device))
         for s in slots:
             self._slot_owner.pop(s, None)
+            self._slot_meta.pop(s, None)
 
-    def _insert(self, pending: _Pending, slot: int) -> None:
-        """Prefill one prompt into `slot` (runs in the worker thread). The
-        text ids pad to the prefill bucket minus the cond width."""
-        opts, tp = pending.options, pending.prompt
+    def _free_slots(self) -> list[int]:
+        # slot ownership is host-authoritative: a slot is free once harvested
+        return [i for i in range(self.num_slots) if i not in self._slot_owner]
+
+    def _block_steps(self) -> int:
+        """Steps of the next block: `steps_per_sync` (the JAX runner's
+        shorter young blocks serve streaming, which is not ported)."""
+        return self.steps_per_sync
+
+    def _slot_buckets(self) -> tuple[int, ...]:
+        """Ascending slot-bound buckets below full width: a quarter and a
+        half of the slots, each at least 2."""
+        q, h = self.num_slots // 4, self.num_slots // 2
+        return tuple(b for b in (q, h) if b >= 2 and b < self.num_slots)
+
+    def _slot_bucket(self) -> int | None:
+        """Bound on the live slot indices for the next block: the smallest
+        bucket above every owned slot (free slots are filled lowest-first,
+        and _compact_slots re-clusters drain stragglers), or None for full
+        width. Sampled trajectories depend on the bound in effect (the noise
+        is drawn for [bound, V]); greedy ones do not."""
+        if not self.slot_bucketing or not self._slot_owner:
+            return None
+        worst = max(self._slot_owner) + 1
+        for b in self._slot_buckets():
+            if worst <= b:
+                return b
+        return None  # full width
+
+    def _compact_slots(self) -> bool:
+        """Migrate live slots stranded above the smallest slot bucket that
+        fits the live count into free low slots (decode_loop.migrate_slot),
+        so _slot_bucket can narrow during drains. Runs only when the queue
+        is empty (occupancy is not about to rise); every move is
+        device-local. Returns True if anything moved: a status vector read
+        before the moves indexes pre-move slots."""
+        if not self.slot_bucketing or not self._slot_owner or self._queue:
+            return False
+        live = len(self._slot_owner)
+        target = next((b for b in self._slot_buckets() if live <= b), None)
+        if target is None:
+            return False
+        moved = False
+        with self._state_lock:
+            while True:
+                worst = max(self._slot_owner)
+                if worst < target:
+                    break
+                dst = next(i for i in range(self.num_slots) if i not in self._slot_owner)
+                if dst >= worst:
+                    break
+                migrate_slot(self.state, worst, dst)
+                self._slot_owner[dst] = self._slot_owner.pop(worst)
+                self._slot_meta[dst] = self._slot_meta.pop(worst)
+                self.stats["migrations"] += 1
+                moved = True
+        return moved
+
+    def _cfg_for(self, len_bound: int | None, slot_bound: int | None) -> XTTSGPTConfig:
+        """The config of one decode block: with the W8A8 policy armed, the
+        block's read extent (len_bound x slot_bound, full length and width
+        when None) decides whether the int8 decode weights run, and in the
+        dense int8 body small blocks take the bf16-probabilities variant."""
+        if self._w8a8_policy is None:
+            return self.cfg
+        lb = len_bound if len_bound is not None else self.cfg.max_seq_len
+        sb = slot_bound if slot_bound is not None else self.num_slots
+        if not self._w8a8_policy(lb, sb):
+            return self.cfg
+        if sb * lb <= self._attn_fp_max_cells:
+            return self._cfg_w8a8_fp
+        return self._cfg_w8a8
+
+    def _len_bucket(self) -> int | None:
+        """Attention-read bound of the next block: the smallest bucket above
+        every owned slot's possible length after it, or None (full length)."""
+        if not self._slot_owner:
+            return self.LEN_BUCKETS[0]
+        worst = max(
+            info["prompt_len"] + (self._steps_total - info["steps_at_insert"])
+            for info in self._slot_meta.values()
+        ) + self.steps_per_sync + 1
+        for b in self.LEN_BUCKETS:
+            if worst < b:
+                return b
+        return None  # full length
+
+    def _own(self, pending: _Pending, slot: int) -> None:
+        self._slot_owner[slot] = pending
+        self._slot_meta[slot] = {"prompt_len": pending.prompt.length,
+                                 "steps_at_insert": self._steps_total}
+
+    def _token_args(self, tp: TokenPrompt) -> tuple[np.ndarray, int]:
+        """(padded ids, n_ids): the ids pad to the prefill bucket minus the
+        cond width, so the assembled prompt has the bucket's length."""
         tb = prefill_bucket(tp.length, self.cfg.max_seq_len) - int(tp.cond.shape[0])
         ids = np.zeros((tb,), np.int64)
         ids[: len(tp.ids)] = tp.ids
-        insert_sequence_tokens(
-            self.params, self.cfg, self.state, tp.cond, torch.from_numpy(ids).to(self.device),
-            len(tp.ids), slot, opts.temperature, opts.top_p, opts.top_k,
-            opts.repetition_penalty, opts.do_sample, opts.max_new_tokens)
+        return ids, len(tp.ids)
 
-    def _inserts_and_block(self, to_insert: list, n_steps: int) -> np.ndarray:
-        """Worker-thread body of one runner pass: the inserts, one decode
-        block, and the block's single host sync (the packed status)."""
+    def _insert(self, pending: _Pending, slot: int) -> None:
+        """Prefill one prompt into `slot` (worker thread)."""
+        opts, tp = pending.options, pending.prompt
+        t_up = time.perf_counter()
+        ids, n_ids = self._token_args(tp)
+        ids_dev = torch.from_numpy(ids).to(self.device)
+        t_disp = time.perf_counter()
+        insert_sequence_tokens(
+            self.params, self.cfg, self.state, tp.cond, ids_dev, n_ids, slot, opts.temperature,
+            opts.top_p, opts.top_k, opts.repetition_penalty, opts.do_sample,
+            opts.max_new_tokens)
+        self.stats["insert_upload_s"] += t_disp - t_up
+        self.stats["insert_dispatch_s"] += time.perf_counter() - t_disp
+        self.stats["inserts"] += 1
+
+    def _insert_batch(self, pairs: list[tuple[_Pending, int]]) -> None:
+        """Burst insert (worker thread): one batched prefill for all `pairs`
+        (one prefill bucket and cond width), so the GPT weights stream once
+        for the burst. The ids go up as one [K, Tb] upload and the per-lane
+        options as one float and one int upload; lanes pad to a K bucket
+        with slot = num_slots, which writes nothing."""
+        kb = next(b for b in self._INSERT_K_BUCKETS if b >= len(pairs))
+        pad = kb - len(pairs)
+        t_up = time.perf_counter()
+        args = [self._token_args(p.prompt) for p, _ in pairs]
+        ids = np.stack([a[0] for a in args] + [np.zeros_like(args[0][0])] * pad)
+        opts = [p.options for p, _ in pairs]
+        floats = np.asarray([[o.temperature for o in opts] + [1.0] * pad,
+                             [o.top_p for o in opts] + [1.0] * pad,
+                             [o.repetition_penalty for o in opts] + [1.0] * pad], np.float32)
+        ints = np.asarray([[a[1] for a in args] + [0] * pad,
+                           [o.top_k for o in opts] + [1] * pad,
+                           [o.do_sample for o in opts] + [0] * pad,
+                           [o.max_new_tokens for o in opts] + [0] * pad], np.int64)
+        ids_dev = torch.from_numpy(ids).to(self.device)
+        floats_dev = torch.from_numpy(floats).to(self.device)
+        ints_dev = torch.from_numpy(ints).to(self.device)
+        cond = torch.stack([p.prompt.cond for p, _ in pairs]
+                           + [pairs[0][0].prompt.cond] * pad)
+        slots = [s for _, s in pairs] + [self.num_slots] * pad
+        t_disp = time.perf_counter()
+        insert_sequences_tokens(
+            self.params, self.cfg, self.state, cond, ids_dev, ints_dev[0], slots, floats_dev[0],
+            floats_dev[1], ints_dev[1], floats_dev[2], ints_dev[2].bool(), ints_dev[3])
+        self.stats["insert_upload_s"] += t_disp - t_up
+        self.stats["insert_dispatch_s"] += time.perf_counter() - t_disp
+        self.stats["inserts"] += len(pairs)
+        self.stats["insert_batches"] += 1
+
+    def _group_inserts(self, to_insert: list[tuple[_Pending, int]]) -> list[list]:
+        """The pass's inserts grouped by (prefill bucket, cond width) and cut
+        into exact K buckets, largest first; the remainder one by one."""
+        by_bucket: dict[tuple, list] = {}
+        for pending, slot in to_insert:
+            tp = pending.prompt
+            key = (prefill_bucket(tp.length, self.cfg.max_seq_len), int(tp.cond.shape[0]))
+            by_bucket.setdefault(key, []).append((pending, slot))
+        chunks = []
+        for pairs in by_bucket.values():
+            while pairs:
+                k = next((b for b in reversed(self._INSERT_K_BUCKETS) if b <= len(pairs)), 1)
+                chunks.append(pairs[:k])
+                pairs = pairs[k:]
+        return chunks
+
+    def _device_pass(self, chunks: list[list], n_steps: int) -> _Status:
+        """Worker-thread body of one runner pass: the inserts, the
+        compaction, and one decode block whose packed status is copied
+        (non-blocking) into a pinned host buffer behind an event."""
+        st = self.stats
         with self._state_lock:
             t0 = time.perf_counter()
-            for pending, slot in to_insert:
-                self._insert(pending, slot)
+            for chunk in chunks:
+                if len(chunk) == 1:
+                    self._insert(*chunk[0])
+                else:
+                    self._insert_batch(chunk)
+            self._compact_slots()
+            st["insert_s"] += time.perf_counter() - t0
             t1 = time.perf_counter()
-            decode_steps(self.params, self.cfg, self.state, n_steps)
-            packed = pack_status(self.state).cpu().numpy()
-        self.stats["insert_s"] += t1 - t0
-        self.stats["block_s"] += time.perf_counter() - t1
-        return packed
+            slot_bound, len_bound = self._slot_bucket(), self._len_bucket()
+            packed = decode_steps_status(self.params, self._cfg_for(len_bound, slot_bound),
+                                         self.state, n_steps, len_bound, slot_bound)
+            host = self._status_bufs[self._status_turn]
+            self._status_turn ^= 1
+            host.copy_(packed, non_blocking=True)
+            event = None
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.device))
+            st["dispatch_s"] += time.perf_counter() - t1
+        st["blocks"] += 1
+        st["slot_bound_blocks"] += slot_bound is not None
+        return _Status(host, event)
 
-    def _harvest(self, done: np.ndarray, n_generated: np.ndarray) -> None:
-        """Resolve every finished slot's future and free the slot."""
-        finished = [s for s in np.nonzero(done)[0].tolist() if s in self._slot_owner]
-        if not finished:
+    def _harvest_done(self, done: np.ndarray, n_generated: np.ndarray) -> None:
+        """Free the finished slots at once. Their token rows are gathered on
+        the device and copied to the host as one non-blocking copy, their
+        latent rows cloned on the device; a spawned task resolves the
+        futures when the copy lands, so the runner goes on at once."""
+        slots, owners = [], []
+        for slot in np.nonzero(done)[0].tolist():
+            pending = self._slot_owner.pop(slot, None)
+            self._slot_meta.pop(slot, None)
+            if pending is not None:
+                slots.append(slot)
+                owners.append(pending)
+        if not slots:
             return
         with self._state_lock:
-            tokens_host = self.state.tokens_buf[finished].cpu().numpy()
-            rows = [harvest_latents_device(self.state, s) for s in finished]
-        for i, slot in enumerate(finished):
-            pending = self._slot_owner[slot]
-            n = int(n_generated[slot])
-            tokens = tokens_host[i, :n]
+            idx = torch.tensor(slots, dtype=torch.long).to(self.device)
+            tokens = self._host_buffer((len(slots), self.cfg.max_audio_tokens), torch.int32)
+            tokens.copy_(self.state.tokens_buf[idx], non_blocking=True)
+            rows = [harvest_latents_device(self.state, s) for s in slots]
+            status = _Status(tokens, None)
+            if self.device.type == "cuda":
+                status.event = torch.cuda.Event()
+                status.event.record(torch.cuda.current_stream(self.device))
+            mask = torch.zeros((self.num_slots,), dtype=torch.bool)
+            mask[slots] = True
+            release_slots(self.state, mask.to(self.device))
+        ns = [int(n_generated[s]) for s in slots]
+        task = asyncio.get_running_loop().create_task(
+            self._resolve_harvest(owners, status, rows, ns))
+        self._harvest_tasks.add(task)
+        task.add_done_callback(self._harvest_tasks.discard)
+
+    async def _resolve_harvest(self, owners: list, status: _Status, rows: list,
+                               ns: list) -> None:
+        all_tokens = status.wait() if status.ready() else await asyncio.to_thread(status.wait)
+        for i, (pending, row, n) in enumerate(zip(owners, rows, ns)):
+            tokens = all_tokens[i, :n]
             # drop a trailing stop token; latents keep the step that predicted it
             if len(tokens) and tokens[-1] == self.cfg.stop_audio_token:
                 tokens = tokens[:-1]
             if not pending.future.done():
                 try:
-                    pending.future.set_result((tokens, rows[i], n))
+                    pending.future.set_result((tokens, row, n))
                 except RuntimeError:
                     pass  # the future's loop already closed
-        self._release(finished)
 
     async def _run(self) -> None:
+        """Pipelined decode loop: dispatch block k+1, then read block k's
+        status, so the status read overlaps the block just dispatched.
+        Done-detection lags one block; a finished slot's extra masked steps
+        are no-ops. The pending status is dropped after any insert or
+        migration (it indexes the slots as they were)."""
+        pending_status: Optional[_Status] = None
+        st = self.stats
         while not self._closed:
             dead = [s for s, p in self._slot_owner.items() if p.cancelled]
             if dead:
                 self._release(dead)
-            free = [i for i in range(self.num_slots) if i not in self._slot_owner]
+            free = self._free_slots()
             to_insert = []
             while free and self._queue:
                 head = self._queue.popleft()
                 if head.cancelled or head.future.done():
-                    continue
+                    continue  # cancelled between enqueue and insert
                 slot = free.pop(0)
                 record("decode.queue_wait", time.perf_counter() - head.enqueue_time)
                 to_insert.append((head, slot))
-                self._slot_owner[slot] = head
+                self._own(head, slot)
             if not self._slot_owner:
-                self.stats["idle_waits"] += 1
+                pending_status = None
+                st["idle_waits"] += 1
                 self._wake.clear()
                 try:
                     await asyncio.wait_for(self._wake.wait(), timeout=5.0)
                 except asyncio.TimeoutError:
                     pass
                 continue
-            self.stats["inserts"] += len(to_insert)
-            self.stats["blocks"] += 1
-            self.stats["occupancy_sum"] += len(self._slot_owner)
-            packed = await asyncio.to_thread(self._inserts_and_block, to_insert,
-                                             self.steps_per_sync)
-            _, done, n_gen = unpack_status(packed)
-            if done.any():
-                self._harvest(done, n_gen)
+            migrations = st["migrations"]
+            n_steps = self._block_steps()
+            st["occupancy_sum"] += len(self._slot_owner)
+            status = await asyncio.to_thread(self._device_pass, self._group_inserts(to_insert),
+                                             n_steps)
+            self._steps_total += n_steps
+            if to_insert or st["migrations"] != migrations:
+                pending_status = None  # it indexes the slots before this pass
+            if pending_status is not None:
+                t0 = time.perf_counter()
+                if pending_status.ready():
+                    packed = pending_status.wait()
+                else:
+                    packed = await asyncio.to_thread(pending_status.wait)
+                st["status_wait_s"] += time.perf_counter() - t0
+                _, done, n_gen = unpack_status(packed)
+                if done.any():
+                    t1 = time.perf_counter()
+                    self._harvest_done(done, n_gen)
+                    st["harvest_s"] += time.perf_counter() - t1
+            pending_status = status
             await asyncio.sleep(0)  # let producers/consumers run between blocks

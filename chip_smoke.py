@@ -18,7 +18,9 @@ Phases:
     K2 and K4 run at every write-position set of decode_bench.py (the
     ragged mix, split edges, all slots at 0, 127 and 1046), each launched
     twice (bit-equal ctx), and are timed cold (call i on layer i % 30, as
-    a decode step reads them: `ms`) and hot (one layer, in L2: `ms_hot`);
+    a decode step reads them: `ms`) and hot (one layer, in L2: `ms_hot`),
+    then on a slot-bounded step (the first 2 and 4 slots of the 8-slot
+    cache: bit-equal to the full-width step's rows, slots beyond untouched);
     K5 the same over 30 layers' MLP weights in the serving layout, beside
     the serving chain's cold time (`serving_chain_ms`), with two launches
     bit-equal and its fc -> proj overlap kept in a CUDA graph (the
@@ -31,12 +33,25 @@ Phases:
     (wall, device ms, K2 ms per step, device busy share), and one
     605-latent chunk through the vocoder;
  4b. the int8 slice: the same with an int8 KV cache, W8A8 prefill and
-    decode matmuls and ragged decode attention; K1, K4 and K3 must launch;
-    one decode block is profiled as in 4 (K4 ms per step);
+    decode matmuls and ragged decode attention, each request capped at 300
+    tokens; K1, K4 and K3 must launch; one decode block is profiled as in
+    4 (K4 ms per step);
  4c. the dense int8 decode body (no K4) with W8A8 decode, one short request
     each with bf16 and with requantised attention probabilities;
  4d. K5's path: the W8A8 MLP of every layer of the int8 engine at decode
     shape through K5, each within 28 dB SNR of the serving composition;
+ 4e. the runner at concurrency, full width, 16 slots, slot bucketing on:
+    bursts of K = 2, 4, 8 prompts as one batched insert against K single
+    inserts (ms per chunk; first tokens, KV rows, latents); 16-step blocks
+    at slot bounds 4 and 8 against full width (tokens equal) and their
+    wall, device and decode-kernel ms per step at bounds 4, 8 and 16; one
+    migrate_slot (every field bit for bit); 16 chunks through the runner
+    (batched inserts, migrations, blocks below full width, its stats) and
+    the same traffic through an unbucketed runner (tokens equal); one
+    facade request of 9 chunks (a batched insert, a finite waveform);
+    then the int8 configuration's bounds and runner, and the dense int8
+    body under the per-program W8A8 policy (its choice at every bound);
+    K2 and K3 (bf16) and K4 (int8) must launch in the runner drives;
  5. reference check: the same full-width engine in f32 answers one short
     greedy request on the card (through the kernels) and on the CPU
     (through their plain versions); tokens must be equal and waveforms
@@ -46,8 +61,8 @@ Phases:
     latents must agree to 25 dB SNR and greedy tokens wherever the top-2
     logit margin is decisive.
 
-Any failure exits non-zero. The second-to-last line is the kernels JSON
-object; the last is {"ok": true, "device": {...}}. There is no CPU path: the
+Any failure exits non-zero. Before the last line come the kernels JSON
+object and the nvidia-smi line; the last is {"ok": true, "device": {...}}. There is no CPU path: the
 script exits non-zero when no CUDA device is visible. JAX is never imported.
 """
 from __future__ import annotations
@@ -82,11 +97,22 @@ from auralis_tpu_torch.models.xttsv2.hifigan import (
 from auralis_tpu_torch.models.xttsv2.gpt import (
     gpt_decode_step,
     gpt_prefill,
+    gpt_prefill_batched,
     heads,
     layer_norm,
     quantize_decode_weights,
 )
-from auralis_tpu_torch.runtime.decode_loop import _assemble_prompt, decode_steps, pack_status
+from auralis_tpu_torch.runtime.decode_loop import (
+    _assemble_prompt,
+    decode_steps,
+    decode_steps_status,
+    init_decode_state,
+    insert_sequence_tokens,
+    insert_sequences_tokens,
+    migrate_slot,
+    pack_status,
+)
+from auralis_tpu_torch.runtime.engine_core import DecodeEngine, SamplingOptions, TokenPrompt
 from auralis_tpu_torch.models.xttsv2.weights import (
     init_gpt_params,
     params_from_numpy,
@@ -337,6 +363,47 @@ def check_prefill(dev, results) -> None:
         "by_shape": {f"{tag} T={t}": r for (tag, t), r in rows.items()}}
 
 
+def check_slot_slices(tag: str, kernel, plain, caches, ref_caches, rtol: float, atol: float,
+                      dev) -> dict:
+    """K2 or K4 on a slot-bounded step, as the runner's narrow slot buckets
+    launch them: the first S = 2 and 4 slots of the 8-slot cache, at the
+    ragged mix's first S write positions. Against the plain version on its
+    own copy of the caches: caches (and scales) bit-equal, ctx within the
+    full-width check's bound; the cache rows of slots >= S untouched; and
+    the S rows of ctx bit-equal to the same step at full width.
+    `kernel(S or None, write_pos)` and `plain(S, write_pos)` run one step."""
+    ragged = WRITE_POS_SETS["ragged"]
+    full_wp = torch.tensor(ragged, dtype=torch.int32, device=dev)
+    full = kernel(None, full_wp)  # the same appends as the ragged set's: idempotent
+    plain(len(ragged), full_wp)
+    rows = {}
+    for sb in (2, 4):
+        wp = full_wp[:sb].clone()
+        high = [c[HOT_LAYER, sb:].clone() for c in caches]
+        got = kernel(sb, wp)
+        torch.cuda.synchronize()
+        want = plain(sb, wp)
+        for i, (a, b) in enumerate(zip(caches, ref_caches)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{tag} S={sb} of 8: cache tensor {i} differs from the plain "
+                                     f"version's")
+            if not torch.equal(a[HOT_LAYER, sb:], high[i]):
+                raise AssertionError(f"{tag} S={sb} of 8: slots >= {sb} were written")
+        if got.shape[0] != sb or not torch.equal(got, full[:sb]):
+            raise AssertionError(f"{tag} S={sb} of 8: ctx differs from the full-width step's rows")
+        err = (got.float() - want.float()).abs().max().item()
+        ratio, mismatch = elementwise(got, want, rtol, atol)
+        if not ratio <= 1.0:
+            raise AssertionError(f"{tag} S={sb} of 8: worst error/bound {ratio}")
+        rows[f"S={sb} of 8"] = {"write_pos": wp.tolist(), "max_abs_err": err,
+                                "bit_equal_to_full_width": True}
+        say(f"  {tag} slot-bounded step S={sb} of an 8-slot cache, write_pos {wp.tolist()}: "
+            f"caches bit-equal to the plain version's, slots >= {sb} untouched, ctx bit-equal "
+            f"to the full-width step's first {sb} rows; max_abs_err={err:.3e}, worst "
+            f"|err|/bound {ratio:.3f} (bound {rtol:g}|ref| + {atol:g})")
+    return rows
+
+
 def check_decode(dev, results) -> None:
     """K2 on a [30, 8, 1280, 1024] bf16 cache at every write-position set of
     decode_bench.WRITE_POS_SETS. Both sides update their own copy of the
@@ -387,6 +454,12 @@ def check_decode(dev, results) -> None:
             f"{mismatch:.4%} (bound 1%), repeat bit-equal; kernel cold {ms:.4f} ms, hot "
             f"{ms_hot:.4f} ms, plain cold {plain_ms:.4f} ms per layer, bound {bound_ms:.5f} ms "
             f"({bound_by}, {live} live rows; {bound_ms / ms:.1%} of cold)")
+    rows.update(check_slot_slices(
+        "K2",
+        lambda sb, wp: flash_decode_append_attention(q[:sb], kn[:sb], vn[:sb], kc, vc, HOT_LAYER,
+                                                     wp),
+        lambda sb, wp: flash_decode_plain(q[:sb], kn[:sb], vn[:sb], kc2, vc2, HOT_LAYER, wp),
+        (kc, vc), (kc2, vc2), 2.0 ** -7, 1e-5, dev))
     del kc, vc, kc2, vc2
     main = rows["ragged"]
     results["flash_decode_append"] = {
@@ -551,6 +624,12 @@ def check_ragged(dev, results) -> None:
             f"cold {ms:.4f} ms, hot {ms_hot:.4f} ms, plain cold {plain_ms:.4f} ms per layer, "
             f"bound {bound_ms:.5f} ms ({bound_by}, {live} live rows; {bound_ms / ms:.1%} of "
             f"cold)")
+    rows.update(check_slot_slices(
+        "K4",
+        lambda sb, wp: ragged_decode_attention(q[:sb], kn[:sb], vn[:sb], 0.125, HOT_LAYER, wp,
+                                               *mine),
+        lambda sb, wp: ragged_decode_plain(q[:sb], kn[:sb], vn[:sb], 0.125, HOT_LAYER, wp, *ref),
+        mine, ref, 1e-5, 1e-6, dev))
     del mine, ref
     main = rows["ragged"]
     results["ragged_decode"] = {
@@ -849,11 +928,13 @@ def profile_vocoder(engine, smi: str) -> None:
 
 
 def run_slice(dev, smi: str, tokenizer, gpt_flags: dict, engine_flags: dict,
-              must_launch: tuple, decode_kernel: str, vocoder: bool = False) -> dict:
-    """Three requests through the TTS facade (one sync, two concurrent);
-    returns the launch counts of every kernel during them. Then one decode
-    block is profiled (`decode_kernel`: the device name of the decode
-    attention kernel) and, with `vocoder`, one chunk through the vocoder."""
+              must_launch: tuple, decode_kernel: str, vocoder: bool = False,
+              max_new_tokens: int = 0) -> dict:
+    """Three requests through the TTS facade (one sync, two concurrent),
+    each chunk capped at `max_new_tokens` (0: the model's 605); returns the
+    launch counts of every kernel during them. Then one decode block is
+    profiled (`decode_kernel`: the device name of the decode attention
+    kernel) and, with `vocoder`, one chunk through the vocoder."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     engine = build_engine(dev, tokenizer, gpt_flags, engine_flags)
@@ -862,7 +943,8 @@ def run_slice(dev, smi: str, tokenizer, gpt_flags: dict, engine_flags: dict,
         wav_path = write_voice(tmp)
 
         def request(text):
-            return TTSRequest(text=text, speaker_files=[wav_path], language="en")
+            return TTSRequest(text=text, speaker_files=[wav_path], language="en",
+                              max_new_tokens=max_new_tokens or None)
 
         for w in KERNELS.values():
             w["wrapper"].launches = 0
@@ -889,7 +971,7 @@ def run_slice(dev, smi: str, tokenizer, gpt_flags: dict, engine_flags: dict,
     for name, o, wall in outs:
         check_waveform(name, o)
         secs = o.array.size / o.sample_rate
-        tokens = round(o.array.size / 1024 * 22050 / 24000)  # 1024 samples @22.05k per audio token
+        tokens = round(o.array.size / 1024 * 22050 / 24000)  # 1024 samples @22.05k per token
         say(f"  {name}: wall {wall:.2f} s, ~{tokens} audio tokens, {secs:.2f} s audio, "
             f"audio/wall {secs / wall:.2f} ({smi})")
     say(f"  peak device memory {torch.cuda.max_memory_allocated() / 1024**3:.2f} GiB; "
@@ -1072,6 +1154,377 @@ def run_int8_reference_check(dev) -> None:
     if not (snr_logits > 25.0 and snr_latents > 25.0 and int(decisive.sum()) >= 8 and not flips):
         raise AssertionError("int8 reference check failed")
 
+# -------------------------------------------------------------- concurrency
+CONC_SLOTS = 16  # phase 4e's decode slots: quarter and half buckets 4 and 8
+PR1_INSERT_MS = 26.7  # one bucket-128 single insert in PR 1's proof run (PERF.md)
+GREEDY = (1.0, 1.0, 1, 5.0, False, 0)  # temperature, top_p, top_k, rep. penalty, do_sample, cap
+BUCKET, N_IDS = 128, (40, 90)  # phase 4e's prompts: prefill bucket, text ids per prompt
+
+
+def conc_prompts(g, dev, n: int, seed: int) -> list:
+    """`n` TokenPrompts in prefill bucket BUCKET: cond [32, 1024] f32 on the
+    card (0.3 randn, a perceiver output's scale) and N_IDS text ids."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        cond = (0.3 * rng.standard_normal((g.num_cond_latents, g.hidden_size))).astype(np.float32)
+        ids = rng.integers(5, g.number_text_tokens - 1, int(rng.integers(*N_IDS)))
+        out.append(TokenPrompt(cond=torch.from_numpy(cond).to(dev), ids=ids.astype(np.int64)))
+    return out
+
+
+def burst_args(g, dev, prompts) -> tuple:
+    """(cond [K, C, D], ids [K, BUCKET - C], n_ids [K]) on the card, as the
+    runner's burst insert uploads them."""
+    tb = BUCKET - g.num_cond_latents
+    ids = np.zeros((len(prompts), tb), np.int64)
+    for i, pr in enumerate(prompts):
+        ids[i, : len(pr.ids)] = pr.ids
+    return (torch.stack([pr.cond for pr in prompts]), torch.from_numpy(ids).to(dev),
+            torch.tensor([len(pr.ids) for pr in prompts], device=dev))
+
+
+def wall_ms(fn, reps: int = 3) -> float:
+    """Median host wall time of fn() to the card's completion, ms."""
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
+
+
+def check_burst_inserts(engine, smi: str) -> None:
+    """K = 2, 4 and 8 prompts of bucket 128 as one batched insert
+    (insert_sequences_tokens: dense attention, as the JAX burst) and as K
+    single inserts (K1), each on a fresh 16-slot state. Greedy first tokens
+    must be equal wherever the single path's top-2 logit margin is decisive
+    (above 4x the RMS difference of the two paths' logits); KV rows and
+    first latents above 30 dB SNR between the paths. Timed as ms per chunk
+    (host wall to the card's completion, median of 3)."""
+    g, p, dev = engine.gpt_config, engine.params, engine.device
+    single, batch = (init_decode_state(g, CONC_SLOTS, dtype=engine.cache_dtype, device=dev)
+                     for _ in range(2))
+    decisive_total = 0
+    for k in (2, 4, 8):
+        prompts = conc_prompts(g, dev, k, seed=40 + k)
+        cond, ids, n_ids = burst_args(g, dev, prompts)
+        n_list = n_ids.tolist()
+
+        def run_batched():
+            insert_sequences_tokens(p, g, batch, cond, ids, n_ids, list(range(k)), *GREEDY)
+
+        def run_single():
+            for i in range(k):
+                insert_sequence_tokens(p, g, single, cond[i], ids[i], n_list[i], i, *GREEDY)
+
+        ms_b, ms_s = wall_ms(run_batched) / k, wall_ms(run_single) / k
+        # the two paths' logits for the margin: the batched prefill with every
+        # lane a padding lane (no cache writes), the single one into the
+        # scratch slot 15
+        emb = [_assemble_prompt(p, g, cond[i], ids[i], n_list[i]).to(torch.bfloat16)
+               for i in range(k)]
+        lengths = [n + g.num_cond_latents + 1 for n in n_list]
+        h_b = gpt_prefill_batched(p, g, torch.stack(emb), lengths, [CONC_SLOTS] * k, batch.cache)
+        h_s = torch.stack([gpt_prefill(p, g, emb[i], lengths[i], CONC_SLOTS - 1, single.cache)
+                           for i in range(k)])
+        lb, ls = heads(p, h_b)[0].float(), heads(p, h_s)[0].float()
+        margin = 4 * (lb - ls).square().mean().sqrt().item()
+        top2 = ls.topk(2, dim=-1).values
+        decisive = ((top2[:, 0] - top2[:, 1]) > margin).cpu()
+        tok_b, tok_s = batch.tokens_buf[:k, 0].cpu(), single.tokens_buf[:k, 0].cpu()
+        lane_flips = [i for i in range(k) if decisive[i] and tok_b[i] != tok_s[i]]
+        decisive_total += int(decisive.sum())
+        snr_k = min(snr_db(single.cache.k[:, :k, :BUCKET], batch.cache.k[:, :k, :BUCKET]),
+                    snr_db(single.cache.v[:, :k, :BUCKET], batch.cache.v[:, :k, :BUCKET]))
+        snr_lat = snr_db(single.latents_buf[:k, 0], batch.latents_buf[:k, 0])
+        say(f"  burst K={k} at bucket {BUCKET}: batched {ms_b:.2f} ms per chunk, single "
+            f"{ms_s:.2f} ms per chunk (PR 1's single insert: {PR1_INSERT_MS} ms); first tokens equal on "
+            f"{int((tok_b == tok_s).sum())} of {k} lanes, {int(decisive.sum())} decisive (top-2 "
+            f"margin > {margin:.4f}), flips on them {lane_flips}; KV rows {snr_k:.1f} dB, first "
+            f"latents {snr_lat:.1f} dB (bound 30) ({smi})")
+        if lane_flips or not (snr_k > 30.0 and snr_lat > 30.0):
+            raise AssertionError(f"burst K={k}: flips {lane_flips}, SNR {snr_k} / {snr_lat} dB")
+    if decisive_total < 7:
+        raise AssertionError(f"bursts: only {decisive_total} of 14 first tokens decisive")
+
+
+def block_profile(p, g, st, n_steps: int, slot_bound, kernel: str) -> dict:
+    """One `n_steps` block of decode_steps_status at `slot_bound` plus its
+    status copy, continuing `st`: host wall per step (median of 3 blocks),
+    then one block under torch.profiler: device ms per step (sum of device
+    event times), device ops and `kernel` ms per step, device busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def block():
+        decode_steps_status(p, g, st, n_steps, slot_bound=slot_bound).cpu()
+
+    block()  # warm
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        block()
+        walls.append((time.perf_counter() - t0) * 1e3 / n_steps)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        block()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof)
+    row = {"wall_ms_per_step": statistics.median(walls)}
+    if events:
+        row.update(device_ms_per_step=sum(e.time_range.elapsed_us() for e in events) / 1e3
+                   / n_steps, ops_per_step=len(events) / n_steps,
+                   kernel_ms_per_step=sum(e.time_range.elapsed_us() for e in events
+                                          if kernel in e.name) / 1e3 / n_steps,
+                   busy=busy_ms(events) / prof_wall)
+    return row
+
+
+def check_slot_bounds(engine, smi: str, kernel: str) -> None:
+    """4 and then 8 live slots packed low on two fresh 16-slot states (one
+    burst insert each), one 16-step greedy block at slot_bound = the live
+    count on one and at full width on the other: the same tokens, latents
+    above 40 dB SNR (bit-equal when the card's GEMMs take the same path at
+    every row count). Then blocks timed at bound 4 (4 live), 8 and 16 (8
+    live): wall, device ms and decode-kernel ms per step."""
+    g, p, dev = engine.gpt_config, engine.params, engine.device
+    dt = torch.int8 if g.kv_int8 else engine.cache_dtype
+    for live in (4, 8):
+        states = [init_decode_state(g, CONC_SLOTS, dtype=dt, device=dev) for _ in range(2)]
+        cond, ids, n_ids = burst_args(g, dev, conc_prompts(g, dev, live, seed=60 + live))
+        for st in states:
+            insert_sequences_tokens(p, g, st, cond, ids, n_ids, list(range(live)), *GREEDY)
+        decode_steps(p, g, states[0], 16, slot_bound=live)
+        decode_steps(p, g, states[1], 16)
+        a, b = states
+        same = torch.equal(a.tokens_buf, b.tokens_buf) and torch.equal(a.n_generated,
+                                                                        b.n_generated)
+        lat_err = (a.latents_buf[:live, :17] - b.latents_buf[:live, :17]).abs().max().item()
+        lat_snr = snr_db(b.latents_buf[:live, :17], a.latents_buf[:live, :17])
+        say(f"  {live} live slots, 16 greedy steps: slot_bound={live} vs full width "
+            f"{CONC_SLOTS}: tokens {'equal' if same else 'DIFFER'}, latents max_abs_err "
+            f"{lat_err:.3e}, {lat_snr:.1f} dB (bound 40)")
+        if not same or not lat_snr > 40.0:
+            raise AssertionError(f"slot bound {live}: tokens equal {same}, latents {lat_snr} dB")
+        bounds = (live,) if live == 4 else (live, None)
+        for sb, st in zip(bounds, states):
+            row = block_profile(p, g, st, 16, sb, kernel)
+            dev_part = (f", device {row['device_ms_per_step']:.3f} ms per step in "
+                        f"{row['ops_per_step']:.0f} ops, {kernel} {row['kernel_ms_per_step']:.4f} "
+                        f"ms, busy {row['busy']:.1%}" if "busy" in row
+                        else "; the profiler saw no device events: device ms not measured")
+            say(f"  block at slot_bound={sb or CONC_SLOTS} ({live} live): wall "
+                f"{row['wall_ms_per_step']:.3f} ms per step{dev_part} ({smi})")
+        del states, a, b
+
+
+def check_migration(engine) -> None:
+    """migrate_slot 13 -> 2 on a fresh state after a greedy insert into 13
+    and 16 decode steps: every field of slot 13 (KV rows, int8 scales where
+    present, sampling rows and seen mask, counters, token and latent rows)
+    lands in slot 2 bit for bit; slot 13 keeps all but active, done and
+    n_generated, which are cleared."""
+    g, p, dev = engine.gpt_config, engine.params, engine.device
+    dt = torch.int8 if g.kv_int8 else engine.cache_dtype
+    st = init_decode_state(g, CONC_SLOTS, dtype=dt, device=dev)
+    pr = conc_prompts(g, dev, 1, seed=70)[0]
+    cond, ids, n_ids = burst_args(g, dev, [pr])
+    insert_sequence_tokens(p, g, st, cond[0], ids[0], int(n_ids[0]), 13, 0.75, 0.85, 50, 5.0,
+                           True, 300)
+    decode_steps(p, g, st, 16)
+    cache = [t for t in (st.cache.k, st.cache.v, st.cache.k_scale, st.cache.v_scale)
+             if t is not None]
+    rows = [*st.sampling.tensors(), st.seq_lens, st.audio_pos, st.last_token, st.active, st.done,
+            st.tokens_buf, st.latents_buf, st.n_generated]
+    want_cache = [t[:, 13].clone() for t in cache]
+    want_rows = [t[13].clone() for t in rows]
+    migrate_slot(st, 13, 2)
+    torch.cuda.synchronize()
+    moved = (all(torch.equal(t[:, 2], w) for t, w in zip(cache, want_cache))
+             and all(torch.equal(t[2], w) for t, w in zip(rows, want_rows)))
+    cleared = not st.active[13] and not st.done[13] and int(st.n_generated[13]) == 0
+    cleared_rows = (st.active, st.done, st.n_generated)
+    kept = (all(torch.equal(t[:, 13], w) for t, w in zip(cache, want_cache))
+            and all(torch.equal(t[13], w) for t, w in zip(rows, want_rows)
+                    if not any(t is c for c in cleared_rows)))
+    say(f"  migrate_slot 13 -> 2 after {int(want_rows[-1])} tokens: {len(cache)} cache tensors "
+        f"and {len(rows)} per-slot tensors moved bit for bit: {moved}; source cleared: {cleared}; "
+        f"source's other rows kept: {kept}")
+    if not (moved and cleared and kept):
+        raise AssertionError("migrate_slot did not move every field or clear the source")
+
+
+RUNNER_CAPS = [32, 64, 96, 128, 160, 48, 80, 112, 40, 72, 605, 500]  # slots 0-11 (10, 11 long)
+RUNNER_LATE_CAPS = [56, 88, 120, 300]  # submitted during the fourth block
+
+
+async def drive_runner(de, prompts, options) -> tuple[list, float]:
+    """12 chunks at once, 4 more once the runner is inside its fourth block
+    (50 ms after the third was dispatched; a block takes far longer), every
+    future awaited. Returns ([(tokens, latents [n, D], n)], wall s)."""
+    t0 = time.perf_counter()
+    tasks = [asyncio.ensure_future(de.generate(pr, o)) for pr, o in zip(prompts[:12], options)]
+    while de.stats["blocks"] < 3:
+        await asyncio.sleep(0.001)
+    await asyncio.sleep(0.05)
+    tasks += [asyncio.ensure_future(de.generate(pr, o))
+              for pr, o in zip(prompts[12:], options[12:])]
+    done = await asyncio.wait_for(asyncio.gather(*tasks), 900)
+    wall = time.perf_counter() - t0
+    await de.shutdown()
+    return [(np.asarray(t), row[:n].float().cpu(), n) for t, row, n in done], wall
+
+
+def check_runner(engine, smi: str, must_launch: tuple, facade_wav: str | None) -> dict:
+    """The runner end to end: DecodeEngine (the engine's own, slot
+    bucketing on) driven with greedy TokenPrompts whose max_new_tokens
+    spread over 32-605 (a chunk may stop earlier at the stop token), so
+    slots finish apart and strand high survivors;
+    then the same traffic through a DecodeEngine without bucketing on the
+    same params, which must give the same tokens and n (latents above 40 dB,
+    bit-equal when every GEMM row count takes the same path). Every future
+    resolves; batched inserts, migrations and blocks below full width are
+    counted. With `facade_wav`, one TTS-facade request whose text splits
+    into >= 8 chunks follows and must reach the batched insert. Kernel
+    launch counts are zeroed before the bucketed drive and read after the
+    facade request: returns them."""
+    g, dev = engine.gpt_config, engine.device
+    prompts = conc_prompts(g, dev, 16, seed=80)
+    options = [SamplingOptions(do_sample=False, max_new_tokens=c)
+               for c in RUNNER_CAPS + RUNNER_LATE_CAPS]
+    de = engine.decode_engine
+    de.reset_stats()
+    for w in KERNELS.values():
+        w["wrapper"].launches = 0
+    got, wall = asyncio.run(drive_runner(de, prompts, options))
+    st = dict(de.stats)
+    audio_s = sum(n for *_, n in got) * 1024 / 22050
+    say(f"  runner, slot bucketing on, {CONC_SLOTS} slots: 16 chunks ({sum(n for *_, n in got)} "
+        f"tokens, {audio_s:.2f} s of audio) in {wall:.2f} s wall, summed audio/wall "
+        f"{audio_s / wall:.2f}; blocks {st['blocks']} ({st['slot_bound_blocks']} below full "
+        f"width), inserts {st['inserts']} in {st['insert_batches']} batched prefills + singles, "
+        f"migrations {st['migrations']}; dispatch_s {st['dispatch_s']:.3f}, status_wait_s "
+        f"{st['status_wait_s']:.4f}, insert_s {st['insert_s']:.3f} (upload "
+        f"{st['insert_upload_s']:.4f}, dispatch {st['insert_dispatch_s']:.3f}), harvest_s "
+        f"{st['harvest_s']:.4f} ({smi})")
+    caps = RUNNER_CAPS + RUNNER_LATE_CAPS
+    if not all(1 <= n <= cap for (*_, n), cap in zip(got, caps)):
+        raise AssertionError(f"runner: chunk lengths {[n for *_, n in got]} outside caps {caps}")
+    if not (st["insert_batches"] > 0 and st["migrations"] > 0 and st["slot_bound_blocks"] > 0):
+        raise AssertionError(f"runner: stats {st}")
+    if facade_wav is not None:
+        batches = de.stats["insert_batches"]
+        text = " ".join(f"Sentence number {i} of this request is long enough that the splitter "
+                        f"gives it a chunk of its own, since two of them together run past the "
+                        f"limit of two hundred and fifty characters for English text." for i in
+                        range(9))
+        n_chunks = len(engine.tokenizer.encode_with_split(text, "en"))
+        tts = TTS(scheduler_max_concurrency=4).with_engine(engine)
+        t0 = time.perf_counter()
+        o = tts.generate_speech(TTSRequest(text=text, speaker_files=[facade_wav], language="en",
+                                           max_new_tokens=48))
+        torch.cuda.synchronize()
+        f_wall = time.perf_counter() - t0
+        tts.loop.run_until_complete(tts.shutdown())
+        check_waveform("facade request", o)
+        new_batches = de.stats["insert_batches"] - batches
+        say(f"  facade request: {n_chunks} chunks, {o.array.size / o.sample_rate:.2f} s audio "
+            f"(48-token cap per chunk) in {f_wall:.2f} s wall; batched prefills {new_batches} "
+            f"({smi})")
+        if n_chunks < 8 or new_batches < 1:
+            raise AssertionError(f"facade request: {n_chunks} chunks, {new_batches} batches")
+    launches = {name: w["wrapper"].launches for name, w in KERNELS.items()}
+    say(f"  launches during the runner drive{' and the facade request' if facade_wav else ''}: "
+        f"{launches}")
+    for name in must_launch:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by phase 4e's main path")
+    plain = DecodeEngine(engine.params, g, num_slots=CONC_SLOTS, cache_dtype=engine.cache_dtype,
+                         steps_per_sync=de.steps_per_sync, device=dev)
+    want, wall_u = asyncio.run(drive_runner(plain, prompts, options))
+    lat_snr = min(snr_db(w[1], a[1]) for w, a in zip(want, got))
+    same = all(np.array_equal(w[0], a[0]) and w[2] == a[2] for w, a in zip(want, got))
+    bit_equal = all(torch.equal(w[1], a[1]) for w, a in zip(want, got))
+    say(f"  the same traffic without slot bucketing: {wall_u:.2f} s wall, {plain.stats['blocks']} "
+        f"blocks, 0 migrations; tokens {'equal' if same else 'DIFFER'} on all 16 chunks, latents "
+        f"worst {lat_snr:.1f} dB (bound 40), bit-equal {bit_equal} ({smi})")
+    if not same or not lat_snr > 40.0:
+        raise AssertionError(f"runner: bucketed results differ from unbucketed ({lat_snr} dB)")
+    del plain
+    return launches
+
+
+def check_policy(engine, smi: str) -> None:
+    """The dense int8 body (kv_int8, no K4) run by a DecodeEngine given the
+    engine's w8a8_policy(): 6 greedy chunks of 24-64 tokens. Prints the
+    program _cfg_for picks at every (length bound, slot bound) pair and the
+    programs the blocks ran; at least two programs must appear."""
+    g = dataclasses.replace(engine.gpt_config, ragged_decode=False, decode_w8a8=False)
+    de = DecodeEngine(engine.params, g, num_slots=CONC_SLOTS, slot_bucketing=True,
+                      w8a8_policy=engine.w8a8_policy(), device=engine.device)
+    names = {(False, False): "bf16 weights", (True, True): "W8A8 + bf16 probabilities",
+             (True, False): "W8A8"}
+
+    def name(c):
+        return names[(c.decode_w8a8, c.decode_attn_fp)]
+
+    table = {f"len={lb} slots={sb or CONC_SLOTS}": name(de._cfg_for(lb, sb))
+             for lb in (*de.LEN_BUCKETS, None) for sb in (*de._slot_buckets(), None)}
+    ran = []
+    pick = de._cfg_for
+    de._cfg_for = lambda lb, sb: ran.append(name(pick(lb, sb))) or pick(lb, sb)
+    caps = [24, 32, 48, 40, 64, 56]
+    prompts = conc_prompts(g, engine.device, len(caps), seed=90)
+
+    async def go():
+        out = await asyncio.gather(*(de.generate(pr, SamplingOptions(do_sample=False,
+                                                                     max_new_tokens=c))
+                                     for pr, c in zip(prompts, caps)))
+        await de.shutdown()
+        return out
+
+    got = asyncio.run(go())
+    say(f"  W8A8 policy (KV bytes < 3 x weight bytes, the TPU fit) over (len bound, slot "
+        f"bound): {table}")
+    say(f"  dense int8 body under the policy: {len(got)} chunks of {[n for *_, n in got]} "
+        f"tokens, blocks ran {dict((k, ran.count(k)) for k in set(ran))} ({smi})")
+    if not all(1 <= n <= c for (*_, n), c in zip(got, caps)) or len(set(table.values())) < 2:
+        raise AssertionError(f"policy run: lengths {[n for *_, n in got]}, programs {table}")
+
+
+def run_concurrency(dev, smi: str, tokenizer) -> dict:
+    """Phase 4e: the runner at concurrency, full width, 16 slots, slot
+    bucketing on; bf16 first (K1, K2, K3), then int8 (K1, K4, K3) and the
+    per-program W8A8 policy. Returns the launches of its main-path drives."""
+    launches = {name: 0 for name in KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        wav_path = write_voice(tmp)
+        for tag, gpt_flags, engine_flags, must, kernel in (
+                ("bf16", {"flash_decode": True, "prefill_flash": True}, {}, BF16_PATH,
+                 "flash_decode_split_kernel"),
+                ("int8", {"prefill_flash": True, "ragged_decode": True},
+                 {"kv_int8": True, "decode_w8a8": True, "prefill_w8a8": True},
+                 ("ragged_decode",), "ragged_decode_split_kernel")):
+            torch.cuda.empty_cache()
+            say(f"  -- {tag} configuration")
+            engine = build_engine(dev, tokenizer, gpt_flags,
+                                  {**engine_flags, "slot_bucketing": True},
+                                  decode_slots=CONC_SLOTS)
+            if tag == "bf16":
+                check_burst_inserts(engine, smi)
+            check_slot_bounds(engine, smi, kernel)
+            if tag == "bf16":
+                check_migration(engine)
+            counts = check_runner(engine, smi, must, wav_path if tag == "bf16" else None)
+            for name in KERNELS:
+                launches[name] += counts[name]
+            if tag == "int8":
+                check_policy(engine, smi)
+            del engine
+    return launches
+
 
 def write_voice(tmp: str) -> str:
     """A 6 s sine reference voice at 22.05 kHz."""
@@ -1123,14 +1576,22 @@ def main() -> int:
     bf16 = run_slice(dev, smi, tokenizer, {"flash_decode": True, "prefill_flash": True}, {},
                      BF16_PATH, "flash_decode_split_kernel", vocoder=True)
     say("[4b] int8 slice: int8 KV, W8A8 prefill and decode, ragged decode attention")
+    # the int8 requests are capped at 300 tokens (13.9 s of audio) to keep
+    # the whole run's time with phase 4e near PR 5's
     int8 = run_slice(dev, smi, tokenizer, {"prefill_flash": True, "ragged_decode": True},
                      {"kv_int8": True, "decode_w8a8": True, "prefill_w8a8": True}, INT8_PATH,
-                     "ragged_decode_split_kernel")
+                     "ragged_decode_split_kernel", max_new_tokens=300)
     say("[4c] dense int8 decode body with W8A8 decode")
     run_dense_int8(dev, tokenizer)
     say("[4d] K5 path: the int8 slice's decode MLPs through the fused W8A8 kernel")
     launches = {name: bf16[name] + int8[name] for name in KERNELS}
     launches["fused_mlp_w8"] = run_fused_mlp_path(dev)
+    torch.cuda.empty_cache()
+    say("[4e] the runner at concurrency: burst inserts, slot bounds, migration, the pipelined "
+        "runner, the W8A8 policy")
+    conc = run_concurrency(dev, smi, tokenizer)
+    for name in KERNELS:
+        launches[name] += conc[name]
     torch.cuda.empty_cache()
     say("[5] reference check: card vs CPU, f32, greedy")
     run_reference_check(dev, tokenizer)

@@ -241,12 +241,54 @@ def test_gpt_decode_step_dense_int8_matches_jax(decode_attn_fp, decode_w8a8):
 
 
 # -------------------------------------------------------------- K4 ragged
+# Both sides of the K4 checks below are held against an f64 evaluation of
+# K4's math on the int8 rows and scales that the append left (bit-equal on
+# both sides, checked first) and on q quantised by the shared recipe. ctx is
+# an f32 softmax over at most 512 keys: each of its two sums (the normaliser
+# and the weighted values) carries a rounding error of order sqrt(n) u of
+# its size (n <= 512, u = 2^-24: 1.3e-6) on top of the logits' few ulps, and
+# |ctx| <= max |v| <= 4 here, so an f32 evaluation lands well inside 1e-5 of
+# the f64 one (measured 2.3e-7 to 3.0e-7 for the plain version and the
+# Pallas kernel). A wrong int8 value, scale or mask row moves ctx by ~1e-4.
+RAGGED_F64_ATOL = 1e-5
+
+
+def _ragged_f64(q, caches, pos, layer, scale):
+    """K4's context in f64 from the appended int8 rows and scales: q per
+    (slot, head) quantised as quantize_rows does (f32 scale max|q| x
+    f32(1/127), round half to even of q / scale), logits int8 q . int8 k x
+    k-scale x q-scale x scale over each slot's pos + 1 keys, softmax, values
+    v_int8 x v-scale. Returns [S, H*D] f64."""
+    k8, v8, ks, vs = (np.asarray(c) for c in caches)
+    s, h, d = q.shape
+    q_s = np.maximum(np.abs(q).max(-1), np.float32(1e-8)) * np.float32(1.0 / 127.0)
+    q_i = np.round(q / q_s[..., None]).astype(np.float64)
+    out = np.zeros((s, h * d))
+    for i in range(s):
+        n = int(pos[i]) + 1
+        k = k8[layer, i, :n].astype(np.float64).reshape(n, h, d)
+        v = v8[layer, i, :n].astype(np.float64).reshape(n, h, d) * vs[layer, i, :n, None, None]
+        logits = (np.einsum("thd,hd->ht", k, q_i[i]) * ks[layer, i, :n][None]
+                  * (q_s[i].astype(np.float64) * scale)[:, None])
+        p = np.exp(logits - logits.max(-1, keepdims=True))
+        out[i] = np.einsum("ht,thd->hd", p / p.sum(-1, keepdims=True), v).reshape(-1)
+    return out
+
+
+def _jax_ragged_blocking(q, k_new, v_new, scale, layer, pos, caches):
+    """The Pallas kernel in interpret mode on copies of the numpy inputs,
+    waited for before anything else reads them."""
+    out = jax_ragged(jnp.array(q), jnp.array(k_new), jnp.array(v_new), scale, jnp.int32(layer),
+                     jnp.array(pos), *(jnp.array(c) for c in caches), interpret=True)
+    return [np.asarray(a) for a in jax.block_until_ready(out)]
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_ragged_plain_matches_pallas(seed):
     """K4's plain version (through the wrapper, on CPU) against the Pallas
     kernel in interpret mode at the JAX test's shapes, positions 0 and
-    CHUNK-1 included: caches and scale rows bit-equal, ctx within 1e-5 (f32
-    online softmax over <= 512 keys against a dense softmax)."""
+    CHUNK-1 included: caches and scale rows bit-equal, and each side's ctx
+    within RAGGED_F64_ATOL of the f64 evaluation (see _ragged_f64)."""
     rng = np.random.default_rng(seed)
     l, s, t, h, d = 2, 16, 2 * CHUNK, 4, 32
     layer = seed % l
@@ -259,10 +301,8 @@ def test_ragged_plain_matches_pallas(seed):
     pos = rng.integers(0, t - 2, size=(s,)).astype(np.int32)
     pos[0], pos[1] = 0, CHUNK - 1
     scale = 1.0 / math.sqrt(d)
-    ctx_j, *caches_j = jax_ragged(
-        jnp.asarray(q), jnp.asarray(k_new), jnp.asarray(v_new), scale, jnp.int32(layer),
-        jnp.asarray(pos), jnp.asarray(k_i8), jnp.asarray(v_i8), jnp.asarray(ks),
-        jnp.asarray(vs), interpret=True)
+    ctx_j, *caches_j = _jax_ragged_blocking(q, k_new, v_new, scale, layer, pos,
+                                            (k_i8, v_i8, ks, vs))
     caches_t = [torch.from_numpy(a.copy()) for a in (k_i8, v_i8, ks, vs)]
     before = ragged_decode_attention.launches
     ctx_t = ragged_decode_attention(torch.from_numpy(q), torch.from_numpy(k_new),
@@ -270,9 +310,11 @@ def test_ragged_plain_matches_pallas(seed):
                                     torch.from_numpy(pos), *caches_t)
     assert ragged_decode_attention.launches == before  # CPU: plain version, no launch
     assert ctx_t.dtype == torch.float32 and ctx_t.shape == (s, h * d)
-    np.testing.assert_allclose(ctx_t.numpy(), np.asarray(ctx_j), rtol=0, atol=1e-5)
     for got, want in zip(caches_t, caches_j):
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(got.numpy(), want)
+    ref = _ragged_f64(q, caches_j, pos, layer, scale)
+    np.testing.assert_allclose(ctx_t.numpy(), ref, rtol=0, atol=RAGGED_F64_ATOL)
+    np.testing.assert_allclose(ctx_j, ref, rtol=0, atol=RAGGED_F64_ATOL)
 
 
 @pytest.mark.parametrize("split", [DECODE_SPLIT, 64])
@@ -280,9 +322,10 @@ def test_ragged_plain_matches_pallas(seed):
 def test_combine_splits_matches_pallas_ragged(seed, split):
     """Split-K K4 in plain PyTorch: per-split partials (int8 scores x
     k-scale x q-scale x attn_scale; values v_int8 x v-scale) over the
-    appended int8 cache, merged by combine_splits_plain, against the Pallas
-    kernel in interpret mode at test_ragged_plain_matches_pallas's shapes
-    and tolerance; NaN-free where a split is empty."""
+    appended int8 cache, merged by combine_splits_plain, and the Pallas
+    kernel in interpret mode, each within RAGGED_F64_ATOL of the f64
+    evaluation (see _ragged_f64), at test_ragged_plain_matches_pallas's
+    shapes; NaN-free where a split is empty."""
     rng = np.random.default_rng(seed + 10)
     l, s, t, h, d = 2, 16, 2 * CHUNK, 4, 32
     layer = seed % l
@@ -295,10 +338,8 @@ def test_combine_splits_matches_pallas_ragged(seed, split):
     pos = rng.integers(0, t - 2, size=(s,)).astype(np.int32)
     pos[:5] = (0, split - 1, split, split + 1, t - 1)  # one-row splits, split edges, the last row
     scale = 1.0 / math.sqrt(d)
-    ctx_j, *_ = jax_ragged(
-        jnp.asarray(q), jnp.asarray(k_new), jnp.asarray(v_new), scale, jnp.int32(layer),
-        jnp.asarray(pos), jnp.asarray(k_i8), jnp.asarray(v_i8), jnp.asarray(ks),
-        jnp.asarray(vs), interpret=True)
+    ctx_j, *caches_j = _jax_ragged_blocking(q, k_new, v_new, scale, layer, pos,
+                                            (k_i8, v_i8, ks, vs))
     caches = [torch.from_numpy(a.copy()) for a in (k_i8, v_i8, ks, vs)]
     wpt = torch.from_numpy(pos)
     ragged_decode_attention(torch.from_numpy(q), torch.from_numpy(k_new),
@@ -313,7 +354,11 @@ def test_combine_splits_matches_pallas_ragged(seed, split):
     assert torch.isinf(m).any()  # empty splits occur
     ctx = combine_splits_plain(m, l_sum, acc).reshape(s, h * d)
     assert torch.isfinite(ctx).all()
-    np.testing.assert_allclose(ctx.numpy(), np.asarray(ctx_j), rtol=0, atol=1e-5)
+    for got, want in zip(caches, caches_j):
+        np.testing.assert_array_equal(got.numpy(), want)
+    ref = _ragged_f64(q, caches_j, pos, layer, scale)
+    np.testing.assert_allclose(ctx.numpy(), ref, rtol=0, atol=RAGGED_F64_ATOL)
+    np.testing.assert_allclose(ctx_j, ref, rtol=0, atol=RAGGED_F64_ATOL)
 
 
 def test_ragged_rejects_write_pos_outside_cache():
