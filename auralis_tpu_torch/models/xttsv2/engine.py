@@ -1,7 +1,6 @@
 """XTTSv2 engine on torch: conditioning -> continuous-batched decode -> vocoder.
 
-Counterpart of `XTTSv2Engine` in auralis_tpu/models/xttsv2/engine.py, for the
-non-streaming path:
+Counterpart of `XTTSv2Engine` in auralis_tpu/models/xttsv2/engine.py:
 - conditioning (speaker d-vector + perceiver latents) runs as torch ops on
   the engine's device, LRU-cached per reference;
 - token generation runs in the slot-batched decode loop (runtime/), which
@@ -11,7 +10,15 @@ non-streaming path:
   K1 / K4. `decode_w8a8` / `prefill_w8a8` run the block matmuls W8A8 on an
   int8 copy of the weights (`blocks_q8`), made once at construction;
 - each finished chunk's latent row is vocoded on the device (HiFi-GAN, the
-  MRF stages through kernel K3 on CUDA) and shipped to the host as int16.
+  MRF stages through kernel K3 on CUDA) and shipped to the host as int16,
+  through `_VocodeBatcher`, which batches rows (and segments) that finish
+  while an earlier batch is on the card;
+- streaming (`stream=True`): the runner hands out latent snapshots while a
+  chunk decodes, and fixed segments of SEG_PF frames (the first FIRST_SEG_PF)
+  are vocoded from them with PAD_PF frames of context on each side, so
+  their concatenation is the non-streaming waveform; the first segment is
+  launched speculatively right after the young block that makes it final
+  (`_SpecFirstSeg`).
 
 The JAX engine arms int8 KV, W8A8, the per-program W8A8 policy and slot
 bucketing by default only on a TPU; on any other backend they are off
@@ -21,9 +28,11 @@ arm is `w8a8_policy()`, which a caller hands to `DecodeEngine`. The slot
 count is fitted to the card's free memory after the weights
 (`_fit_slots_to_hbm`). Options the port lacks are dropped with a warning,
 except `tensor_parallel_size > 1`, which raises (ROADMAP.md, queue 1 item
-10). Not ported yet (ROADMAP.md, queue 1): streaming (`stream=True`
-raises), the vocode batcher, the speculative first segment and checkpoint
-loading (`from_pretrained` raises).
+10). Not ported yet (ROADMAP.md, queue 1): checkpoint loading
+(`from_pretrained` raises). Not ported, by design:
+`precompile_vocoder_buckets` and the hot/warming row-bucket sets
+(`serving_row_bucket`), which work around XLA compiles (`TTS.warmup` reaches
+them through `getattr` only), and the legacy embeds-prompt branch.
 """
 from __future__ import annotations
 
@@ -37,6 +46,7 @@ from typing import Any, AsyncGenerator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ...common import audio_io
 from ...common.dsp_np import trim_silence_db
@@ -52,7 +62,7 @@ from ...runtime.engine_core import DecodeEngine, SamplingOptions, TokenPrompt
 from ..base import BaseAsyncTTSEngine, ConditioningConfig
 from .config import XTTSConfig, XTTSGPTConfig, tiny_test_config
 from .gpt import quantize_decode_weights
-from .hifigan import RESBLOCK_KERNELS, hifi_decoder
+from .hifigan import RESBLOCK_KERNELS, hifigan_generator, interp_latents
 from .modules import conditioning_encoder, perceiver_resampler, speaker_encoder
 from .weights import params_from_numpy, random_init
 
@@ -72,10 +82,161 @@ W8A8_KV_TO_WEIGHT_CROSSOVER_TPU = 3
 # allocator, as a share of its memory (the JAX engine's 8%)
 HBM_HEADROOM = 0.08
 
-_STREAMING_TODO = (
-    "streaming synthesis is not ported yet (ROADMAP.md, queue 1: 'streaming "
-    "segments + _SpecFirstSeg + _VocodeBatcher'); use stream=False"
-)
+# Intra-chunk streaming, in post-interp frames (one frame = 256 output
+# samples). The generator's receptive field is ~14 frames (conv_pre k7 and
+# the MRF k11/d5 at the x8 stage dominate), so PAD_PF frames of context on
+# each side make a segment's emitted frames equal the full-row vocoder's,
+# and since the full row is zero-masked past its true length too, the
+# concatenated segments reproduce the non-streaming waveform.
+SEG_PF = 128  # ~1.37 s of audio per segment
+FIRST_SEG_PF = 32  # the first ~0.34 s, out as soon as ~13 latents exist
+PAD_PF = 16
+
+
+class _VocodeBatcher:
+    """Micro-batching of vocoder work with no added latency: while one batch
+    is on the card, newly finished rows and segments gather and go together
+    in the next; nothing waits on a timer.
+
+    Kinds in priority order: seg_first (the first segment, on the
+    time-to-first-audio path), seg, row. Up to MAX_INFLIGHT batches run at
+    once in worker threads; they issue to the same CUDA stream as the decode
+    runner, so a vocode is ordered after the block whose latents it reads.
+
+    Unlike the JAX batcher, a batch is not padded to a fixed size (its
+    `_pad`): there each batch size is its own compiled program, here nothing
+    is compiled, and the MRF stages (kernel K3) are bound by operations on
+    the H100 (PERF.md §6), so padding a lone segment to 4 lanes would cost
+    about 4x its vocoder time."""
+
+    MAX_BATCH = 4
+    SEG_FIRST_MAX_BATCH = 8
+    MAX_INFLIGHT = 3
+
+    def __init__(self, engine: "XTTSv2Engine"):
+        self.engine = engine
+        self._pending = {"row": [], "seg": [], "seg_first": []}
+        self._task: Optional[asyncio.Task] = None
+        self._inflight: Optional[asyncio.Semaphore] = None
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
+
+    async def submit(self, kind: str, item: tuple) -> np.ndarray:
+        loop = asyncio.get_running_loop()
+        if loop is not self._loop:
+            # the engine outlives individual event loops (the sync API runs
+            # one per call): a dead loop's drain task and futures never
+            # resolve, so start afresh on this one
+            self._pending = {"row": [], "seg": [], "seg_first": []}
+            self._task = None
+            self._loop = loop
+        fut: asyncio.Future = loop.create_future()
+        self._pending[kind].append((item, fut))
+        if self._task is None or self._task.done():
+            self._inflight = asyncio.Semaphore(self.MAX_INFLIGHT)
+            self._task = loop.create_task(self._drain())
+        return await fut
+
+    async def _drain(self) -> None:
+        loop = asyncio.get_running_loop()
+        flights: list[asyncio.Task] = []
+        while any(self._pending.values()) or flights:
+            flights = [t for t in flights if not t.done()]
+            if not any(self._pending.values()):
+                if flights:
+                    await asyncio.wait(flights, return_when=asyncio.FIRST_COMPLETED)
+                continue
+            await self._inflight.acquire()
+            kind = next(k for k in ("seg_first", "seg", "row") if self._pending[k])
+            cap = self.SEG_FIRST_MAX_BATCH if kind == "seg_first" else self.MAX_BATCH
+            batch = self._pending[kind][:cap]
+            del self._pending[kind][: len(batch)]
+            flights.append(loop.create_task(self._fly(kind, batch)))
+
+    async def _fly(self, kind: str, batch: list) -> None:
+        items = [it for it, _ in batch]
+        try:
+            outs = await asyncio.to_thread(self._run_batch, kind, items)
+        except Exception as e:  # every waiter gets the failure
+            for _, fut in batch:
+                try:
+                    if not fut.done():
+                        fut.set_exception(e)
+                except RuntimeError:
+                    pass  # a future of a closed loop
+            return
+        finally:
+            self._inflight.release()
+        for (_, fut), out in zip(batch, outs):
+            try:
+                if not fut.done():
+                    fut.set_result(out)
+            except RuntimeError:
+                pass  # a future of a closed loop
+
+    @torch.no_grad()
+    def _run_batch(self, kind: str, items: list) -> list:
+        eng = self.engine
+        rows = torch.stack([it[0] for it in items])
+        ns = [int(it[1]) for it in items]
+        if kind == "row":  # (row, n, g)
+            return eng._vocode_rows(rows, ns, [it[2] for it in items])
+        if kind == "seg_first":  # (row, n_mask, g): frames [0, FIRST_SEG_PF)
+            with span("vocode.seg_first_device"):
+                pcm = eng._vocode_seg_first(rows, ns, [it[2] for it in items]).cpu().numpy()
+            return [pcm[i, : FIRST_SEG_PF * 256].astype(np.float32) / 32767.0
+                    for i in range(len(items))]
+        # seg: (row, n_mask, emit_start_pf, emit_count_pf, g)
+        starts = [eng._seg_slice_start(it[2]) for it in items]
+        with span("vocode.seg_device"):
+            pcm = eng._vocode_seg(rows, ns, starts, [it[4] for it in items]).cpu().numpy()
+        outs = []
+        for i, it in enumerate(items):
+            offset = it[2] - starts[i]
+            outs.append(pcm[i, offset * 256:(offset + it[3]) * 256].astype(np.float32) / 32767.0)
+        return outs
+
+
+class _SpecFirstSeg:
+    """Speculative first-segment vocode for one streaming chunk.
+
+    The runner calls `hook(row, n_claim)` on the event loop right after each
+    young block is issued, before its status is read. Once the host's token
+    count crosses the first-emit threshold, the first segment's vocode is
+    submitted at once: it queues behind the block on the card and its
+    result overlaps the status read. The claim is exact unless the slot
+    stopped inside the block, so the consumer uses the result only after a
+    snapshot confirms n >= claim, and discards it on an earlier final one.
+    The emitted samples lie below total_pf(claim - 2) - PAD_PF, the same
+    hold-back as the snapshot path, so the waveform is the same either way."""
+
+    __slots__ = ("engine", "g", "claim_n", "emit_pf", "task")
+
+    def __init__(self, engine: "XTTSv2Engine", speaker_embeddings):
+        self.engine = engine
+        self.g = speaker_embeddings
+        self.claim_n: Optional[int] = None
+        self.emit_pf = 0
+        self.task: Optional[asyncio.Task] = None
+
+    def hook(self, row, n_claim: int) -> bool:
+        eng = self.engine
+        high = max(0, eng._total_pf(max(0, n_claim - 2)) - PAD_PF)
+        if high < FIRST_SEG_PF:
+            return False  # not enough final samples yet; call again next block
+        # exactly FIRST_SEG_PF through the small first-segment vocoder; what
+        # else is final already goes into the next segment
+        self.claim_n, self.emit_pf = n_claim, FIRST_SEG_PF
+        loop = asyncio.get_running_loop()
+        self.task = loop.create_task(
+            eng._vocode_batcher.submit("seg_first", (row, n_claim, self.g)))
+        # a discarded speculation must not log "exception never retrieved"
+        self.task.add_done_callback(lambda t: t.exception() if not t.cancelled() else None)
+        return True
+
+    def discard(self) -> None:
+        if self.task is not None and not self.task.done():
+            self.task.cancel()
+        self.task = None
 
 
 class XTTSv2Engine(BaseAsyncTTSEngine):
@@ -104,6 +265,7 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         tensor_parallel_size: int = 1,
         conditioning_cache_size: int = 32,
         ref_length_quantum_s: float = 1.0,
+        seg_first_batch1: bool = False,
         seed: int = 0,
         **kwargs,
     ):
@@ -123,6 +285,10 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
             gpt_config = dataclasses.replace(gpt_config, **changed)
         if kwargs:
             logger.warning("ignoring engine options the port does not have: %s", sorted(kwargs))
+        if seg_first_batch1:
+            logger.info("seg_first_batch1 has no effect here: the JAX engine pads first-segment "
+                        "batches to fixed sizes (one compiled program each) and this flag adds "
+                        "a batch-1 program; the port pads no batch")
         self.hifi_config = hifi_config
         self.gpt_config = gpt_config
         self.tokenizer = tokenizer
@@ -141,16 +307,25 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         self.cache_dtype = cache_dtype
         self.decode_slots = self._fit_slots_to_hbm(
             decode_slots or max(2, 2 * max_concurrency), slots_explicit=decode_slots is not None)
+        # the young block: the fewest steps after which the first segment can
+        # go out. After k steps a slot holds n = k + 1 tokens, and the frames
+        # safe to emit are total_pf(n - 2) - PAD_PF (the receptive-field
+        # hold-back), so find the first k where that reaches FIRST_SEG_PF
+        stream_block_steps = 1
+        while (self._total_pf(max(0, stream_block_steps - 1)) - PAD_PF < FIRST_SEG_PF
+               and stream_block_steps < gpt_config.max_audio_tokens):
+            stream_block_steps += 1
         self.decode_engine = DecodeEngine(
             self.params, gpt_config, num_slots=self.decode_slots, cache_dtype=cache_dtype,
             steps_per_sync=steps_per_sync, seed=seed, slot_bucketing=bool(slot_bucketing),
-            device=self.device)
+            stream_block_steps=stream_block_steps, device=self.device)
         hifigan = self.core["hifigan"]
         self._packed_stages = pack_hifigan_mrf(
             hifigan["resblocks"], RESBLOCK_KERNELS, hifigan["conv_pre_w"].dtype, self.device)
         self.conditioning_cache_size = max(1, int(conditioning_cache_size))
         self.ref_length_quantum_s = float(ref_length_quantum_s)
         self._cond_cache: dict[str, tuple] = {}
+        self._vocode_batcher = _VocodeBatcher(self)
         self.get_memory_usage_curve()
 
     # ----------------------------------------------------------- properties
@@ -377,9 +552,9 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         speaker_embeddings: Optional[np.ndarray] = None,
     ):
         """Phase 1: conditioning + one decode submission per text chunk.
-        Returns (handles, request ids, speaker embedding, conditioning)."""
-        if request.stream:
-            raise NotImplementedError(_STREAMING_TODO)
+        Returns (handles, request ids, speaker embedding, conditioning). A
+        handle is the chunk's decode future, or for a streaming request
+        (future, snapshot mailbox, speculative first segment)."""
         if gpt_cond_latent is None or speaker_embeddings is None:
             gpt_cond_latent, speaker_embeddings = await self.get_audio_conditioning(
                 request.speaker_files,
@@ -407,8 +582,17 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         try:
             for idx, ids in enumerate(token_chunks):
                 prompt = self._build_prompt(cond_dev, ids)
-                handles.append(asyncio.ensure_future(
-                    self.decode_engine.generate(prompt, options)))
+                if request.stream:
+                    # a snapshot mailbox, so segments are vocoded while the
+                    # chunk decodes, and the speculative first segment
+                    queue = asyncio.Queue()
+                    spec = _SpecFirstSeg(self, speaker_embeddings)
+                    fut = asyncio.ensure_future(self.decode_engine.generate(
+                        prompt, options, stream_queue=queue, on_young_block=spec.hook))
+                    handles.append((fut, queue, spec))
+                else:
+                    handles.append(asyncio.ensure_future(
+                        self.decode_engine.generate(prompt, options)))
                 request_ids.append(f"{request.request_id}_{idx}")
         except BaseException:
             for handle in handles:
@@ -417,10 +601,14 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         return handles, request_ids, speaker_embeddings, gpt_cond_latent
 
     def cancel_generation_handle(self, handle) -> None:
-        """Abort one chunk's decode; the decode engine drops it from its queue
-        or releases its slot on the runner's next pass."""
-        if not handle.done():
-            handle.cancel()
+        """Abort one chunk's decode (and its speculative first segment); the
+        decode engine drops it from its queue or releases its slot on the
+        runner's next pass."""
+        fut, _queue, spec = _unpack_handle(handle)
+        if spec is not None:
+            spec.discard()
+        if not fut.done():
+            fut.cancel()
 
     # --------------------------------------------------------------- vocode
     def _true_wav_len(self, n_latents: int) -> int:
@@ -438,36 +626,62 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
                 return b
         return math.ceil(self.gpt_config.max_audio_tokens / LATENT_BUCKETS_STEP) * LATENT_BUCKETS_STEP
 
-    def _decode(self, latents: torch.Tensor, speaker_embedding) -> torch.Tensor:
-        """[1, T, D] f32 latents on the device -> waveform [N] on the device."""
+    def _speaker_rows(self, speaker_embeddings: list) -> torch.Tensor:
+        """One d-vector per lane (host [1, 512] each) -> [B, 512] f32 on the
+        engine's device."""
+        g = np.concatenate([np.asarray(e, np.float32).reshape(1, -1) for e in speaker_embeddings])
+        return torch.from_numpy(g).to(self.device)
+
+    def _interp(self, latents: torch.Tensor) -> torch.Tensor:
+        """Latents [B, T, D] f32 -> post-interp frames [B, D, T_pf]
+        (hifigan.interp_latents at this model's rates)."""
         cfg = self.hifi_config
-        g = torch.as_tensor(np.asarray(speaker_embedding, np.float32)).reshape(1, -1)
-        wav = hifi_decoder(
-            self.core["hifigan"], latents, g.to(self.device), self._packed_stages,
-            ar_mel_length_compression=cfg.gpt_code_stride_len,
-            output_hop_length=cfg.output_hop_length,
-            input_sample_rate=cfg.input_sample_rate,
-            output_sample_rate=cfg.output_sample_rate,
-        )
-        return wav[0].float()
+        return interp_latents(latents, ar_mel_length_compression=cfg.gpt_code_stride_len,
+                              output_hop_length=cfg.output_hop_length,
+                              input_sample_rate=cfg.input_sample_rate,
+                              output_sample_rate=cfg.output_sample_rate)
+
+    def _generate(self, frames: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        """Post-interp frames [B, D, T_pf] + d-vectors [B, 512] -> waveform
+        [B, T_pf * 256] f32 (HiFi-GAN, the MRF stages through kernel K3 on
+        the card)."""
+        wav = hifigan_generator(self.core["hifigan"], frames.transpose(1, 2), g,
+                                self._packed_stages)
+        return wav.float()
+
+    @staticmethod
+    def _pcm(wav: torch.Tensor) -> torch.Tensor:
+        """Round to 16-bit PCM on the device: 4x fewer bytes to the host, the
+        serving formats are 16-bit, and tanh bounds |wav| <= 1."""
+        return torch.round(wav * 32767.0).to(torch.int16)
+
+    @staticmethod
+    def _masked(rows: torch.Tensor, ns: list, cut: int, length: int) -> torch.Tensor:
+        """rows [B, >= cut, D] -> f32 [B, length, D]: the first `cut` latents
+        with positions >= n[b] zeroed (stale slot data), zero-padded."""
+        x = rows[:, :cut].float()
+        n = torch.tensor(ns, dtype=torch.int64).to(x.device)[:, None, None]
+        x = torch.where(torch.arange(cut, device=x.device)[None, :, None] < n, x, 0.0)
+        return F.pad(x, (0, 0, 0, length - cut)) if length > cut else x
 
     @torch.no_grad()
+    def _vocode_rows(self, rows: torch.Tensor, ns: list, speaker_embeddings: list) -> list:
+        """The batched row vocoder: latent rows [B, T_audio, D] on the device,
+        each with its own n live entries, masked and padded to the bucket of
+        the largest n; returns each waveform trimmed to its true length (f32
+        on the host, from 16-bit PCM)."""
+        bucket = self.row_bucket(max(ns))
+        x = self._masked(rows, ns, min(bucket, self.gpt_config.max_audio_tokens), bucket)
+        pcm = self._pcm(self._generate(self._interp(x), self._speaker_rows(speaker_embeddings)))
+        pcm = pcm.cpu().numpy()
+        return [pcm[i, : self._true_wav_len(n)].astype(np.float32) / 32767.0
+                for i, n in enumerate(ns)]
+
     def vocode_device_row(self, latents_row: torch.Tensor, n: int,
                           speaker_embedding) -> np.ndarray:
         """Vocode a slot's latent row [T_audio, D] (device) whose first n
-        entries are valid; positions >= n are zeroed, the row padded to its
-        bucket, and the waveform trimmed to the true length. The samples are
-        rounded to 16-bit PCM on the device (4x fewer bytes to the host; the
-        serving formats are 16-bit, and tanh bounds |wav| <= 1)."""
-        t_max = self.gpt_config.max_audio_tokens
-        bucket = self.row_bucket(n)
-        cut = min(bucket, t_max)
-        rows = latents_row[None, :cut].float()
-        rows = torch.where(torch.arange(cut, device=rows.device)[None, :, None] < n, rows, 0.0)
-        padded = torch.zeros((1, bucket, rows.shape[-1]), dtype=torch.float32, device=rows.device)
-        padded[:, :cut] = rows
-        pcm = torch.round(self._decode(padded, speaker_embedding) * 32767.0).to(torch.int16)
-        return pcm.cpu().numpy().astype(np.float32)[: self._true_wav_len(n)] / 32767.0
+        entries are valid: the batched row vocoder at batch 1."""
+        return self._vocode_rows(latents_row[None], [n], [speaker_embedding])[0]
 
     @torch.no_grad()
     def vocode(self, latents: np.ndarray, speaker_embedding: np.ndarray) -> np.ndarray:
@@ -478,39 +692,185 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
                      * LATENT_BUCKETS_STEP, n)
         padded = torch.zeros((1, bucket, latents.shape[1]), dtype=torch.float32)
         padded[0, :n] = torch.from_numpy(np.asarray(latents, np.float32))
-        wav = self._decode(padded.to(self.device), speaker_embedding)
-        return wav.cpu().numpy()[: self._true_wav_len(n)]
+        frames = self._interp(padded.to(self.device))
+        wav = self._generate(frames, self._speaker_rows([speaker_embedding]))
+        return wav[0].cpu().numpy()[: self._true_wav_len(n)]
+
+    # ------------------------------------------------- streaming vocoder
+    def _total_pf(self, n_latents: int) -> int:
+        """Post-interp frame count for n latents (== _true_wav_len // 256)."""
+        return self._true_wav_len(n_latents) // 256
+
+    @property
+    def _seg_bucket(self) -> int:
+        """Latent length the segment vocoder interps at: max_audio_tokens
+        rounded up to LATENT_BUCKETS_STEP."""
+        return math.ceil(self.gpt_config.max_audio_tokens / LATENT_BUCKETS_STEP) * LATENT_BUCKETS_STEP
+
+    @property
+    def _bucket_pf(self) -> int:
+        return self._total_pf(self._seg_bucket)
+
+    @torch.no_grad()
+    def _vocode_seg(self, rows: torch.Tensor, ns: list, slice_starts: list,
+                    speaker_embeddings: list) -> torch.Tensor:
+        """The segment vocoder: interp each whole masked row as the full-row
+        vocoder does (at `_seg_bucket`), cut one [start, start + PAD_PF +
+        SEG_PF + PAD_PF) frame window per lane and run the generator on the
+        windows. With PAD_PF >= the generator's receptive field, a window's
+        centre equals the full-row output sample for sample. Returns 16-bit
+        PCM [B, window * 256] on the device."""
+        t_max = self.gpt_config.max_audio_tokens
+        slice_len = PAD_PF + SEG_PF + PAD_PF
+        z = self._interp(self._masked(rows, ns, t_max, self._seg_bucket))
+        zs = torch.stack([z[i, :, s:s + slice_len] for i, s in enumerate(slice_starts)])
+        return self._pcm(self._generate(zs, self._speaker_rows(speaker_embeddings)))
+
+    @torch.no_grad()
+    def _vocode_seg_first(self, rows: torch.Tensor, ns: list,
+                          speaker_embeddings: list) -> torch.Tensor:
+        """The first-segment vocoder: frames [0, FIRST_SEG_PF) from a head
+        window. The interp's index map does not depend on the length, so the
+        interp of only the first min(64, t_max) latents, cut to FIRST_SEG_PF
+        + PAD_PF frames, equals the full row's leading frames; ~3x less
+        generator work than a segment window, on the time-to-first-audio
+        path. Returns 16-bit PCM [B, window * 256] on the device."""
+        head = min(64, self.gpt_config.max_audio_tokens)
+        z = self._interp(self._masked(rows, ns, head, head))[..., : FIRST_SEG_PF + PAD_PF]
+        return self._pcm(self._generate(z, self._speaker_rows(speaker_embeddings)))
+
+    def _seg_slice_start(self, emit_start_pf: int) -> int:
+        slice_len = PAD_PF + SEG_PF + PAD_PF
+        return min(max(emit_start_pf - PAD_PF, 0), max(self._bucket_pf - slice_len, 0))
+
+    def _vocode_segment(self, latents_row: torch.Tensor, n_mask: int, emit_start_pf: int,
+                        emit_count_pf: int, speaker_embedding) -> np.ndarray:
+        """Frames [emit_start, emit_start + emit_count) of the full-row
+        vocoder's output, 256 samples each."""
+        slice_start = self._seg_slice_start(emit_start_pf)
+        offset = emit_start_pf - slice_start
+        pcm = self._vocode_seg(latents_row[None], [n_mask], [slice_start], [speaker_embedding])
+        out = pcm[0].cpu().numpy().astype(np.float32) / 32767.0
+        return out[offset * 256:(offset + emit_count_pf) * 256]
 
     async def process_tokens_to_speech(
         self,
-        generator,  # an asyncio future from get_generation_context
+        generator,  # a handle from get_generation_context
         speaker_embeddings: Optional[np.ndarray] = None,
         multimodal_data: Optional[np.ndarray] = None,
         request: TTSRequest = None,
     ) -> AsyncGenerator[TTSOutput, None]:
-        """Phase 2: wait for the chunk's decode, vocode its latent row."""
+        """Phase 2. Non-streaming: one row vocode (through the batcher) when
+        the chunk finishes. Streaming: fixed segments vocoded from latent
+        snapshots while the chunk decodes; their concatenation is the
+        non-streaming waveform."""
         assert speaker_embeddings is not None, "XTTSv2 needs speaker embeddings"
+        future, queue, spec = _unpack_handle(generator)
+        inner = self._tokens_to_speech_inner(future, queue, spec, speaker_embeddings, request)
         try:
+            async for out in inner:
+                yield out
+        finally:
+            # consumer gone or done: nothing may keep burning device time
+            # (cancel() on a resolved future is a no-op; a cancelled decode
+            # releases its slot in the runner)
+            await inner.aclose()
+            if spec is not None:
+                spec.discard()
+            if not future.done():
+                future.cancel()
+
+    async def _tokens_to_speech_inner(self, future, queue, spec, speaker_embeddings,
+                                      request) -> AsyncGenerator[TTSOutput, None]:
+        sr = self.hifi_config.output_sample_rate
+        start_time = request.start_time if request else None
+        if queue is None:
             with span("phase2.decode_wait"):
-                tokens, row, n = await generator
+                tokens, row, n = await future
             if n == 0:
                 return
             with span("phase2.vocode"):
-                wav = await asyncio.to_thread(self.vocode_device_row, row, n,
-                                              speaker_embeddings)
-            yield TTSOutput(
-                array=wav, sample_rate=self.hifi_config.output_sample_rate,
-                start_time=request.start_time if request else None,
-                token_length=int(len(tokens)),
-            )
-        finally:
-            # consumer gone or done: a still-running decode must stop burning
-            # device time (cancel() on a resolved future is a no-op)
-            if not generator.done():
-                generator.cancel()
+                wav = await self._vocode_batcher.submit("row", (row, n, speaker_embeddings))
+            yield TTSOutput(array=wav, sample_rate=sr, start_time=start_time,
+                            token_length=int(len(tokens)))
+            return
+
+        emitted_pf = 0
+        t_max = self.gpt_config.max_audio_tokens
+        pf_per_token = self._total_pf(t_max) / max(t_max, 1)
+        t_consume = time.perf_counter()
+        first_wait_recorded = False
+        while True:
+            # race the mailbox against the future: if generate() fails before
+            # the runner owns the chunk nothing feeds the queue. On success
+            # the final snapshot is queued as the future resolves, with no
+            # await between, so a done future means a non-empty queue.
+            get_task = asyncio.ensure_future(queue.get())
+            try:
+                await asyncio.wait({get_task, future}, return_when=asyncio.FIRST_COMPLETED)
+            except BaseException:
+                get_task.cancel()  # closed or cancelled while waiting
+                raise
+            if get_task.done():
+                row, n, final = get_task.result()
+            else:
+                get_task.cancel()
+                if future.cancelled() or future.exception() is not None:
+                    await future  # raises the decode's failure here
+                row, n, final = await queue.get()
+            if not first_wait_recorded:
+                trace_record("phase2.first_snapshot_wait", time.perf_counter() - t_consume)
+                first_wait_recorded = True
+            if row is None:
+                await future  # the poison sentinel: surface the runner's failure
+                return
+            if final:
+                high = self._total_pf(n)
+            else:
+                # latents >= n - 2 still blend with the mask edge in the
+                # interp; hold back a receptive field too, so every emitted
+                # sample is final
+                high = max(0, self._total_pf(max(0, n - 2)) - PAD_PF)
+            if emitted_pf == 0 and spec is not None and spec.task is not None:
+                if n >= spec.claim_n:
+                    with span("phase2.vocode_segment"):
+                        wav = await spec.task
+                    emitted_pf = spec.emit_pf
+                    spec = None
+                    yield TTSOutput(array=wav, sample_rate=sr, start_time=start_time,
+                                    token_length=int(round(emitted_pf / pf_per_token)))
+                elif final:
+                    # the slot stopped before the claim: the latents past n
+                    # are stale and the speculation is void; emit normally
+                    spec.discard()
+                    spec = None
+                else:
+                    # the status lags the claim: valid but unconfirmed; wait
+                    # for the next snapshot rather than emit it twice
+                    continue
+            threshold = FIRST_SEG_PF if emitted_pf == 0 else SEG_PF
+            while (high - emitted_pf >= threshold) or (final and high > emitted_pf):
+                emit = min(SEG_PF, high - emitted_pf)
+                with span("phase2.vocode_segment"):
+                    wav = await self._vocode_batcher.submit(
+                        "seg", (row, n, emitted_pf, emit, speaker_embeddings))
+                emitted_pf += emit
+                threshold = SEG_PF
+                yield TTSOutput(array=wav, sample_rate=sr, start_time=start_time,
+                                token_length=int(round(emit / pf_per_token)))
+            if final:
+                break
 
     async def shutdown(self) -> None:
         await self.decode_engine.shutdown()
+
+
+def _unpack_handle(handle) -> tuple:
+    """(future, snapshot queue or None, _SpecFirstSeg or None) of a phase-1
+    handle: a bare future, or a streaming (future, queue, spec) tuple."""
+    if isinstance(handle, tuple):
+        return (tuple(handle) + (None, None))[:3]
+    return handle, None, None
 
 
 def _nbytes(tree) -> int:

@@ -24,13 +24,27 @@ What the runner does, as the JAX one does:
   behind a CUDA event) overlaps the next block. Done-detection lags one
   block; the extra masked steps of a finished slot are no-ops.
 
+- streaming: a request submitted with a `stream_queue` gets a (latent_row,
+  n, final) snapshot after every status read (mailbox semantics: only the
+  newest waits), the final one with the exact n once its future resolves,
+  and a poison sentinel (None, 0, True) on shutdown or a runner crash.
+  While a streaming slot is young (fewer than STREAM_YOUNG_STEPS steps
+  since its insert) blocks run `stream_block_steps` steps and read their own
+  status at once instead of the lagged one, so early latents surface a
+  block sooner; an `on_young_block` hook gets (latent_row, token count)
+  right after each block is issued, before its status is read (the engine
+  launches the speculative first segment from it).
+
 Device work runs in a worker thread (`asyncio.to_thread`): the port issues
 every op eagerly, and issuing a block's ops takes host time, so the event
-loop keeps serving other coroutines while a block is issued. Prompts are
-TokenPrompts only: the JAX runner's legacy embeds-prompt branch (an uploaded
-[T, D] embedding matrix per chunk) is not on the port's path. Not ported:
-streaming (stream snapshots, young blocks, speculative hooks) and
-precompile (JAX AOT workarounds).
+loop keeps serving other coroutines while a block is issued. The decode
+state is updated in place, so every latent row handed out (snapshot, hook
+row, harvested row) is an independent device copy taken under
+`_state_lock` on the one CUDA stream every thread issues to: it is ordered
+after the block whose latents it reads and before any later release or
+refill of the slot. Prompts are TokenPrompts only: the JAX runner's legacy
+embeds-prompt branch (an uploaded [T, D] embedding matrix per chunk) is not
+on the port's path. Not ported: precompile (JAX AOT workarounds).
 """
 from __future__ import annotations
 
@@ -92,6 +106,17 @@ class _Pending:
     prompt: TokenPrompt
     options: SamplingOptions
     future: asyncio.Future
+    # streaming: (latent_row, n, final) snapshots go here while the chunk
+    # decodes (intra-chunk streaming)
+    stream_queue: Optional[asyncio.Queue] = None
+    # streaming: called on the event loop right after each block is issued,
+    # before its status is read, with (latent_row, host token count); the
+    # count is exact unless the slot stopped inside the block, so the caller
+    # validates it against a snapshot's n. Returns True to stop being called.
+    on_young_block: Optional[Callable[[torch.Tensor, int], bool]] = None
+    # host-side token count: 1 at insert, + n_steps per issued block
+    n_host: int = 1
+    spec_done: bool = False
     enqueue_time: float = field(default_factory=time.perf_counter)
     # set when the awaiting consumer went away: the runner releases the slot
     # at its next pass instead of decoding the remaining dead steps
@@ -123,6 +148,12 @@ class DecodeEngine:
     # runner's grid copied for parity: they were fitted on a TPU and are not
     # an H100 measurement (a benchmark of the port refits them)
     LEN_BUCKETS = (256, 512, 768, 1024)
+    # young streaming blocks: while a streaming slot has run fewer than
+    # STREAM_YOUNG_STEPS steps, blocks run `stream_block_steps` steps (at
+    # most STREAM_BLOCK_STEPS unless the engine passes its own) and read
+    # their own status, so the first segment can go out after one block
+    STREAM_BLOCK_STEPS = 16
+    STREAM_YOUNG_STEPS = 64
     # burst sizes of one batched prefill; a group is cut into exact buckets
     # (a padded lane costs a real prompt's prefill compute)
     _INSERT_K_BUCKETS = (2, 4, 8)
@@ -131,7 +162,7 @@ class DecodeEngine:
                  cache_dtype=torch.bfloat16, steps_per_sync: int = 16, seed: int = 0,
                  slot_bucketing: bool = False,
                  w8a8_policy: Optional[Callable[[int, int], bool]] = None,
-                 device="cuda"):
+                 stream_block_steps: Optional[int] = None, device="cuda"):
         self.params = params
         self.cfg = cfg
         # per-program int8 decode weights: the policy picks, from a block's
@@ -149,6 +180,7 @@ class DecodeEngine:
                              else self._cfg_w8a8)
         self.num_slots = num_slots
         self.steps_per_sync = steps_per_sync
+        self.stream_block_steps = stream_block_steps or self.STREAM_BLOCK_STEPS
         self.slot_bucketing = slot_bucketing
         self.device = torch.device(device)
         self.state: DecodeState = init_decode_state(
@@ -180,8 +212,12 @@ class DecodeEngine:
         self._closed = False
 
     # ------------------------------------------------------------- public
-    async def generate(self, prompt: TokenPrompt, options: SamplingOptions | None = None):
-        """Submit a prompt; resolves to (tokens, latent_row, n)."""
+    async def generate(self, prompt: TokenPrompt, options: SamplingOptions | None = None,
+                       stream_queue: Optional[asyncio.Queue] = None,
+                       on_young_block: Optional[Callable[[torch.Tensor, int], bool]] = None):
+        """Submit a prompt; resolves to (tokens, latent_row, n). With
+        `stream_queue`, (latent_row, n, final) snapshots are pushed there
+        while it decodes, the final one after the future resolves."""
         self._closed = False  # shutdown() quiesces; a later submit reopens
         loop = asyncio.get_running_loop()
         fut: asyncio.Future = loop.create_future()
@@ -193,7 +229,8 @@ class DecodeEngine:
         if not 1 <= prompt.length <= self.cfg.max_seq_len:
             raise ValueError(
                 f"prompt length {prompt.length} outside [1, {self.cfg.max_seq_len}]")
-        pending = _Pending(prompt, options or SamplingOptions(), fut)
+        pending = _Pending(prompt, options or SamplingOptions(), fut, stream_queue,
+                           on_young_block)
         self._queue.append(pending)
         self._ensure_runner()
         self._wake.set()
@@ -227,6 +264,7 @@ class DecodeEngine:
         for pending in list(self._queue) + list(self._slot_owner.values()):
             if not pending.future.done():
                 pending.future.cancel()
+            _poison(pending)
         self._queue.clear()
         if self._slot_owner:
             self._release(list(self._slot_owner))
@@ -273,6 +311,7 @@ class DecodeEngine:
                     pending.future.set_exception(exc)
             except RuntimeError:
                 pass  # stale future from a closed event loop
+            _poison(pending)
         self._slot_owner.clear()
         self._slot_meta.clear()
         self._queue.clear()
@@ -291,8 +330,15 @@ class DecodeEngine:
         return [i for i in range(self.num_slots) if i not in self._slot_owner]
 
     def _block_steps(self) -> int:
-        """Steps of the next block: `steps_per_sync` (the JAX runner's
-        shorter young blocks serve streaming, which is not ported)."""
+        """Steps of the next block: `stream_block_steps` (capped at
+        `steps_per_sync`) while any streaming slot is younger than
+        STREAM_YOUNG_STEPS, else `steps_per_sync`."""
+        for slot, pending in self._slot_owner.items():
+            if pending.stream_queue is not None:
+                meta = self._slot_meta.get(slot)
+                if meta is not None and (
+                        self._steps_total - meta["steps_at_insert"]) < self.STREAM_YOUNG_STEPS:
+                    return min(self.stream_block_steps, self.steps_per_sync)
         return self.steps_per_sync
 
     def _slot_buckets(self) -> tuple[int, ...]:
@@ -481,6 +527,40 @@ class DecodeEngine:
         st["slot_bound_blocks"] += slot_bound is not None
         return _Status(host, event)
 
+    def _push_stream_snapshots(self, done: np.ndarray, n_generated: np.ndarray) -> None:
+        """Give every still-running streaming slot a fresh (latent_row, n,
+        False) snapshot: the row an independent device copy taken under the
+        state lock (a release or refill of the slot after it cannot reach
+        it), n from the status just read, which never overstates what the
+        row holds. Mailbox semantics: only the newest snapshot waits."""
+        for slot, pending in self._slot_owner.items():
+            if pending.stream_queue is None or done[slot] or pending.cancelled:
+                continue  # a finished slot's final snapshot carries the exact n
+            n = int(n_generated[slot])
+            if n <= 0:
+                continue
+            with self._state_lock:
+                row = harvest_latents_device(self.state, slot)
+            _put_snapshot(pending.stream_queue, (row, n, False), newest_only=True)
+
+    def _fire_young_hooks(self, n_steps: int) -> None:
+        """After a block is issued (event loop): advance every owned slot's
+        host token count and hand each streaming slot with a live hook a
+        copy of its latent row, queued behind that block on the stream."""
+        for slot, p in self._slot_owner.items():
+            p.n_host += n_steps
+            if (p.on_young_block is None or p.spec_done or p.cancelled
+                    or p.stream_queue is None):
+                continue
+            try:
+                with self._state_lock:
+                    row = harvest_latents_device(self.state, slot)
+                if p.on_young_block(row, p.n_host):
+                    p.spec_done = True
+            except Exception:
+                logger.exception("speculative hook failed; disabled for this chunk")
+                p.spec_done = True
+
     def _harvest_done(self, done: np.ndarray, n_generated: np.ndarray) -> None:
         """Free the finished slots at once. Their token rows are gathered on
         the device and copied to the host as one non-blocking copy, their
@@ -526,6 +606,11 @@ class DecodeEngine:
                     pending.future.set_result((tokens, row, n))
                 except RuntimeError:
                     pass  # the future's loop already closed
+            if pending.stream_queue is not None:
+                # the final snapshot, right after the future resolves with
+                # no await between: a consumer that sees the future done
+                # finds it queued
+                _put_snapshot(pending.stream_queue, (row, n, True), newest_only=False)
 
     async def _run(self) -> None:
         """Pipelined decode loop: dispatch block k+1, then read block k's
@@ -561,22 +646,61 @@ class DecodeEngine:
             migrations = st["migrations"]
             n_steps = self._block_steps()
             st["occupancy_sum"] += len(self._slot_owner)
+            t_block = time.perf_counter()
             status = await asyncio.to_thread(self._device_pass, self._group_inserts(to_insert),
                                              n_steps)
             self._steps_total += n_steps
+            # hooks run here, on the event loop (they create tasks), before
+            # any status read
+            self._fire_young_hooks(n_steps)
             if to_insert or st["migrations"] != migrations:
                 pending_status = None  # it indexes the slots before this pass
-            if pending_status is not None:
+            young = n_steps < self.steps_per_sync
+            if young:
+                # a young block reads its own status at once; it supersedes
+                # the lagged one, which is dropped
+                pending_status, read = None, status
+            else:
+                pending_status, read = status, pending_status
+            if read is not None:
                 t0 = time.perf_counter()
-                if pending_status.ready():
-                    packed = pending_status.wait()
-                else:
-                    packed = await asyncio.to_thread(pending_status.wait)
+                packed = read.wait() if read.ready() else await asyncio.to_thread(read.wait)
                 st["status_wait_s"] += time.perf_counter() - t0
+                if young:
+                    record("decode.young_block", time.perf_counter() - t_block)
                 _, done, n_gen = unpack_status(packed)
+                self._push_stream_snapshots(done, n_gen)
                 if done.any():
                     t1 = time.perf_counter()
                     self._harvest_done(done, n_gen)
                     st["harvest_s"] += time.perf_counter() - t1
-            pending_status = status
             await asyncio.sleep(0)  # let producers/consumers run between blocks
+
+
+def _put_snapshot(queue: asyncio.Queue, item: tuple, newest_only: bool) -> None:
+    """Queue a snapshot. With `newest_only` (mailbox semantics) whatever waits
+    unconsumed is dropped first; otherwise only when a bounded queue is full.
+    Only non-final snapshots are ever dropped, since nothing follows a final
+    one; a zero-capacity queue gets nothing (its future still resolves)."""
+    for attempt in range(2):
+        if newest_only or attempt:
+            while not queue.empty():
+                try:
+                    queue.get_nowait()
+                except asyncio.QueueEmpty:
+                    break
+        try:
+            queue.put_nowait(item)
+            return
+        except asyncio.QueueFull:
+            pass
+
+
+def _poison(pending: _Pending) -> None:
+    """Send a streaming consumer the sentinel (None, 0, True), which sends it
+    to the (cancelled or failed) future."""
+    if pending.stream_queue is not None:
+        try:
+            pending.stream_queue.put_nowait((None, 0, True))
+        except asyncio.QueueFull:
+            pass  # a bounded caller queue: the consumer still fails via the future

@@ -27,15 +27,17 @@ Phases:
     captured graph's programmatic edge);
  4. the bf16 slice: an XTTSv2Engine at the full XTTSConfig() width with
     seeded random bf16 weights and a bf16 KV cache behind the TTS facade
-    answers three requests (one sync, two concurrent); every waveform must
-    be finite 24 kHz audio, and K1, K2 and K3 must launch during the phase;
+    answers three requests (one sync, two concurrent), each capped at 300
+    tokens; every waveform must be finite 24 kHz audio, and K1, K2 and K3
+    must launch during the phase;
     then one 16-step decode block at 8 live slots is timed and profiled
     (wall, device ms, K2 ms per step, device busy share), and one
     605-latent chunk through the vocoder;
  4b. the int8 slice: the same with an int8 KV cache, W8A8 prefill and
-    decode matmuls and ragged decode attention, each request capped at 300
-    tokens; K1, K4 and K3 must launch; one decode block is profiled as in
-    4 (K4 ms per step);
+    decode matmuls and ragged decode attention, each request capped at 200
+    tokens; K1, K4 and K3 must launch; then phase 4f's int8 streaming
+    request (100 tokens) on the same engine, in which K1, K4 and K3 must
+    launch; one decode block is profiled as in 4 (K4 ms per step);
  4c. the dense int8 decode body (no K4) with W8A8 decode, one short request
     each with bf16 and with requantised attention probabilities;
  4d. K5's path: the W8A8 MLP of every layer of the int8 engine at decode
@@ -52,6 +54,16 @@ Phases:
     then the int8 configuration's bounds and runner, and the dense int8
     body under the per-program W8A8 policy (its choice at every bound);
     K2 and K3 (bf16) and K4 (int8) must launch in the runner drives;
+ 4f. streaming on the bf16 configuration with 16 slots: one solo
+    streaming request, then 8 concurrent ones with bench.py's TTFA text
+    (SENTENCE x 4, two chunks each, 120 tokens a chunk): time to first
+    audio p50/p95, the speculative first segments and the vocode batches;
+    7 of the 8 streams are closed after their first segment and every slot
+    must drain; a greedy stream must give >= 2 segments that equal, to the
+    16-bit PCM step, vocode_device_row of its final latent row, and that
+    row in a batch of 4 must equal the row alone; TTS.warmup() must
+    complete. K1, K2, K3 must launch. (Its int8 stream runs in 4b.) Phase
+    3 checks K3 at the streaming windows' shapes (STREAM_WINDOWS);
  5. reference check: the same full-width engine in f32 answers one short
     greedy request on the card (through the kernels) and on the CPU
     (through their plain versions); tokens must be equal and waveforms
@@ -61,7 +73,8 @@ Phases:
     latents must agree to 25 dB SNR and greedy tokens wherever the top-2
     logit margin is decisive.
 
-Any failure exits non-zero. Before the last line come the kernels JSON
+Each phase's header gives the seconds since the start. Any failure exits
+non-zero. Before the last line come the kernels JSON
 object and the nvidia-smi line; the last is {"ok": true, "device": {...}}. There is no CPU path: the
 script exits non-zero when no CUDA device is visible. JAX is never imported.
 """
@@ -87,8 +100,9 @@ import torch.nn.functional as F
 
 from auralis_tpu_torch import TTS, TTSRequest
 from auralis_tpu_torch.common import audio_io
+from auralis_tpu_torch.common.tracing import profile_summary
 from auralis_tpu_torch.models.xttsv2.config import XTTSConfig
-from auralis_tpu_torch.models.xttsv2.engine import XTTSv2Engine
+from auralis_tpu_torch.models.xttsv2.engine import FIRST_SEG_PF, PAD_PF, SEG_PF, XTTSv2Engine
 from auralis_tpu_torch.models.xttsv2.hifigan import (
     RESBLOCK_DILATIONS,
     RESBLOCK_KERNELS,
@@ -184,6 +198,14 @@ INT8_PATH = ("prefill_attention", "ragged_decode", "mrf_stage")
 
 def say(*parts) -> None:
     print(*parts, flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def phase(title: str) -> None:
+    """A phase's header, with the seconds since the script started."""
+    say(f"{title} (at {time.perf_counter() - T_START:.0f} s)")
 
 
 def nvidia_smi_line() -> str:
@@ -511,12 +533,21 @@ def mrf_compare(x, stage) -> tuple:
     return (err, scale, *elementwise(got, want, 2.0 ** -7, 2.0 ** -8 * scale))
 
 
+# the streaming vocoders' generator windows, in post-interp frames, and the
+# batch sizes a vocode batch takes there (segments up to 4, first segments
+# up to 8)
+STREAM_WINDOWS = (("segment", PAD_PF + SEG_PF + PAD_PF, (1, 4)),
+                  ("first-segment", FIRST_SEG_PF + PAD_PF, (1, 8)))
+
+
 def check_mrf(dev, results) -> None:
     """K3 at the four stage widths for a 600-token chunk's frame count:
     600 latents -> 2400 -> 2612 frames at 24 kHz; stage T = 8/64/128/256 x.
     Then, per width, one short batch-2 stage in f32 (the instantiation phase
     5 runs) and in bf16, with T off the 128-row tile grid, and one shorter
-    than a conv's reach (T = 5: the zero padding is the whole halo)."""
+    than a conv's reach (T = 5: the zero padding is the whole halo). Then
+    the streaming windows (STREAM_WINDOWS) at their smallest and largest
+    batch, each stage timed beside its bound and library time."""
     gen = torch.Generator(device=dev).manual_seed(3)
     frames = math.floor(math.floor(600 * 1024 / 256) * 24000 / 22050)
     worst, by_stage = 0.0, []
@@ -565,10 +596,38 @@ def check_mrf(dev, results) -> None:
     total = {key: sum(st[key] for st in by_stage)
              for key in ("ms", "plain_ms", "library_ms", "ops", "bytes")}
     bound_ms, bound_by = bound(total["bytes"], total["ops"], "bf16")
+    by_window = []
+    for window, wframes, batches in STREAM_WINDOWS:
+        for b in batches:
+            for c, mult in ((256, 8), (128, 64), (64, 128), (32, 256)):
+                t = wframes * mult
+                stage = mrf_test_stage(gen, dev, c, torch.bfloat16)
+                x = torch.randn((b, t, c), generator=gen, device=dev).to(torch.bfloat16)
+                err, scale, ratio, mismatch = mrf_compare(x, stage)
+                ms = time_ms(lambda: run_fused_stage(x, stage), 3)
+                plain_ms = time_ms(lambda: mrf_stage_plain(x, stage), 3)
+                x_nct, convs = x.transpose(1, 2).contiguous(), library_convs(stage)
+                library_ms = time_ms(lambda: library_stage(x_nct, convs), 3)
+                weight_b = sum(w.numel() + b_.numel() for w, b_, _ in convs) * 2
+                nbytes, ops = 2 * b * t * c * 2 + weight_b, 2 * c * c * b * t * taps
+                w_bound, w_by = bound(nbytes, ops, "bf16")
+                by_window.append({"window": window, "B": b, "C": c, "T": t, "ms": ms,
+                                  "plain_ms": plain_ms, "library_ms": library_ms,
+                                  "bound_ms": w_bound, "bound_by": w_by, "mismatch": mismatch})
+                worst = max(worst, err)
+                say(f"  K3 MRF stage, {window} window B={b} C={c} T={t}: max_abs_err={err:.3e}, "
+                    f"worst |err|/bound {ratio:.3f}, mismatch {mismatch:.4%} (bound "
+                    f"{MRF_MISMATCH_BOUND[c]:.0%}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"library {library_ms:.4f} ms, bound {w_bound:.5f} ms ({w_by}, "
+                    f"{w_bound / ms:.1%} of it)")
+                if not (ratio <= 1.0 and mismatch <= MRF_MISMATCH_BOUND[c]):
+                    raise AssertionError(f"K3 {window} B={b} C={c}: ratio {ratio}, "
+                                         f"mismatch {mismatch}")
     results["mrf_stage"] = {
         "max_abs_err": worst, "ms": total["ms"], "plain_ms": total["plain_ms"],
         "library_ms": total["library_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-        "shape": f"4 stages, {frames} frames (600 latents) bf16", "by_stage": by_stage}
+        "shape": f"4 stages, {frames} frames (600 latents) bf16", "by_stage": by_stage,
+        "by_window": by_window}
 
 
 def check_ragged(dev, results) -> None:
@@ -929,12 +988,14 @@ def profile_vocoder(engine, smi: str) -> None:
 
 def run_slice(dev, smi: str, tokenizer, gpt_flags: dict, engine_flags: dict,
               must_launch: tuple, decode_kernel: str, vocoder: bool = False,
-              max_new_tokens: int = 0) -> dict:
+              max_new_tokens: int = 0, stream_tokens: int = 0) -> tuple[dict, dict]:
     """Three requests through the TTS facade (one sync, two concurrent),
-    each chunk capped at `max_new_tokens` (0: the model's 605); returns the
-    launch counts of every kernel during them. Then one decode block is
-    profiled (`decode_kernel`: the device name of the decode attention
-    kernel) and, with `vocoder`, one chunk through the vocoder."""
+    each chunk capped at `max_new_tokens` (0: the model's 605); then, with
+    `stream_tokens`, one streaming request capped there (phase 4f's int8
+    part). Returns the launch counts of every kernel during the three and
+    during the stream. Then one decode block is profiled (`decode_kernel`:
+    the device name of the decode attention kernel) and, with `vocoder`,
+    one chunk through the vocoder."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     engine = build_engine(dev, tokenizer, gpt_flags, engine_flags)
@@ -966,6 +1027,20 @@ def run_slice(dev, smi: str, tokenizer, gpt_flags: dict, engine_flags: dict,
         for i, (o, wall) in enumerate(tts.loop.run_until_complete(two())):
             outs.append((f"async{i + 1}", o, wall))
         launches = {name: w["wrapper"].launches for name, w in KERNELS.items()}
+        stream = {name: 0 for name in KERNELS}
+        if stream_tokens:
+            for w in KERNELS.values():
+                w["wrapper"].launches = 0
+            ttfa, n_seg, secs = tts.loop.run_until_complete(stream_ttfa(tts, TTSRequest(
+                text="Hello world, this is a test of speech.", speaker_files=[wav_path],
+                language="en", stream=True, max_new_tokens=stream_tokens), False))
+            stream = {name: w["wrapper"].launches for name, w in KERNELS.items()}
+            say(f"  [4f] stream ({stream_tokens}-token cap) on this engine: first segment "
+                f"{ttfa * 1e3:.1f} ms, {n_seg} segments, {secs:.2f} s audio; launches {stream} "
+                f"({smi})")
+            for name in must_launch:
+                if stream[name] <= 0:
+                    raise AssertionError(f"kernel {name} was not launched by the stream")
         tts.loop.run_until_complete(tts.shutdown())
 
     for name, o, wall in outs:
@@ -983,7 +1058,7 @@ def run_slice(dev, smi: str, tokenizer, gpt_flags: dict, engine_flags: dict,
     if vocoder:
         profile_vocoder(engine, smi)
     del tts, engine
-    return launches
+    return launches, stream
 
 
 def check_waveform(name: str, o) -> None:
@@ -1356,8 +1431,10 @@ def check_migration(engine) -> None:
         raise AssertionError("migrate_slot did not move every field or clear the source")
 
 
-RUNNER_CAPS = [32, 64, 96, 128, 160, 48, 80, 112, 40, 72, 605, 500]  # slots 0-11 (10, 11 long)
-RUNNER_LATE_CAPS = [56, 88, 120, 300]  # submitted during the fourth block
+# (the two long chunks' caps and the last late one's were halved from 605,
+# 500 and 300 to hold the whole run's length once phase 4f was added)
+RUNNER_CAPS = [32, 64, 96, 128, 160, 48, 80, 112, 40, 72, 300, 250]  # slots 0-11 (10, 11 long)
+RUNNER_LATE_CAPS = [56, 88, 120, 200]  # submitted during the fourth block
 
 
 async def drive_runner(de, prompts, options) -> tuple[list, float]:
@@ -1380,7 +1457,7 @@ async def drive_runner(de, prompts, options) -> tuple[list, float]:
 def check_runner(engine, smi: str, must_launch: tuple, facade_wav: str | None) -> dict:
     """The runner end to end: DecodeEngine (the engine's own, slot
     bucketing on) driven with greedy TokenPrompts whose max_new_tokens
-    spread over 32-605 (a chunk may stop earlier at the stop token), so
+    spread over 32-300 (a chunk may stop earlier at the stop token), so
     slots finish apart and strand high survivors;
     then the same traffic through a DecodeEngine without bucketing on the
     same params, which must give the same tokens and n (latents above 40 dB,
@@ -1526,6 +1603,171 @@ def run_concurrency(dev, smi: str, tokenizer) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- streaming
+# bench.py's TTFA traffic: SENTENCE * 4 per request (two chunks), 8 at once
+SENTENCE = ("the quick brown fox jumps over the lazy dog while voice cloning "
+            "speech synthesis runs on tensor processing hardware. ")
+STREAM_CONCURRENCY = 8
+STREAM_SLOTS = 16  # every chunk of the 8 requests holds a slot at once
+STREAM_CAP = 120  # tokens per chunk in phase 4f's sampled requests
+# the engine's tracing spans on the way to the first segment: a chunk's wait
+# for a slot, a young block from issue to its status, the wait for the
+# first snapshot, a first-segment vocode batch
+TTFA_SPANS = ("decode.queue_wait", "decode.young_block", "phase2.first_snapshot_wait",
+              "vocode.seg_first_device", "phase1.tokenize")
+
+
+def pcm_diff(got: np.ndarray, want: np.ndarray) -> tuple[int, float]:
+    """(largest difference in 16-bit PCM steps, share of samples that
+    differ) of two waveforms the engine shipped as 16-bit PCM."""
+    if got.shape != want.shape:
+        return 1 << 30, 1.0
+    d = np.abs(np.round(got * 32767).astype(np.int64) - np.round(want * 32767).astype(np.int64))
+    return int(d.max()), float((d > 0).mean())
+
+
+def record_batches(engine) -> list:
+    """Wrap the engine's vocode batcher so every batch it runs is recorded
+    as (kind, lanes); returns the list it appends to."""
+    batcher, flights = engine._vocode_batcher, []
+    run = batcher._run_batch
+
+    def recording(kind, items):
+        flights.append((kind, len(items)))
+        return run(kind, items)
+
+    batcher._run_batch = recording
+    return flights
+
+
+async def stream_ttfa(tts, request, close_after_first: bool) -> tuple[float, int, float]:
+    """One streaming request through the facade: (seconds to its first
+    segment, segments consumed, seconds of audio consumed); closed after the
+    first segment when asked."""
+    t0 = time.perf_counter()
+    agen = await tts.generate_speech_async(request)
+    ttfa, n_seg, samples = float("nan"), 0, 0
+    try:
+        async for seg in agen:
+            if n_seg == 0:
+                ttfa = time.perf_counter() - t0
+            n_seg += 1
+            samples += seg.array.size
+            check_waveform("stream segment", seg)
+            if close_after_first:
+                break
+    finally:
+        await agen.aclose()
+    return ttfa, n_seg, samples / 24000
+
+
+async def greedy_stream(engine, wav_path: str, text: str, max_new: int) -> tuple:
+    """One greedy streaming chunk through the engine's phase-1/phase-2 API,
+    consumed whole: (segments, final latent row, n, d-vector)."""
+    req = TTSRequest(text=text, speaker_files=[wav_path], language="en", do_sample=False,
+                     max_new_tokens=max_new, stream=True)
+    handles, _, spk, _ = await engine.get_generation_context(req)
+    segs = [seg.array async for seg in engine.process_tokens_to_speech(
+        handles[0], speaker_embeddings=spk, request=req)]
+    _, row, n = handles[0][0].result()
+    return segs, row, n, spk
+
+
+def run_streaming(dev, smi: str, tokenizer) -> dict:
+    """Phase 4f: streaming on the bf16 configuration of phase 4, with 16
+    slots so that every chunk of the 8 requests holds one (phase 4's 8 would
+    queue half of them behind the others). Returns the kernel launches of
+    the drive. (The int8 stream runs on phase 4b's engine, in run_slice.)"""
+    with tempfile.TemporaryDirectory() as tmp:
+        wav_path = write_voice(tmp)
+        torch.cuda.empty_cache()
+        engine = build_engine(dev, tokenizer, {"flash_decode": True, "prefill_flash": True}, {},
+                              decode_slots=STREAM_SLOTS)
+        flights = record_batches(engine)
+        tts = TTS(scheduler_max_concurrency=STREAM_CONCURRENCY).with_engine(engine)
+
+        def request():
+            return TTSRequest(text=SENTENCE * 4, speaker_files=[wav_path], language="en",
+                              stream=True, max_new_tokens=STREAM_CAP)
+
+        for w in KERNELS.values():
+            w["wrapper"].launches = 0
+        solo = tts.loop.run_until_complete(stream_ttfa(tts, request(), False))
+        say(f"  solo stream: first segment {solo[0] * 1e3:.1f} ms, {solo[1]} segments, "
+            f"{solo[2]:.2f} s audio ({smi})")
+        del flights[:]
+
+        async def burst():
+            # stream 0 is consumed whole, the others closed after their
+            # first segment
+            return await asyncio.gather(*(stream_ttfa(tts, request(), i > 0)
+                                          for i in range(STREAM_CONCURRENCY)))
+
+        profile_summary(reset=True)
+        t0 = time.perf_counter()
+        outs = tts.loop.run_until_complete(burst())
+        wall = time.perf_counter() - t0
+        spans = profile_summary(reset=True)
+        ttfas = sorted(o[0] for o in outs)
+        p50 = ttfas[len(ttfas) // 2]
+        p95 = ttfas[min(len(ttfas) - 1, int(len(ttfas) * 0.95))]
+        sf = [k for kind, k in flights if kind == "seg_first"]
+        say(f"  TTFA at concurrency {STREAM_CONCURRENCY} (SENTENCE x 4, {STREAM_CAP}-token cap "
+            f"per chunk, sampled): p50 {p50 * 1e3:.1f} ms, p95 {p95 * 1e3:.1f} ms, all "
+            f"{', '.join(f'{t * 1e3:.1f}' for t in ttfas)} ms; speculative first segments "
+            f"{sum(sf)} in seg_first batches of {sf}; other batches "
+            f"{[f for f in flights if f[0] != 'seg_first']}; stream 0: {outs[0][1]} segments, "
+            f"{outs[0][2]:.2f} s audio; {wall:.2f} s wall ({smi})")
+        say("  where the burst's time went (host spans, mean / max ms x count): " + "; ".join(
+            f"{k} {v['mean_ms']:.1f} / {v['max_ms']:.1f} x {v['count']}"
+            for k, v in sorted(spans.items()) if k in TTFA_SPANS))
+        if not all(o[1] >= 1 for o in outs) or outs[0][1] < 2:
+            raise AssertionError(f"streams: segments {[o[1] for o in outs]}")
+        de = engine.decode_engine
+
+        async def drained():
+            t_end = time.perf_counter() + 30
+            while de.num_active or de._queue:
+                if time.perf_counter() > t_end:
+                    raise AssertionError(f"abandoned streams: {de.num_active} slots still live")
+                await asyncio.sleep(0.01)
+
+        tts.loop.run_until_complete(drained())
+        say(f"  abandonment: {STREAM_CONCURRENCY - 1} streams closed after their first segment; "
+            f"num_active back to 0")
+
+        segs, row, n, spk = tts.loop.run_until_complete(
+            greedy_stream(engine, wav_path, "Hello world, this is a test of speech.", 200))
+        streamed = np.concatenate(segs)
+        full = engine.vocode_device_row(row, n, spk)
+        s_max, s_share = pcm_diff(streamed, full)
+        say(f"  greedy stream after the abandonment: {len(segs)} segments, {n} tokens, "
+            f"{streamed.size} samples; against vocode_device_row of its final row: largest "
+            f"difference {s_max} PCM steps, {s_share:.4%} of samples differ")
+        gen = torch.Generator(device=dev).manual_seed(12)
+        others = [torch.randn(row.shape, generator=gen, device=dev) for _ in range(3)]
+        batch = engine._vocode_rows(torch.stack([row] + others), [n, 40, 150, 96], [spk] * 4)
+        b_max, b_share = pcm_diff(batch[0], full)
+        say(f"  the row in a batch of 4 (n = {n}, 40, 150, 96) against alone: largest "
+            f"difference {b_max} PCM steps, {b_share:.4%} of samples differ")
+        if len(segs) < 2 or s_max or b_max:
+            raise AssertionError(f"streaming exactness: {len(segs)} segments, stream "
+                                 f"{s_max} steps, batch {b_max} steps")
+
+        t0 = time.perf_counter()
+        tts.warmup(text="Hello world, this is a test of speech. The quick brown fox jumps "
+                        "over the lazy dog.")
+        say(f"  TTS.warmup (two sentences) completed in {time.perf_counter() - t0:.1f} s ({smi})")
+        bf16 = {name: w["wrapper"].launches for name, w in KERNELS.items()}
+        tts.loop.run_until_complete(tts.shutdown())
+        del tts, engine
+    say(f"  launches during the bf16 streaming drive: {bf16}")
+    for name in BF16_PATH:
+        if bf16[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by phase 4f's bf16 drive")
+    return bf16
+
+
 def write_voice(tmp: str) -> str:
     """A 6 s sine reference voice at 22.05 kHz."""
     sr = 22050
@@ -1542,13 +1784,13 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
 
-    say("[1] device")
+    phase("[1] device")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     say(f"  torch {torch.__version__} cuda {torch.version.cuda}; device {kind}; "
         f"count {torch.cuda.device_count()}; nvidia-smi: {smi}")
 
-    say("[2] build")
+    phase("[2] build")
     t0 = time.perf_counter()
     lib = _build.library()
     say(f"  kernels built/loaded in {time.perf_counter() - t0:.1f} s "
@@ -1557,7 +1799,7 @@ def main() -> int:
     for line in kernel_resource_usage(lib._name):
         say(f"  K2/K4/K5 resources: {line}")
 
-    say("[3] kernels vs plain")
+    phase("[3] kernels vs plain")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     say(f"  plain side: torch.backends.cuda.matmul.allow_tf32="
@@ -1572,30 +1814,41 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     tokenizer = build_tokenizer(XTTSConfig().gpt.number_text_tokens)
-    say("[4] bf16 slice: full-width XTTSv2 on the TTS facade")
-    bf16 = run_slice(dev, smi, tokenizer, {"flash_decode": True, "prefill_flash": True}, {},
-                     BF16_PATH, "flash_decode_split_kernel", vocoder=True)
-    say("[4b] int8 slice: int8 KV, W8A8 prefill and decode, ragged decode attention")
-    # the int8 requests are capped at 300 tokens (13.9 s of audio) to keep
-    # the whole run's time with phase 4e near PR 5's
-    int8 = run_slice(dev, smi, tokenizer, {"prefill_flash": True, "ragged_decode": True},
-                     {"kv_int8": True, "decode_w8a8": True, "prefill_w8a8": True}, INT8_PATH,
-                     "ragged_decode_split_kernel", max_new_tokens=300)
-    say("[4c] dense int8 decode body with W8A8 decode")
+    phase("[4] bf16 slice: full-width XTTSv2 on the TTS facade")
+    # phase 4's requests are capped at 300 tokens (from the model's 605) to
+    # hold the whole run's length with phase 4f
+    bf16, _ = run_slice(dev, smi, tokenizer, {"flash_decode": True, "prefill_flash": True}, {},
+                        BF16_PATH, "flash_decode_split_kernel", vocoder=True,
+                        max_new_tokens=300)
+    phase("[4b] int8 slice: int8 KV, W8A8 prefill and decode, ragged decode attention")
+    # the int8 requests are capped at 200 tokens to hold the whole run's
+    # length with phases 4e and 4f, and phase 4f's int8 stream (100 tokens)
+    # runs on this engine
+    int8, int8_stream = run_slice(
+        dev, smi, tokenizer, {"prefill_flash": True, "ragged_decode": True},
+        {"kv_int8": True, "decode_w8a8": True, "prefill_w8a8": True}, INT8_PATH,
+        "ragged_decode_split_kernel", max_new_tokens=200, stream_tokens=100)
+    phase("[4c] dense int8 decode body with W8A8 decode")
     run_dense_int8(dev, tokenizer)
-    say("[4d] K5 path: the int8 slice's decode MLPs through the fused W8A8 kernel")
+    phase("[4d] K5 path: the int8 slice's decode MLPs through the fused W8A8 kernel")
     launches = {name: bf16[name] + int8[name] for name in KERNELS}
     launches["fused_mlp_w8"] = run_fused_mlp_path(dev)
     torch.cuda.empty_cache()
-    say("[4e] the runner at concurrency: burst inserts, slot bounds, migration, the pipelined "
+    phase("[4e] the runner at concurrency: burst inserts, slot bounds, migration, the pipelined "
         "runner, the W8A8 policy")
     conc = run_concurrency(dev, smi, tokenizer)
     for name in KERNELS:
         launches[name] += conc[name]
     torch.cuda.empty_cache()
-    say("[5] reference check: card vs CPU, f32, greedy")
+    phase("[4f] streaming: TTFA at concurrency 8, abandonment, stream and batch exactness, "
+        "warmup, int8")
+    stream = run_streaming(dev, smi, tokenizer)
+    for name in KERNELS:
+        launches[name] += stream[name] + int8_stream[name]
+    torch.cuda.empty_cache()
+    phase("[5] reference check: card vs CPU, f32, greedy")
     run_reference_check(dev, tokenizer)
-    say("[5b] int8 reference check: card vs CPU, int8 KV + W8A8, teacher-forced")
+    phase("[5b] int8 reference check: card vs CPU, int8 KV + W8A8, teacher-forced")
     run_int8_reference_check(dev)
 
     # launches per main-path unit: one K1 per GPT layer per prompt insert,

@@ -152,10 +152,6 @@ def test_cancelled_request_releases_its_slot(engines):
 
 
 def test_unported_paths_raise(engines):
-    _, torch_tts, wav = engines
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_tts.loop.run_until_complete(
-            torch_tts.tts_engine.get_generation_context(_req(TTSRequest, wav, "hi", stream=True)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         XTTSv2Engine.from_pretrained("/nonexistent")
     from auralis_tpu_torch.models.registry import get_model_factory
