@@ -28,8 +28,8 @@ arm is `w8a8_policy()`, which a caller hands to `DecodeEngine`. The slot
 count is fitted to the card's free memory after the weights
 (`_fit_slots_to_hbm`). Options the port lacks are dropped with a warning,
 except `tensor_parallel_size > 1`, which raises (ROADMAP.md, queue 1 item
-10). Not ported yet (ROADMAP.md, queue 1): checkpoint loading
-(`from_pretrained` raises). Not ported, by design:
+10). `from_pretrained` loads the dual-safetensors layout that
+`weights.convert_coqui_checkpoint` writes. Not ported, by design:
 `precompile_vocoder_buckets` and the hot/warming row-bucket sets
 (`serving_row_bucket`), which work around XLA compiles (`TTS.warmup` reaches
 them through `getattr` only), and the legacy embeds-prompt branch.
@@ -39,9 +39,11 @@ from __future__ import annotations
 import asyncio
 import dataclasses
 import hashlib
+import json
 import math
 import os
 import time
+from pathlib import Path
 from typing import Any, AsyncGenerator, List, Optional, Tuple, Union
 
 import numpy as np
@@ -64,7 +66,14 @@ from .config import XTTSConfig, XTTSGPTConfig, tiny_test_config
 from .gpt import quantize_decode_weights
 from .hifigan import RESBLOCK_KERNELS, hifigan_generator, interp_latents
 from .modules import conditioning_encoder, perceiver_resampler, speaker_encoder
-from .weights import params_from_numpy, random_init
+from .weights import (
+    find_artifact,
+    load_core_params,
+    load_gpt_params,
+    load_safetensors,
+    params_from_numpy,
+    random_init,
+)
 
 logger = setup_logger("xttsv2")
 
@@ -404,12 +413,50 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
 
     # -------------------------------------------------------- construction
     @classmethod
-    def from_pretrained(cls, pretrained_model_name_or_path: str, **kwargs) -> "XTTSv2Engine":
-        raise NotImplementedError(
-            "loading the XTTSv2 safetensors checkpoint is not ported yet (ROADMAP.md, "
-            "queue 1: 'checkpoint loading'); build with XTTSv2Engine.random_init or "
-            "pass params/core from weights.params_from_numpy"
-        )
+    def from_pretrained(cls, pretrained_model_name_or_path: str, *,
+                        gpt_model: Optional[str] = None,
+                        torch_dtype=None,  # accepted for API compat; ignored, as in JAX
+                        dtype: torch.dtype = torch.bfloat16, device="cuda",
+                        **kwargs) -> "XTTSv2Engine":
+        """Load from a local directory holding the dual-safetensors layout
+        (`convert_coqui_checkpoint`'s output): the configs from the root's
+        config.json, `xtts-v2.safetensors` under the root,
+        `gpt2_model.safetensors` and tokenizer.json under `gpt_model` or the
+        root. GPT weights in `dtype`, the core stack in f32. The KV cache
+        takes the constructor's `cache_dtype` (bf16 unless passed), as in the
+        JAX engine. Hub download is the facade's (`TTS._resolve_model_source`)."""
+        from ...frontend.tokenizer import TTSTokenizer  # needs `tokenizers`
+
+        root = Path(pretrained_model_name_or_path)
+        with open(root / "config.json") as f:
+            config = json.load(f)
+        hifi_config = XTTSConfig.from_dict(config)
+        gpt_config = XTTSGPTConfig.from_dict(config.get("gpt_config", {}))
+
+        core_file = find_artifact(root, ("xtts-v2.safetensors",))
+        gpt_root = Path(gpt_model) if gpt_model else root
+        gpt_file = find_artifact(gpt_root, ("gpt2_model.safetensors",))
+
+        tokenizer = None
+        for cand_dir in (gpt_root, root):
+            try:
+                tokenizer = TTSTokenizer.from_pretrained(str(cand_dir))
+                break
+            except FileNotFoundError:
+                continue
+        if tokenizer is None:
+            raise FileNotFoundError(f"tokenizer.json not found under {gpt_root} or {root}")
+
+        t0 = time.perf_counter()
+        core_np = load_core_params(load_safetensors(core_file), hifi_config)
+        gpt_np = load_gpt_params(load_safetensors(gpt_file), gpt_config)
+        gpt_np["text_wte"] = core_np["text_wte"]
+        gpt_np["text_wpe"] = core_np["text_wpe"]
+        params, core = params_from_numpy(gpt_np, core_np, device=device, dtype=dtype)
+        del gpt_np, core_np
+        logger.info("checkpoint load took %.1f s", time.perf_counter() - t0)
+        return cls(hifi_config, gpt_config, params=params, core=core, tokenizer=tokenizer,
+                   device=device, **kwargs)
 
     @classmethod
     def random_init(cls, config: Optional[XTTSConfig] = None, tokenizer=None,

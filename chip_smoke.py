@@ -71,7 +71,24 @@ Phases:
  5b. int8 reference check: the int8 engine of 4b teacher-forced through
     prefill and 32 decode steps on the card and on the CPU; logits and
     latents must agree to 25 dB SNR and greedy tokens wherever the top-2
-    logit margin is decisive.
+    logit margin is decisive;
+ 6. checkpoint and server: a Coqui-style .pth of the full-width model from
+    seeded random weights (export_coqui_state, in a temporary directory) is
+    converted by the port's CLI (python -m
+    auralis_tpu_torch.entrypoints.convert_checkpoint) in a subprocess;
+    load_gpt_params / load_core_params of the result must equal the
+    exported weights bit for bit. With a tokenizer and prefill_flash /
+    flash_decode added to its config.json, the server boots in this process
+    from the CLI's argv (build_parser, start_tts_engine, build_app) on an
+    ephemeral port of 127.0.0.1 and answers real HTTP: /health,
+    /v1/voices, one wav request, a wav and a flac request at once (the
+    flac one by a named voice), one SSE stream (bench.py's TTFA text, two
+    chunks), /metrics; each request capped at 100 tokens, each response
+    finite 24 kHz audio; K1, K2 and K3 must launch. Then the CLI
+    (python -m auralis_tpu_torch.entrypoints.oai_server --kv_int8) boots
+    in a subprocess on a sibling model directory whose config sets the
+    int8 path (kv_int8, ragged_decode, prefill_flash, W8A8), answers one
+    short request and must exit 0 on SIGINT.
 
 Each phase's header gives the seconds since the start. Any failure exits
 non-zero. Before the last line come the kernels JSON
@@ -81,6 +98,7 @@ script exits non-zero when no CUDA device is visible. JAX is never imported.
 from __future__ import annotations
 
 import asyncio
+import base64
 import ctypes
 import dataclasses
 import itertools
@@ -88,11 +106,14 @@ import json
 import math
 import os
 import shutil
+import signal
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -1768,6 +1789,469 @@ def run_streaming(dev, smi: str, tokenizer) -> dict:
     return bf16
 
 
+# ------------------------------------------------------ checkpoint and server
+# A Coqui-style state from seeded numpy weights: the JAX-free inverse of the
+# loaders (a copy of tests/helpers.py's, which imports the JAX package;
+# tests/test_torch_checkpoint.py holds the two equal).
+def export_coqui_state(gpt_params: dict, core: dict) -> dict:
+    """Invert the weight-loader transforms (weights.py:load_gpt_params /
+    load_core_params) to synthesize a Coqui-style flat state dict with the
+    original checkpoint's key names and torch tensor layouts. Used by the
+    golden round-trip test: random params -> Coqui .pth ->
+    convert_coqui_checkpoint -> from_pretrained must reproduce the params
+    bit-exactly (BN rows are emitted with mean=0 / var=1-eps so folding is
+    the identity)."""
+    st: dict = {}
+
+    def P(key, value):
+        st[key] = np.ascontiguousarray(np.asarray(value, np.float32))
+
+    def bn(prefix, scale, shift):
+        P(f"{prefix}.weight", scale)
+        P(f"{prefix}.bias", shift)
+        P(f"{prefix}.running_mean", np.zeros_like(np.asarray(scale)))
+        P(f"{prefix}.running_var", np.full_like(np.asarray(scale, np.float64), 1.0 - 1e-5))
+
+    inv1d = lambda w: np.transpose(np.asarray(w), (2, 1, 0))  # [K,I,O]->[O,I,K]
+    invT1d = lambda w: np.transpose(np.asarray(w), (1, 2, 0))[:, :, ::-1]  # ->[I,O,K]
+    inv2d = lambda w: np.transpose(np.asarray(w), (3, 2, 0, 1))  # [kh,kw,I,O]->[O,I,kh,kw]
+
+    g = gpt_params
+    P("gpt.mel_embedding.weight", g["wte"])
+    P("gpt.mel_pos_embedding.emb.weight", g["wpe"])
+    P("gpt.text_embedding.weight", g["text_wte"])
+    P("gpt.text_pos_embedding.emb.weight", g["text_wpe"])
+    P("gpt.mel_head.weight", np.asarray(g["mel_head_w"]).T)
+    P("gpt.mel_head.bias", g["mel_head_b"])
+    P("gpt.final_norm.weight", g["final_norm_scale"])
+    P("gpt.final_norm.bias", g["final_norm_bias"])
+    P("gpt.gpt.ln_f.weight", g["ln_f_scale"])
+    P("gpt.gpt.ln_f.bias", g["ln_f_bias"])
+    block_names = [
+        ("ln_1.weight", "ln1_scale"), ("ln_1.bias", "ln1_bias"),
+        ("attn.c_attn.weight", "attn_w"), ("attn.c_attn.bias", "attn_b"),
+        ("attn.c_proj.weight", "attn_proj_w"), ("attn.c_proj.bias", "attn_proj_b"),
+        ("ln_2.weight", "ln2_scale"), ("ln_2.bias", "ln2_bias"),
+        ("mlp.c_fc.weight", "fc_w"), ("mlp.c_fc.bias", "fc_b"),
+        ("mlp.c_proj.weight", "fc_proj_w"), ("mlp.c_proj.bias", "fc_proj_b"),
+    ]
+    n_layers = np.asarray(g["blocks"]["ln1_scale"]).shape[0]
+    for i in range(n_layers):
+        for torch_name, jax_name in block_names:
+            P(f"gpt.gpt.h.{i}.{torch_name}", np.asarray(g["blocks"][jax_name])[i])
+
+    ce = core["cond_encoder"]
+    P("gpt.conditioning_encoder.init.weight", np.asarray(ce["init_w"]).T[:, :, None])
+    P("gpt.conditioning_encoder.init.bias", ce["init_b"])
+    for i, b in enumerate(ce["blocks"]):
+        p = f"gpt.conditioning_encoder.attn.{i}"
+        P(f"{p}.norm.weight", b["norm_scale"])
+        P(f"{p}.norm.bias", b["norm_bias"])
+        P(f"{p}.qkv.weight", np.asarray(b["qkv_w"]).T[:, :, None])
+        P(f"{p}.qkv.bias", b["qkv_b"])
+        P(f"{p}.proj_out.weight", np.asarray(b["proj_w"]).T[:, :, None])
+        P(f"{p}.proj_out.bias", b["proj_b"])
+
+    pv = core["perceiver"]
+    P("gpt.conditioning_perceiver.latents", pv["latents"])
+    P("gpt.conditioning_perceiver.norm.gamma", pv["norm_gamma"])
+    for i, l in enumerate(pv["layers"]):
+        p = f"gpt.conditioning_perceiver.layers.{i}"
+        P(f"{p}.0.to_q.weight", np.asarray(l["attn"]["to_q"]).T)
+        P(f"{p}.0.to_kv.weight", np.asarray(l["attn"]["to_kv"]).T)
+        P(f"{p}.0.to_out.weight", np.asarray(l["attn"]["to_out"]).T)
+        P(f"{p}.1.0.weight", np.asarray(l["ff"]["w1"]).T)
+        P(f"{p}.1.0.bias", l["ff"]["b1"])
+        P(f"{p}.1.2.weight", np.asarray(l["ff"]["w2"]).T)
+        P(f"{p}.1.2.bias", l["ff"]["b2"])
+
+    se = core["speaker_encoder"]
+    sp = "hifigan_decoder.speaker_encoder"
+    P(f"{sp}.conv1.weight", inv2d(se["conv1_w"]))
+    P(f"{sp}.conv1.bias", se["conv1_b"])
+    bn(f"{sp}.bn1", se["bn1_scale"], se["bn1_shift"])
+    P(f"{sp}.attention.0.weight", np.asarray(se["att1_w"]).T[:, :, None])
+    P(f"{sp}.attention.0.bias", se["att1_b"])
+    bn(f"{sp}.attention.2", se["att_bn_scale"], se["att_bn_shift"])
+    P(f"{sp}.attention.3.weight", np.asarray(se["att2_w"]).T[:, :, None])
+    P(f"{sp}.attention.3.bias", se["att2_b"])
+    P(f"{sp}.fc.weight", np.asarray(se["fc_w"]).T)
+    P(f"{sp}.fc.bias", se["fc_b"])
+    for li in range(1, 5):
+        for j, blk in enumerate(se[f"layer{li}"]):
+            p = f"{sp}.layer{li}.{j}"
+            P(f"{p}.conv1.weight", inv2d(blk["conv1_w"]))
+            bn(f"{p}.bn1", blk["bn1_scale"], blk["bn1_shift"])
+            P(f"{p}.conv2.weight", inv2d(blk["conv2_w"]))
+            bn(f"{p}.bn2", blk["bn2_scale"], blk["bn2_shift"])
+            P(f"{p}.se.fc.0.weight", np.asarray(blk["se"]["fc1_w"]).T)
+            P(f"{p}.se.fc.0.bias", blk["se"]["fc1_b"])
+            P(f"{p}.se.fc.2.weight", np.asarray(blk["se"]["fc2_w"]).T)
+            P(f"{p}.se.fc.2.bias", blk["se"]["fc2_b"])
+            if "down_w" in blk:
+                P(f"{p}.downsample.0.weight", inv2d(blk["down_w"]))
+                bn(f"{p}.downsample.1", blk["down_bn_scale"], blk["down_bn_shift"])
+
+    hg = core["hifigan"]
+    hp = "hifigan_decoder.waveform_decoder"
+    P(f"{hp}.conv_pre.weight", inv1d(hg["conv_pre_w"]))
+    P(f"{hp}.conv_pre.bias", hg["conv_pre_b"])
+    P(f"{hp}.cond_layer.weight", np.asarray(hg["cond_w"]).T[:, :, None])
+    P(f"{hp}.cond_layer.bias", hg["cond_b"])
+    for i, u in enumerate(hg["ups"]):
+        P(f"{hp}.ups.{i}.weight", invT1d(u["w"]))
+        P(f"{hp}.ups.{i}.bias", u["b"])
+    for i, c in enumerate(hg["conds"]):
+        P(f"{hp}.conds.{i}.weight", np.asarray(c["w"]).T[:, :, None])
+        P(f"{hp}.conds.{i}.bias", c["b"])
+    for i, r in enumerate(hg["resblocks"]):
+        for group in ("convs1", "convs2"):
+            for j, cv in enumerate(r[group]):
+                P(f"{hp}.resblocks.{i}.{group}.{j}.weight", inv1d(cv["w"]))
+                P(f"{hp}.resblocks.{i}.{group}.{j}.bias", cv["b"])
+    P(f"{hp}.conv_post.weight", inv1d(hg["conv_post_w"]))
+    P("mel_stats", core["mel_stats"])
+    return st
+
+
+def leaf_pairs(got, want, path: str):
+    """(path, got leaf, want leaf) over two pytrees of one structure; a key
+    or length that differs raises."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise AssertionError(f"round trip: {path} keys differ")
+        for k in want:
+            yield from leaf_pairs(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, (list, tuple)):
+        if not isinstance(got, list) or len(got) != len(want):
+            raise AssertionError(f"round trip: {path} lengths differ")
+        for i, (g, w) in enumerate(zip(got, want)):
+            yield from leaf_pairs(g, w, f"{path}[{i}]")
+    else:
+        yield path, got, want
+
+
+def check_round_trip(gpt: dict, core: dict, gpt_np: dict, core_np: dict) -> int:
+    """The loaders' trees (load_gpt_params / load_core_params of the
+    converted artifacts) against the numpy trees the state was exported
+    from: every leaf f32 and bit-equal. The text embeddings and the final
+    norm travel through the core artifact. Returns the leaves compared."""
+    pairs = [*leaf_pairs(gpt, {k: v for k, v in gpt_np.items()
+                               if k not in ("text_wte", "text_wpe")}, "gpt"),
+             *leaf_pairs({k: core[k] for k in core_np}, core_np, "core"),
+             *((f"core.{k}", core[k], gpt_np[k])
+               for k in ("text_wte", "text_wpe", "final_norm_scale", "final_norm_bias"))]
+    for path, g, w in pairs:
+        if not (isinstance(g, np.ndarray) and g.dtype == np.float32 and g.shape == w.shape
+                and np.array_equal(g, w)):
+            raise AssertionError(f"round trip: {path} is not bit-equal to its source")
+    return len(pairs)
+
+
+SERVER_TOKENS = 100  # max_new_tokens of each phase-6 request
+CLI_TOKENS = 60  # the CLI boot's one short request
+INT8_CONFIG = {"kv_int8": True, "ragged_decode": True, "prefill_flash": True,
+               "decode_w8a8": True, "prefill_w8a8": True, "flash_decode": False}
+
+
+def mib(path: str) -> str:
+    return f"{os.path.getsize(path) / 2**20:.1f} MiB"
+
+
+def set_gpt_flags(root: str, flags: dict) -> None:
+    path = os.path.join(root, "config.json")
+    with open(path) as f:
+        cfg = json.load(f)
+    cfg["gpt_config"].update(flags)
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=2)
+
+
+def decode_audio(fmt: str, body: bytes) -> np.ndarray:
+    """A response body as finite 24 kHz samples (wav, flac or s16le PCM)."""
+    from auralis_tpu_torch.common import native_audio
+
+    if fmt == "flac":
+        if body[:4] != b"fLaC":
+            raise AssertionError("flac response without the fLaC magic")
+        audio, sr = native_audio.flac_decode(bytes(body))
+    elif fmt == "pcm":
+        audio, sr = np.frombuffer(body, dtype="<i2").astype(np.float32) / 32767, 24000
+    else:
+        audio, sr = audio_io.read_wav(body)
+    audio = np.asarray(audio)
+    if not (sr == 24000 and audio.size > 0 and np.isfinite(audio).all()):
+        raise AssertionError(f"{fmt} response: sr={sr}, {audio.size} samples, "
+                             f"finite={np.isfinite(audio).all()}")
+    return audio
+
+
+def speech_body(text: str, voice, fmt: str = "wav", max_new: int = SERVER_TOKENS, **kw) -> dict:
+    return {"input": text, "model": "xttsv2", "voice": voice, "response_format": fmt,
+            "language": "en", "max_new_tokens": max_new, **kw}
+
+
+async def post_speech(session, url: str, body: dict) -> tuple[np.ndarray, float]:
+    """One buffered /v1/audio/speech: (samples, wall seconds)."""
+    t0 = time.perf_counter()
+    async with session.post(f"{url}/v1/audio/speech", json=body) as resp:
+        payload = await resp.read()
+        if resp.status != 200:
+            raise AssertionError(f"/v1/audio/speech {body['response_format']}: HTTP "
+                                 f"{resp.status}: {payload[:300]!r}")
+    return decode_audio(body["response_format"], payload), time.perf_counter() - t0
+
+
+async def post_sse(session, url: str, body: dict) -> tuple[np.ndarray, float, float, int]:
+    """One streamed /v1/audio/speech (stream_format "sse"): (samples, seconds
+    to the first delta, wall seconds, deltas). The deltas must decode to
+    24 kHz PCM and be followed by exactly one speech.audio.done."""
+    t0 = time.perf_counter()
+    first, events = float("nan"), []
+    async with session.post(f"{url}/v1/audio/speech", json=body) as resp:
+        if resp.status != 200 or not resp.headers["Content-Type"].startswith("text/event-stream"):
+            raise AssertionError(f"SSE: HTTP {resp.status} {resp.headers.get('Content-Type')}: "
+                                 f"{(await resp.read())[:300]!r}")
+        async for raw in resp.content:
+            line = raw.decode().strip()
+            if not line.startswith("data:"):
+                continue
+            events.append(json.loads(line[len("data:"):]))
+            if events[-1].get("type") == "speech.audio.delta" and math.isnan(first):
+                first = time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    deltas = [e for e in events if e.get("type") == "speech.audio.delta"]
+    if not deltas or [e.get("type") for e in events[len(deltas):]] != ["speech.audio.done"] \
+            or any(e["sample_rate"] != 24000 for e in deltas):
+        raise AssertionError(f"SSE events: {[e.get('type') for e in events]}")
+    pcm = b"".join(base64.b64decode(e["audio"]) for e in deltas)
+    return decode_audio("pcm", pcm), first, wall, len(deltas)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def report(name: str, audio: np.ndarray, wall: float, smi: str) -> None:
+    secs = audio.size / 24000
+    say(f"  {name}: wall {wall:.2f} s, {secs:.2f} s audio, audio/wall {secs / wall:.2f} ({smi})")
+
+
+def serve_in_process(args_list: list, smi: str, wav_path: str) -> None:
+    """Boot the server in this process from the CLI's argv (the port's
+    argparse, start_tts_engine, build_app), serve it with aiohttp on an
+    ephemeral port of 127.0.0.1 and send real HTTP over the socket."""
+    import aiohttp
+    from aiohttp import web
+
+    from auralis_tpu_torch.server.oai_server import (
+        build_app,
+        build_parser,
+        scan_voices_dir,
+        start_tts_engine,
+    )
+
+    args = build_parser().parse_args(args_list)
+    t0 = time.perf_counter()
+    tts = start_tts_engine(args)
+    torch.cuda.synchronize()
+    say(f"  in-process boot (TTS.from_pretrained through start_tts_engine): "
+        f"{time.perf_counter() - t0:.1f} s; engine {tts.tts_engine.decode_slots} slots, "
+        f"KV cache {tts.tts_engine.decode_engine.state.cache.k.dtype} ({smi})")
+    app = build_app(tts, voices=scan_voices_dir(args.voices_dir))
+    with open(wav_path, "rb") as f:
+        voice_b64 = base64.b64encode(f.read()).decode()
+    text1 = "Hello world, this is a test of speech."
+
+    async def drive():
+        runner = web.AppRunner(app)
+        await runner.setup()
+        site = web.TCPSite(runner, "127.0.0.1", 0)
+        await site.start()
+        url = "http://127.0.0.1:%d" % runner.addresses[0][1]
+        try:
+            async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
+                async with s.get(f"{url}/health") as r:
+                    health = await r.json()
+                if r.status != 200 or health != {"status": "ok", "engine_loaded": True}:
+                    raise AssertionError(f"/health: {r.status} {health}")
+                async with s.get(f"{url}/v1/voices") as r:
+                    voices = await r.json()
+                if voices != {"voices": ["alloy"]}:
+                    raise AssertionError(f"/v1/voices: {voices}")
+                audio, wall = await post_speech(s, url, speech_body(text1, [voice_b64]))
+                report("wav", audio, wall, smi)
+                (a1, w1), (a2, w2) = await asyncio.gather(
+                    post_speech(s, url, speech_body("The quick brown fox jumps over the dog.",
+                                                    [voice_b64])),
+                    post_speech(s, url, speech_body("One two three four five six seven.",
+                                                    "alloy", "flac")))
+                report("concurrent wav", a1, w1, smi)
+                report("concurrent flac (named voice)", a2, w2, smi)
+                audio, first, wall, n = await post_sse(s, url, speech_body(
+                    SENTENCE * 4, [voice_b64], stream_format="sse"))
+                report(f"sse ({n} deltas, first after {first * 1e3:.1f} ms)", audio, wall, smi)
+                async with s.get(f"{url}/metrics") as r:
+                    text = await r.text()
+            counters = {line.split()[0]: float(line.split()[1])
+                        for line in text.splitlines() if line and not line.startswith("#")}
+            say(f"  /metrics: {counters}")
+            if not (counters["auralis_audio_chunks_total"] >= 5
+                    and counters["auralis_audio_seconds_total"] > 0
+                    and counters["auralis_decode_inserts_total"] >= 5
+                    and counters["auralis_decode_slots"] == 8):
+                raise AssertionError(f"/metrics: {counters}")
+        finally:
+            await runner.cleanup()  # the app's cleanup shuts the engine down
+
+    asyncio.run(drive())
+    del tts, app
+
+
+def serve_cli(args_list: list, smi: str, tmp: str) -> None:
+    """Boot `python -m auralis_tpu_torch.entrypoints.oai_server` in a
+    subprocess, wait for /health, send one short request, then SIGINT: the
+    server must exit with 0. The process is killed if anything fails."""
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    log_path = os.path.join(tmp, "cli_server.log")
+    cmd = [sys.executable, "-m", "auralis_tpu_torch.entrypoints.oai_server", *args_list,
+           "--host", "127.0.0.1", "--port", str(port)]
+    say(f"  CLI: {' '.join(cmd[1:])}")
+    with open(log_path, "wb") as log:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(f"the CLI server exited with {proc.returncode} "
+                                         "before /health answered")
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError("the CLI server did not answer /health within 300 s")
+                try:
+                    with urllib.request.urlopen(f"{url}/health", timeout=5) as r:
+                        if json.loads(r.read()).get("engine_loaded"):
+                            break
+                except OSError:
+                    time.sleep(0.25)
+            boot = time.perf_counter() - t0
+            with open(os.path.join(tmp, "voice.wav"), "rb") as f:
+                body = speech_body("Hello from the command line.",
+                                   [base64.b64encode(f.read()).decode()], max_new=CLI_TOKENS)
+            req = urllib.request.Request(f"{url}/v1/audio/speech", data=json.dumps(body).encode(),
+                                         headers={"Content-Type": "application/json"})
+            t1 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=300) as r:
+                audio = decode_audio("wav", r.read())
+            wall = time.perf_counter() - t1
+            say(f"  CLI boot {boot:.1f} s (process start to the first healthy /health)")
+            report("CLI wav (int8 config)", audio, wall, smi)
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=120)
+            if rc != 0:
+                raise AssertionError(f"the CLI server exited with {rc} on SIGINT")
+            say(f"  CLI server exited with {rc} on SIGINT")
+        except BaseException:
+            with open(log_path, "rb") as f:
+                say("  CLI server log (tail):\n" + f.read()[-4000:].decode(errors="replace"))
+            raise
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def run_checkpoint_server(smi: str, tokenizer) -> dict:
+    """Phase 6: a full-width Coqui-style checkpoint from seeded random
+    weights is converted by the port's CLI, loaded back bit-equal, and
+    served over HTTP, in this process (bf16: K1, K2, K3) and by the CLI in a
+    subprocess (int8: K1, K4, K3). Returns the kernel launches of the
+    in-process server."""
+    from auralis_tpu_torch.frontend.tokenizer import TTSTokenizer
+    from auralis_tpu_torch.models.xttsv2.weights import (
+        find_artifact,
+        load_core_params,
+        load_gpt_params,
+        load_safetensors,
+    )
+
+    if not isinstance(tokenizer, TTSTokenizer):
+        raise AssertionError("phase 6 saves a tokenizer.json: it needs the `tokenizers` package")
+    cfg = XTTSConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        gpt_np, core_np = random_init(cfg, seed=0)
+        state = export_coqui_state(gpt_np, core_np)
+        pth = os.path.join(tmp, "model.pth")
+        torch.save({"model": {k: torch.from_numpy(v) for k, v in state.items()}}, pth)
+        say(f"  export: {len(state)} tensors, {sum(v.nbytes for v in state.values()) / 2**30:.2f} "
+            f"GiB f32, model.pth {mib(pth)}, {time.perf_counter() - t0:.1f} s")
+        del state
+
+        out = os.path.join(tmp, "converted")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "auralis_tpu_torch.entrypoints.convert_checkpoint", pth, out],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        if proc.returncode != 0:
+            raise AssertionError(f"convert_checkpoint exited {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+        gpt_dir, core_dir = os.path.join(out, "gpt"), os.path.join(out, "core_xttsv2")
+        gpt_file = str(find_artifact(gpt_dir, ("gpt2_model.safetensors",)))
+        core_file = str(find_artifact(core_dir, ("xtts-v2.safetensors",)))
+        say(f"  convert (CLI subprocess): {time.perf_counter() - t0:.1f} s; "
+            f"gpt2_model.safetensors {mib(gpt_file)}, xtts-v2.safetensors {mib(core_file)}")
+        os.remove(pth)
+        with open(os.path.join(gpt_dir, "config.json")) as f:
+            arch = json.load(f)
+        for key in ("hidden_size", "num_hidden_layers", "num_attention_heads", "n_inner",
+                    "num_audio_tokens", "start_audio_token", "stop_audio_token",
+                    "max_audio_tokens"):
+            if arch[key] != getattr(cfg.gpt, key):
+                raise AssertionError(f"converted config: {key} {arch[key]} != "
+                                     f"{getattr(cfg.gpt, key)}")
+
+        t0 = time.perf_counter()
+        gpt = load_gpt_params(load_safetensors(gpt_file), cfg.gpt)
+        core = load_core_params(load_safetensors(core_file), cfg)
+        t_load = time.perf_counter() - t0
+        n = check_round_trip(gpt, core, gpt_np, core_np)
+        say(f"  round trip: load_gpt_params + load_core_params {t_load:.1f} s; {n} leaves "
+            f"bit-equal to the exported weights")
+        del gpt, core, gpt_np, core_np
+
+        tokenizer.save(os.path.join(gpt_dir, "tokenizer.json"))
+        set_gpt_flags(core_dir, {"prefill_flash": True, "flash_decode": True})
+        voices = os.path.join(tmp, "voices")
+        os.makedirs(voices)
+        wav_path = write_voice(tmp)
+        shutil.copy(wav_path, os.path.join(voices, "alloy.wav"))
+
+        for w in KERNELS.values():
+            w["wrapper"].launches = 0
+        serve_in_process(["--model", core_dir, "--gpt_model", gpt_dir, "--max_concurrency", "4",
+                          "--decode_slots", "8", "--voices_dir", voices], smi, wav_path)
+        launches = {name: w["wrapper"].launches for name, w in KERNELS.items()}
+        say(f"  launches during the in-process server: {launches}")
+        for name in BF16_PATH:
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched by phase 6's server")
+        torch.cuda.empty_cache()
+
+        int8_dir = os.path.join(tmp, "int8")
+        os.makedirs(int8_dir)
+        shutil.copy(os.path.join(core_dir, "config.json"), int8_dir)
+        set_gpt_flags(int8_dir, INT8_CONFIG)
+        os.symlink(core_file, os.path.join(int8_dir, "xtts-v2.safetensors"))
+        serve_cli(["--model", int8_dir, "--gpt_model", gpt_dir, "--kv_int8",
+                   "--max_concurrency", "2", "--decode_slots", "4"], smi, tmp)
+    return launches
+
+
 def write_voice(tmp: str) -> str:
     """A 6 s sine reference voice at 22.05 kHz."""
     sr = 22050
@@ -1850,6 +2334,12 @@ def main() -> int:
     run_reference_check(dev, tokenizer)
     phase("[5b] int8 reference check: card vs CPU, int8 KV + W8A8, teacher-forced")
     run_int8_reference_check(dev)
+    torch.cuda.empty_cache()
+    phase("[6] checkpoint and server: convert a full-width Coqui checkpoint, load it back, "
+          "serve it over HTTP in-process (bf16) and from the CLI (int8)")
+    served = run_checkpoint_server(smi, tokenizer)
+    for name in KERNELS:
+        launches[name] += served[name]
 
     # launches per main-path unit: one K1 per GPT layer per prompt insert,
     # one K2/K4 (and K5 on its path) per layer per decode step, one K3 per

@@ -152,11 +152,18 @@ def test_cancelled_request_releases_its_slot(engines):
 
 
 def test_unported_paths_raise(engines):
+    """Tensor parallelism (ROADMAP.md, queue 1 item 10) is the engine's
+    unported path: it raises. Checkpoint loading is ported: the registry's
+    "xtts" factory reaches from_pretrained, which looks for the root's
+    config.json (tests/test_torch_checkpoint.py loads real artifacts)."""
+    _, torch_tts, _ = engines
+    eng = torch_tts.tts_engine
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        XTTSv2Engine.from_pretrained("/nonexistent")
+        XTTSv2Engine(eng.hifi_config, eng.gpt_config, params=eng.params, core=eng.core,
+                     max_concurrency=1, device="cpu", tensor_parallel_size=2)
     from auralis_tpu_torch.models.registry import get_model_factory
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # registered as "xtts"
+    with pytest.raises(FileNotFoundError, match="config.json"):
         get_model_factory("xtts")("/nonexistent")
 
 
