@@ -29,10 +29,19 @@ count is fitted to the card's free memory after the weights
 (`_fit_slots_to_hbm`). Options the port lacks are dropped with a warning,
 except `tensor_parallel_size > 1`, which raises (ROADMAP.md, queue 1 item
 10). `from_pretrained` loads the dual-safetensors layout that
-`weights.convert_coqui_checkpoint` writes. Not ported, by design:
-`precompile_vocoder_buckets` and the hot/warming row-bucket sets
-(`serving_row_bucket`), which work around XLA compiles (`TTS.warmup` reaches
-them through `getattr` only), and the legacy embeds-prompt branch.
+`weights.convert_coqui_checkpoint` writes.
+
+On the card every vocoder batch of the batcher replays a captured CUDA
+graph (runtime/graphs.py), one per (kind, row bucket, exact batch size), the
+counterpart of the JAX engine's jitted `_vocode_row_fn(bucket)`,
+`_vocode_seg_fn` and `_vocode_seg_first_fn`; its decode blocks replay the
+runner's. A key's first call runs eagerly and is captured after it;
+`precompile_vocoder_buckets` and `precompile_decode_programs`, which
+`TTS.warmup()` calls, capture every key before serving. The eager functions
+(`_vocode_rows`, `_vocode_seg`, `_vocode_seg_first`) stay the reference and
+the CPU path. Not ported, by design: the hot/warming row-bucket sets
+(`serving_row_bucket`), which keep XLA compiles off the serving path, and
+the legacy embeds-prompt branch.
 """
 from __future__ import annotations
 
@@ -61,6 +70,7 @@ from ...ops.mel import wav_to_mel_cloning
 from ...ops.mrf import pack_hifigan_mrf
 from ...ops.resample import resample_np
 from ...runtime.engine_core import DecodeEngine, SamplingOptions, TokenPrompt
+from ...runtime.graphs import Program, ProgramCache
 from ..base import BaseAsyncTTSEngine, ConditioningConfig
 from .config import XTTSConfig, XTTSGPTConfig, tiny_test_config
 from .gpt import quantize_decode_weights
@@ -113,10 +123,11 @@ class _VocodeBatcher:
     runner, so a vocode is ordered after the block whose latents it reads.
 
     Unlike the JAX batcher, a batch is not padded to a fixed size (its
-    `_pad`): there each batch size is its own compiled program, here nothing
-    is compiled, and the MRF stages (kernel K3) are bound by operations on
-    the H100 (PERF.md §6), so padding a lone segment to 4 lanes would cost
-    about 4x its vocoder time."""
+    `_pad`): here too each batch size is its own captured program, but the
+    MRF stages (kernel K3) are bound by operations on the H100 (PERF.md
+    §6), so padding a lone segment to 4 lanes would cost about 4x its
+    vocoder time, and a program per exact batch size (8 + 4 + 4 per row
+    bucket) costs only capture time."""
 
     MAX_BATCH = 4
     SEG_FIRST_MAX_BATCH = 8
@@ -185,19 +196,20 @@ class _VocodeBatcher:
     @torch.no_grad()
     def _run_batch(self, kind: str, items: list) -> list:
         eng = self.engine
-        rows = torch.stack([it[0] for it in items])
+        rows = [it[0] for it in items]
         ns = [int(it[1]) for it in items]
         if kind == "row":  # (row, n, g)
-            return eng._vocode_rows(rows, ns, [it[2] for it in items])
+            return eng._trimmed(eng._vocode_batch("row", rows, ns, [it[2] for it in items],
+                                                  eng.row_bucket(max(ns))), ns)
         if kind == "seg_first":  # (row, n_mask, g): frames [0, FIRST_SEG_PF)
             with span("vocode.seg_first_device"):
-                pcm = eng._vocode_seg_first(rows, ns, [it[2] for it in items]).cpu().numpy()
+                pcm = eng._vocode_batch("seg_first", rows, ns, [it[2] for it in items])
             return [pcm[i, : FIRST_SEG_PF * 256].astype(np.float32) / 32767.0
                     for i in range(len(items))]
         # seg: (row, n_mask, emit_start_pf, emit_count_pf, g)
         starts = [eng._seg_slice_start(it[2]) for it in items]
         with span("vocode.seg_device"):
-            pcm = eng._vocode_seg(rows, ns, starts, [it[4] for it in items]).cpu().numpy()
+            pcm = eng._vocode_batch("seg", rows, ns, [it[4] for it in items], starts)
         outs = []
         for i, it in enumerate(items):
             offset = it[2] - starts[i]
@@ -335,6 +347,9 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         self.ref_length_quantum_s = float(ref_length_quantum_s)
         self._cond_cache: dict[str, tuple] = {}
         self._vocode_batcher = _VocodeBatcher(self)
+        # the batcher's vocoder programs, in a memory pool apart from the
+        # decode blocks'
+        self._vocoder_programs = ProgramCache(self.device)
         self.get_memory_usage_curve()
 
     # ----------------------------------------------------------- properties
@@ -676,8 +691,11 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
     def _speaker_rows(self, speaker_embeddings: list) -> torch.Tensor:
         """One d-vector per lane (host [1, 512] each) -> [B, 512] f32 on the
         engine's device."""
-        g = np.concatenate([np.asarray(e, np.float32).reshape(1, -1) for e in speaker_embeddings])
-        return torch.from_numpy(g).to(self.device)
+        return torch.from_numpy(_lane_floats(speaker_embeddings)).to(self.device)
+
+    def _lanes(self, values: list) -> torch.Tensor:
+        """Per-lane host ints -> [B] int64 on the engine's device."""
+        return torch.tensor(values, dtype=torch.int64).to(self.device)
 
     def _interp(self, latents: torch.Tensor) -> torch.Tensor:
         """Latents [B, T, D] f32 -> post-interp frames [B, D, T_pf]
@@ -703,24 +721,37 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         return torch.round(wav * 32767.0).to(torch.int16)
 
     @staticmethod
-    def _masked(rows: torch.Tensor, ns: list, cut: int, length: int) -> torch.Tensor:
+    def _masked(rows: torch.Tensor, n: torch.Tensor, cut: int, length: int) -> torch.Tensor:
         """rows [B, >= cut, D] -> f32 [B, length, D]: the first `cut` latents
-        with positions >= n[b] zeroed (stale slot data), zero-padded."""
+        with positions >= n[b] zeroed (stale slot data), zero-padded; n [B]
+        int64 on the rows' device."""
         x = rows[:, :cut].float()
-        n = torch.tensor(ns, dtype=torch.int64).to(x.device)[:, None, None]
-        x = torch.where(torch.arange(cut, device=x.device)[None, :, None] < n, x, 0.0)
+        x = torch.where(torch.arange(cut, device=x.device)[None, :, None] < n[:, None, None],
+                        x, 0.0)
         return F.pad(x, (0, 0, 0, length - cut)) if length > cut else x
+
+    def _rows_pcm(self, rows: torch.Tensor, n: torch.Tensor, g: torch.Tensor,
+                  bucket: int) -> torch.Tensor:
+        """The row vocoder at `bucket` on device inputs: rows [B, >= cut, D]
+        masked at n [B] and padded to the bucket, d-vectors g [B, 512] ->
+        16-bit PCM [B, bucket frames * 256] on the device."""
+        x = self._masked(rows, n, min(bucket, self.gpt_config.max_audio_tokens), bucket)
+        return self._pcm(self._generate(self._interp(x), g))
 
     @torch.no_grad()
     def _vocode_rows(self, rows: torch.Tensor, ns: list, speaker_embeddings: list) -> list:
         """The batched row vocoder: latent rows [B, T_audio, D] on the device,
         each with its own n live entries, masked and padded to the bucket of
         the largest n; returns each waveform trimmed to its true length (f32
-        on the host, from 16-bit PCM)."""
-        bucket = self.row_bucket(max(ns))
-        x = self._masked(rows, ns, min(bucket, self.gpt_config.max_audio_tokens), bucket)
-        pcm = self._pcm(self._generate(self._interp(x), self._speaker_rows(speaker_embeddings)))
-        pcm = pcm.cpu().numpy()
+        on the host, from 16-bit PCM). Eager: the batcher replays the
+        captured program instead (`_vocode_batch`)."""
+        return self._trimmed(self._rows_pcm(rows, self._lanes(ns),
+                                            self._speaker_rows(speaker_embeddings),
+                                            self.row_bucket(max(ns))).cpu().numpy(), ns)
+
+    def _trimmed(self, pcm: np.ndarray, ns: list) -> list:
+        """Row-vocoder PCM [B, samples] -> each lane's waveform cut to the
+        true length of its n latents, f32."""
         return [pcm[i, : self._true_wav_len(n)].astype(np.float32) / 32767.0
                 for i, n in enumerate(ns)]
 
@@ -758,33 +789,142 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
     def _bucket_pf(self) -> int:
         return self._total_pf(self._seg_bucket)
 
+    def _seg_pcm(self, rows: torch.Tensor, n: torch.Tensor, starts: torch.Tensor,
+                 g: torch.Tensor) -> torch.Tensor:
+        """The segment vocoder on device inputs: interp each whole masked row
+        as the full-row vocoder does (at `_seg_bucket`), gather one [start,
+        start + PAD_PF + SEG_PF + PAD_PF) frame window per lane (starts [B]
+        int64) and run the generator on the windows. With PAD_PF >= the
+        generator's receptive field, a window's centre equals the full-row
+        output sample for sample. Returns 16-bit PCM [B, window * 256] on
+        the device."""
+        slice_len = PAD_PF + SEG_PF + PAD_PF
+        z = self._interp(self._masked(rows, n, self.gpt_config.max_audio_tokens,
+                                      self._seg_bucket))
+        idx = starts[:, None] + torch.arange(slice_len, device=z.device)[None, :]
+        zs = torch.gather(z, 2, idx[:, None, :].expand(-1, z.shape[1], -1))
+        return self._pcm(self._generate(zs, g))
+
     @torch.no_grad()
     def _vocode_seg(self, rows: torch.Tensor, ns: list, slice_starts: list,
                     speaker_embeddings: list) -> torch.Tensor:
-        """The segment vocoder: interp each whole masked row as the full-row
-        vocoder does (at `_seg_bucket`), cut one [start, start + PAD_PF +
-        SEG_PF + PAD_PF) frame window per lane and run the generator on the
-        windows. With PAD_PF >= the generator's receptive field, a window's
-        centre equals the full-row output sample for sample. Returns 16-bit
-        PCM [B, window * 256] on the device."""
-        t_max = self.gpt_config.max_audio_tokens
-        slice_len = PAD_PF + SEG_PF + PAD_PF
-        z = self._interp(self._masked(rows, ns, t_max, self._seg_bucket))
-        zs = torch.stack([z[i, :, s:s + slice_len] for i, s in enumerate(slice_starts)])
-        return self._pcm(self._generate(zs, self._speaker_rows(speaker_embeddings)))
+        """`_seg_pcm` on latent rows [B, T_audio, D] on the device and host
+        per-lane n, window starts and d-vectors. Eager: the batcher replays
+        the captured program instead (`_vocode_batch`)."""
+        return self._seg_pcm(rows, self._lanes(ns), self._lanes(slice_starts),
+                             self._speaker_rows(speaker_embeddings))
+
+    def _seg_first_pcm(self, rows: torch.Tensor, n: torch.Tensor,
+                       g: torch.Tensor) -> torch.Tensor:
+        """The first-segment vocoder on device inputs: frames [0,
+        FIRST_SEG_PF) from a head window. The interp's index map does not
+        depend on the length, so the interp of only the first min(64, t_max)
+        latents, cut to FIRST_SEG_PF + PAD_PF frames, equals the full row's
+        leading frames; ~3x less generator work than a segment window, on
+        the time-to-first-audio path. Returns 16-bit PCM [B, window * 256]
+        on the device."""
+        head = min(64, self.gpt_config.max_audio_tokens)
+        z = self._interp(self._masked(rows, n, head, head))[..., : FIRST_SEG_PF + PAD_PF]
+        return self._pcm(self._generate(z, g))
 
     @torch.no_grad()
     def _vocode_seg_first(self, rows: torch.Tensor, ns: list,
                           speaker_embeddings: list) -> torch.Tensor:
-        """The first-segment vocoder: frames [0, FIRST_SEG_PF) from a head
-        window. The interp's index map does not depend on the length, so the
-        interp of only the first min(64, t_max) latents, cut to FIRST_SEG_PF
-        + PAD_PF frames, equals the full row's leading frames; ~3x less
-        generator work than a segment window, on the time-to-first-audio
-        path. Returns 16-bit PCM [B, window * 256] on the device."""
-        head = min(64, self.gpt_config.max_audio_tokens)
-        z = self._interp(self._masked(rows, ns, head, head))[..., : FIRST_SEG_PF + PAD_PF]
-        return self._pcm(self._generate(z, self._speaker_rows(speaker_embeddings)))
+        """`_seg_first_pcm` on latent rows [B, T_audio, D] on the device and
+        host per-lane n and d-vectors. Eager: the batcher replays the
+        captured program instead (`_vocode_batch`)."""
+        return self._seg_first_pcm(rows, self._lanes(ns), self._speaker_rows(speaker_embeddings))
+
+    def _vocoder_program(self, kind: str, b: int, bucket: Optional[int] = None) -> Program:
+        """The captured vocoder program of (kind, row bucket, B), the JAX
+        engine's `_vocode_row_fn(bucket)` / `_vocode_seg_fn` /
+        `_vocode_seg_first_fn` at batch B: static inputs rows [B, the
+        latents it reads, D] f32, n [B] int64, g [B, d_vector] f32 and, for
+        "seg", the window starts [B] int64."""
+        def build():
+            t_max, dev = self.gpt_config.max_audio_tokens, self.device
+            width = {"row": min(bucket or t_max, t_max), "seg": t_max,
+                     "seg_first": min(64, t_max)}[kind]
+            inp = {"rows": torch.zeros((b, width, self.gpt_config.hidden_size),
+                                       dtype=torch.float32, device=dev),
+                   "n": torch.ones((b,), dtype=torch.int64, device=dev),
+                   "g": torch.zeros((b, self.hifi_config.d_vector_dim), dtype=torch.float32,
+                                    device=dev)}
+            if kind == "row":
+                fn = lambda: self._rows_pcm(inp["rows"], inp["n"], inp["g"], bucket)  # noqa: E731
+            elif kind == "seg":
+                inp["starts"] = torch.zeros((b,), dtype=torch.int64, device=dev)
+                fn = lambda: self._seg_pcm(inp["rows"], inp["n"], inp["starts"], inp["g"])  # noqa: E731
+            else:
+                fn = lambda: self._seg_first_pcm(inp["rows"], inp["n"], inp["g"])  # noqa: E731
+            return fn, inp
+
+        return self._vocoder_programs.get((kind, bucket, b), build)
+
+    @torch.no_grad()
+    def _vocode_batch(self, kind: str, rows: list, ns: list, speaker_embeddings: list,
+                      arg=None) -> np.ndarray:
+        """One batch of the vocode batcher as 16-bit PCM [B, samples] on the
+        host: kind "row" (`arg`: the row bucket), "seg" (`arg`: each lane's
+        window start) or "seg_first"; rows are device latent rows [T_audio,
+        D]. On the card the batch replays the captured program of its kind,
+        bucket and exact B: its inputs are staged into the program's static
+        tensors and its output copied to the host under the program's lock
+        (up to MAX_INFLIGHT batches run in threads at once). On the CPU the
+        eager functions run."""
+        if not self._vocoder_programs.captures:
+            stacked = torch.stack(rows)
+            if kind == "row":
+                pcm = self._rows_pcm(stacked, self._lanes(ns),
+                                     self._speaker_rows(speaker_embeddings), arg)
+            elif kind == "seg":
+                pcm = self._vocode_seg(stacked, ns, arg, speaker_embeddings)
+            else:
+                pcm = self._vocode_seg_first(stacked, ns, speaker_embeddings)
+            return pcm.cpu().numpy()
+        prog = self._vocoder_program(kind, len(rows), arg if kind == "row" else None)
+        inp = prog.inputs
+        with prog.lock:
+            width = inp["rows"].shape[1]
+            for lane, row in zip(inp["rows"], rows):
+                lane.copy_(row[:width])
+            _upload(inp["n"], np.asarray(ns, np.int64))
+            _upload(inp["g"], _lane_floats(speaker_embeddings))
+            if kind == "seg":
+                _upload(inp["starts"], np.asarray(arg, np.int64))
+            return prog().cpu().numpy()
+
+    def precompile_vocoder_buckets(self) -> None:
+        """Capture every vocoder program the batcher can run before serving
+        (the JAX engine's precompile of its row buckets and streaming
+        programs): the first segment at B = 1..SEG_FIRST_MAX_BATCH, the
+        segment window at B = 1..MAX_BATCH, and the row vocoder in every
+        bucket `row_bucket` can return at B = 1..MAX_BATCH. Each key's
+        first call runs once on zero rows and is captured; the call drains
+        its work before it returns. On the CPU nothing is captured."""
+        if not self._vocoder_programs.captures:
+            return
+        t0 = time.perf_counter()
+        t_max = self.gpt_config.max_audio_tokens
+        buckets = sorted({self.row_bucket(n) for n in range(1, t_max + 1)})
+        keys = ([("seg_first", b, None) for b in range(1, _VocodeBatcher.SEG_FIRST_MAX_BATCH + 1)]
+                + [("seg", b, None) for b in range(1, _VocodeBatcher.MAX_BATCH + 1)]
+                + [("row", b, bucket) for bucket in buckets
+                   for b in range(1, _VocodeBatcher.MAX_BATCH + 1)])
+        for kind, b, bucket in keys:
+            prog = self._vocoder_program(kind, b, bucket)
+            with prog.lock:
+                prog()
+        torch.cuda.synchronize(self.device)
+        logger.info("vocoder programs captured: %d in %.1f s", len(keys), time.perf_counter() - t0)
+
+    def precompile_decode_programs(self) -> None:
+        """Capture every decode block the runner can dispatch before serving
+        (`DecodeEngine.precompile`). The JAX engine also warms its insert
+        programs here (`precompile_inserts`); the port's inserts run eagerly
+        (they write sampling rows from host scalars), and their programs
+        are to be added at this point."""
+        self.decode_engine.precompile()
 
     def _seg_slice_start(self, emit_start_pf: int) -> int:
         slice_len = PAD_PF + SEG_PF + PAD_PF
@@ -918,6 +1058,19 @@ def _unpack_handle(handle) -> tuple:
     if isinstance(handle, tuple):
         return (tuple(handle) + (None, None))[:3]
     return handle, None, None
+
+
+def _lane_floats(speaker_embeddings: list) -> np.ndarray:
+    """One d-vector per lane (host [1, 512] each) -> [B, 512] f32."""
+    return np.concatenate([np.asarray(e, np.float32).reshape(1, -1) for e in speaker_embeddings])
+
+
+def _upload(dst: torch.Tensor, values: np.ndarray) -> None:
+    """Copy host values into a static tensor; into a device tensor without a
+    host sync, through pinned memory that the copy keeps alive until it has
+    run."""
+    src = torch.from_numpy(values)
+    dst.copy_(src.pin_memory() if dst.is_cuda else src, non_blocking=True)
 
 
 def _nbytes(tree) -> int:

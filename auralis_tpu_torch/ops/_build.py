@@ -13,6 +13,7 @@ Every C entry point takes raw device pointers and the CUDA stream as
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -142,6 +143,33 @@ def _build(so: Path) -> None:
 def check(code: int, name: str) -> None:
     if code != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {code}")
+
+
+_capturing = threading.local()
+
+
+def count_launch(wrapper) -> None:
+    """Count one launch of `wrapper`'s kernel in `wrapper.launches`. While
+    this thread captures a CUDA graph (`tally_launches`), the launch goes
+    into the capture's tally instead: a capture runs nothing, and each
+    replay of the graph adds the tally (runtime/graphs.py)."""
+    tally = getattr(_capturing, "tally", None)
+    if tally is None:
+        wrapper.launches += 1
+    else:
+        tally[wrapper] = tally.get(wrapper, 0) + 1
+
+
+@contextlib.contextmanager
+def tally_launches():
+    """Within the block, this thread's kernel launches are tallied in the
+    yielded dict {wrapper: count} and not counted on the wrappers."""
+    tally: dict = {}
+    _capturing.tally = tally
+    try:
+        yield tally
+    finally:
+        _capturing.tally = None
 
 
 def stream_ptr(device) -> ctypes.c_void_p:

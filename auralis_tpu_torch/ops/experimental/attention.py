@@ -162,7 +162,7 @@ def flash_decode_append_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: t
         ),
         "flash_decode_append",
     )
-    flash_decode_append_attention.launches += 1
+    _build.count_launch(flash_decode_append_attention)
     return ctx
 
 
@@ -253,7 +253,7 @@ def ragged_decode_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.T
         ),
         "ragged_decode",
     )
-    ragged_decode_attention.launches += 1
+    _build.count_launch(ragged_decode_attention)
     return ctx
 
 

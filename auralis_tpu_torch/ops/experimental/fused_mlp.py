@@ -151,7 +151,7 @@ def fused_mlp_w8(x: torch.Tensor, fc_wq: torch.Tensor, fc_ws: torch.Tensor,
         ),
         "fused_mlp_w8",
     )
-    fused_mlp_w8.launches += 1
+    _build.count_launch(fused_mlp_w8)
     return out
 
 

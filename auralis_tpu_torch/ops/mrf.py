@@ -145,7 +145,7 @@ def run_fused_stage(x: torch.Tensor, stage: PackedMRFStage) -> torch.Tensor:
                                    src_f32, stream),
                 "mrf_conv_lrelu",
             )
-            run_fused_stage.launches += 1
+            _build.count_launch(run_fused_stage)
             if it < n_it - 1:
                 epilogue = 0
             else:
@@ -157,7 +157,7 @@ def run_fused_stage(x: torch.Tensor, stage: PackedMRFStage) -> torch.Tensor:
                                       src_f32, epilogue, int(ch == 0), n_chains, stream),
                 "mrf_conv_residual",
             )
-            run_fused_stage.launches += 1
+            _build.count_launch(run_fused_stage)
     return out
 
 

@@ -75,7 +75,7 @@ def prefill_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ),
         "prefill_attention",
     )
-    prefill_flash_attention.launches += 1
+    _build.count_launch(prefill_flash_attention)
     return out
 
 

@@ -35,16 +35,21 @@ What the runner does, as the JAX one does:
   right after each block is issued, before its status is read (the engine
   launches the speculative first segment from it).
 
-Device work runs in a worker thread (`asyncio.to_thread`): the port issues
-every op eagerly, and issuing a block's ops takes host time, so the event
-loop keeps serving other coroutines while a block is issued. The decode
+Device work runs in a worker thread (`asyncio.to_thread`), so the event loop
+keeps serving other coroutines while a pass is issued. On the card each
+decode block is one captured CUDA graph per (n_steps, len_bound,
+slot_bound) (runtime/graphs.py; the config follows from the two bounds),
+the counterpart of the JAX runner's jitted `decode_steps_status`: a key's
+first block runs eagerly and is captured after it, and `precompile()`
+captures the whole key set before serving. The inserts and the status copy
+are issued eagerly; on the CPU everything is. The decode
 state is updated in place, so every latent row handed out (snapshot, hook
 row, harvested row) is an independent device copy taken under
 `_state_lock` on the one CUDA stream every thread issues to: it is ordered
 after the block whose latents it reads and before any later release or
 refill of the slot. Prompts are TokenPrompts only: the JAX runner's legacy
 embeds-prompt branch (an uploaded [T, D] embedding matrix per chunk) is not
-on the port's path. Not ported: precompile (JAX AOT workarounds).
+on the port's path.
 """
 from __future__ import annotations
 
@@ -74,6 +79,7 @@ from .decode_loop import (
     release_slots,
     unpack_status,
 )
+from .graphs import ProgramCache
 
 logger = setup_logger("engine")
 
@@ -206,6 +212,10 @@ class DecodeEngine:
             # full width
             "insert_batches": 0, "slot_bound_blocks": 0,
         }
+        # the captured decode blocks, whose static inputs are this state's
+        # tensors (a new state gets a new cache)
+        self._programs = ProgramCache(self.device, (self.state.generator,))
+        self._programs_state = self.state
         self._runner: Optional[asyncio.Task] = None
         self._wake = asyncio.Event()
         self._loop: Optional[asyncio.AbstractEventLoop] = None
@@ -419,6 +429,59 @@ class DecodeEngine:
                 return b
         return None  # full length
 
+    def precompile_keys(self) -> list[tuple]:
+        """(n_steps, slot_bound, len_bound) of every decode block the runner
+        can dispatch, the JAX `DecodeEngine.precompile` set: the young and
+        the steady block lengths x (full width and, with slot bucketing, the
+        slot buckets) x (every LEN_BUCKET and full length)."""
+        step_set = sorted({min(self.stream_block_steps, self.steps_per_sync),
+                           self.steps_per_sync})
+        slot_set = [None] + (list(self._slot_buckets()) if self.slot_bucketing else [])
+        len_set = list(self.LEN_BUCKETS) + [None]
+        return [(n, sb, lb) for n in step_set for sb in slot_set for lb in len_set]
+
+    def precompile(self) -> None:
+        """Capture every decode block of `precompile_keys()` (the config of
+        each is `_cfg_for` of its bounds) before serving, so none is
+        captured mid-serving. Each key's first block runs eagerly over the
+        idle slots, which moves the counters of no slot (the KV row at each
+        idle slot's write position is rewritten, as by any block over idle
+        slots); the generator's state is restored afterwards, so sampled
+        trajectories do not shift. On the CPU nothing is captured."""
+        if self._slot_owner or self._queue:
+            raise RuntimeError("precompile must run before serving: it steps every slot")
+        if not self._programs.captures:
+            return
+        t0 = time.perf_counter()
+        with self._state_lock:
+            rng = self.state.generator.get_state()
+            keys = self.precompile_keys()
+            for n_steps, slot_bound, len_bound in keys:
+                self._decode_block(n_steps, len_bound, slot_bound, self._status_bufs[0])
+            self.state.generator.set_state(rng)
+        logger.info("decode blocks captured: %d in %.1f s", len(keys), time.perf_counter() - t0)
+
+    def _decode_block(self, n_steps: int, len_bound: int | None, slot_bound: int | None,
+                      host: torch.Tensor) -> None:
+        """Issue one decode block and the non-blocking copy of its packed
+        status into `host`: on the card the captured program of (n_steps,
+        len_bound, slot_bound), held under its lock until the copy is
+        issued; on the CPU `decode_steps_status` itself."""
+        cfg, state = self._cfg_for(len_bound, slot_bound), self.state
+
+        def block():
+            return decode_steps_status(self.params, cfg, state, n_steps, len_bound, slot_bound)
+
+        if not self._programs.captures:
+            host.copy_(block(), non_blocking=True)
+            return
+        if self._programs_state is not state:
+            self._programs = ProgramCache(self.device, (state.generator,))
+            self._programs_state = state
+        prog = self._programs.get((n_steps, len_bound, slot_bound), lambda: (block, {}))
+        with prog.lock:
+            host.copy_(prog(), non_blocking=True)
+
     def _own(self, pending: _Pending, slot: int) -> None:
         self._slot_owner[slot] = pending
         self._slot_meta[slot] = {"prompt_len": pending.prompt.length,
@@ -513,11 +576,9 @@ class DecodeEngine:
             st["insert_s"] += time.perf_counter() - t0
             t1 = time.perf_counter()
             slot_bound, len_bound = self._slot_bucket(), self._len_bucket()
-            packed = decode_steps_status(self.params, self._cfg_for(len_bound, slot_bound),
-                                         self.state, n_steps, len_bound, slot_bound)
             host = self._status_bufs[self._status_turn]
             self._status_turn ^= 1
-            host.copy_(packed, non_blocking=True)
+            self._decode_block(n_steps, len_bound, slot_bound, host)
             event = None
             if self.device.type == "cuda":
                 event = torch.cuda.Event()

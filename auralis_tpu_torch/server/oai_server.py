@@ -487,13 +487,14 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--warmup", action="store_true",
-        help="run a traffic pass (requests and a stream) through the engine "
-             "before accepting traffic (one-time boot cost)",
+        help="capture every serving program (decode blocks, vocoder programs) "
+             "on the card and run a traffic pass (requests and a stream) through "
+             "the engine before accepting traffic (one-time boot cost)",
     )
     parser.add_argument(
         "--no_precompile", action="store_true",
-        help="with --warmup: accepted for compatibility; the port compiles "
-             "no serving programs, so warmup is the traffic pass either way",
+        help="with --warmup: skip the up-front captures and run only the "
+             "traffic pass; programs it does not reach are captured at first use",
     )
     parser.add_argument(
         "--decode_slots", type=int, default=None,
@@ -560,7 +561,8 @@ def main(argv: Optional[list] = None) -> None:
     else:
         logger.warning(
             "Serving WITHOUT --warmup: the first requests pay the engine's "
-            "one-time costs (kernel build or load, allocator growth). "
+            "one-time costs (kernel build or load, graph captures, allocator "
+            "growth). "
             "Pass --warmup for production."
         )
     app = build_app(tts, voices=voices)

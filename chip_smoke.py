@@ -28,16 +28,20 @@ Phases:
  4. the bf16 slice: an XTTSv2Engine at the full XTTSConfig() width with
     seeded random bf16 weights and a bf16 KV cache behind the TTS facade
     answers three requests (one sync, two concurrent), each capped at 300
-    tokens; every waveform must be finite 24 kHz audio, and K1, K2 and K3
-    must launch during the phase;
-    then one 16-step decode block at 8 live slots is timed and profiled
+    tokens; every waveform must be finite 24 kHz audio, K1, K2 and K3
+    must launch during the phase and captured programs must replay (the
+    decode blocks and vocoder batches run as CUDA graphs on the card);
+    then the runner's 16-step and 13-step decode blocks at 8 live slots
+    are timed and profiled eagerly and as captured graphs, side by side
     (wall, device ms, K2 ms per step, device busy share), and one
-    605-latent chunk through the vocoder;
+    605-latent chunk and first-segment batches of 1 and 8 through the
+    vocoder, eagerly and as graphs;
  4b. the int8 slice: the same with an int8 KV cache, W8A8 prefill and
     decode matmuls and ragged decode attention, each request capped at 200
-    tokens; K1, K4 and K3 must launch; then phase 4f's int8 streaming
-    request (100 tokens) on the same engine, in which K1, K4 and K3 must
-    launch; one decode block is profiled as in 4 (K4 ms per step);
+    tokens; K1, K4 and K3 must launch and graphs replay; then phase 4f's
+    int8 streaming request (100 tokens) on the same engine, in which K1,
+    K4 and K3 must launch and graphs replay; the decode blocks are
+    profiled as in 4 (K4 ms per step);
  4c. the dense int8 decode body (no K4) with W8A8 decode, one short request
     each with bf16 and with requantised attention probabilities;
  4d. K5's path: the W8A8 MLP of every layer of the int8 engine at decode
@@ -53,7 +57,8 @@ Phases:
     facade request of 9 chunks (a batched insert, a finite waveform);
     then the int8 configuration's bounds and runner, and the dense int8
     body under the per-program W8A8 policy (its choice at every bound);
-    K2 and K3 (bf16) and K4 (int8) must launch in the runner drives;
+    K2 and K3 (bf16) and K4 (int8) must launch in the runner drives,
+    and graphs replay there;
  4f. streaming on the bf16 configuration with 16 slots: one solo
     streaming request, then 8 concurrent ones with bench.py's TTFA text
     (SENTENCE x 4, two chunks each, 120 tokens a chunk): time to first
@@ -61,9 +66,21 @@ Phases:
     7 of the 8 streams are closed after their first segment and every slot
     must drain; a greedy stream must give >= 2 segments that equal, to the
     16-bit PCM step, vocode_device_row of its final latent row, and that
-    row in a batch of 4 must equal the row alone; TTS.warmup() must
-    complete. K1, K2, K3 must launch. (Its int8 stream runs in 4b.) Phase
+    row in a batch of 4 must equal the row alone. The 8-stream burst runs
+    twice: first capturing its programs lazily while other threads issue,
+    then after TTS.warmup() (whose precompile hooks capture every decode
+    block and vocoder program; its time and memory are printed). K1, K2,
+    K3 must launch and graphs replay. (Its int8 stream runs in 4b.) Phase
     3 checks K3 at the streaming windows' shapes (STREAM_WINDOWS);
+ 4g. captured programs on fresh bf16 and int8 engines: the precompile
+    hooks' time, captures, capture and instantiation seconds and memory
+    reserved before and after; a 16-step and a 13-step block, greedy and
+    sampled (the generator's own draws), through the captured graph and
+    eagerly (`decode_steps_status`) from one cloned full-width state: every
+    state tensor (tokens, latents, KV rows and int8 scales, sampling rows,
+    counters), the packed status and the generator's state bit-equal; on
+    bf16 the vocoder programs (seg_first at B = 1, 8; seg at B = 1, 4; rows
+    in every bucket at B = 1, 4) 0 PCM steps from the eager functions;
  5. reference check: the same full-width engine in f32 answers one short
     greedy request on the card (through the kernels) and on the CPU
     (through their plain versions); tokens must be equal and waveforms
@@ -84,14 +101,18 @@ Phases:
     /v1/voices, one wav request, a wav and a flac request at once (the
     flac one by a named voice), one SSE stream (bench.py's TTFA text, two
     chunks), /metrics; each request capped at 100 tokens, each response
-    finite 24 kHz audio; K1, K2 and K3 must launch. Then the CLI
+    finite 24 kHz audio; K1, K2 and K3 must launch and graphs replay.
+    Then the CLI
     (python -m auralis_tpu_torch.entrypoints.oai_server --kv_int8) boots
     in a subprocess on a sibling model directory whose config sets the
     int8 path (kv_int8, ragged_decode, prefill_flash, W8A8), answers one
     short request and must exit 0 on SIGINT.
 
 Each phase's header gives the seconds since the start. Any failure exits
-non-zero. Before the last line come the kernels JSON
+non-zero. The kernels' launch counts include the launches of replayed
+graphs (each replay adds the launches its capture recorded). The eager
+reference on the card is the module functions (`decode_steps_status`,
+`_vocode_seg_first`, ...), which capture nothing. Before the last line come the kernels JSON
 object and the nvidia-smi line; the last is {"ok": true, "device": {...}}. There is no CPU path: the
 script exits non-zero when no CUDA device is visible. JAX is never imported.
 """
@@ -123,13 +144,20 @@ from auralis_tpu_torch import TTS, TTSRequest
 from auralis_tpu_torch.common import audio_io
 from auralis_tpu_torch.common.tracing import profile_summary
 from auralis_tpu_torch.models.xttsv2.config import XTTSConfig
-from auralis_tpu_torch.models.xttsv2.engine import FIRST_SEG_PF, PAD_PF, SEG_PF, XTTSv2Engine
+from auralis_tpu_torch.models.xttsv2.engine import (
+    FIRST_SEG_PF,
+    PAD_PF,
+    SEG_PF,
+    XTTSv2Engine,
+    _VocodeBatcher,
+)
 from auralis_tpu_torch.models.xttsv2.hifigan import (
     RESBLOCK_DILATIONS,
     RESBLOCK_KERNELS,
     UPSAMPLE_RATES,
 )
 from auralis_tpu_torch.models.xttsv2.gpt import (
+    KVCache,
     gpt_decode_step,
     gpt_prefill,
     gpt_prefill_batched,
@@ -137,7 +165,9 @@ from auralis_tpu_torch.models.xttsv2.gpt import (
     layer_norm,
     quantize_decode_weights,
 )
+from auralis_tpu_torch.runtime import graphs
 from auralis_tpu_torch.runtime.decode_loop import (
+    DecodeState,
     _assemble_prompt,
     decode_steps,
     decode_steps_status,
@@ -148,6 +178,7 @@ from auralis_tpu_torch.runtime.decode_loop import (
     pack_status,
 )
 from auralis_tpu_torch.runtime.engine_core import DecodeEngine, SamplingOptions, TokenPrompt
+from auralis_tpu_torch.runtime.sampler import SamplingState
 from auralis_tpu_torch.models.xttsv2.weights import (
     init_gpt_params,
     params_from_numpy,
@@ -918,93 +949,127 @@ def busy_ms(dev_events) -> float:
     return (busy + hi - lo) / 1e3
 
 
-def profile_decode(engine, smi: str, kernel: str) -> None:
-    """One block of `decode_steps` (the runner's 16 steps, then its one host
-    sync, the packed status) with every slot live at the phase-3 ragged
-    write positions: wall per step (host clock, median of 3 blocks), then one
-    block under torch.profiler for the device ms per step (sum of device
-    event times), the decode kernel's ms per step (device events whose name
-    holds `kernel`) and the device busy share (union of device intervals
-    over the profiled wall)."""
+def graphs_text(counts: dict) -> str:
+    return (f"{counts['captures']} captured ({counts['capture_s']:.2f} s capture, "
+            f"{counts['instantiate_s']:.2f} s instantiate), {counts['replays']} replays")
+
+
+def must_replay(what: str, counts: dict) -> None:
+    """The main path's decode blocks and vocoder batches replayed captured
+    graphs during `what`."""
+    if counts["replays"] <= 0:
+        raise AssertionError(f"no captured program was replayed during {what}: {counts}")
+
+
+def profile_run(fn, n_units: int, kernel: str | None = None, reps: int = 3) -> dict:
+    """fn() (which ends in a host sync) once to warm, `reps` times on the
+    host clock, then once under torch.profiler. Per unit: wall ms (median
+    of reps), the profiled run's wall, device ms (sum of device event
+    times), device ops and, with `kernel`, the ms and launches of device
+    events whose name holds it; busy is the union of the device intervals
+    over the profiled wall."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e3 / n_units)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof)
+    row = {"wall_ms": statistics.median(walls), "walls": walls, "prof_wall_ms": prof_wall / n_units}
+    if events:
+        row.update(device_ms=sum(e.time_range.elapsed_us() for e in events) / 1e3 / n_units,
+                   ops=len(events) / n_units, busy=busy_ms(events) / prof_wall)
+        if kernel:
+            row.update(kernel_ms=sum(e.time_range.elapsed_us() for e in events
+                                     if kernel in e.name) / 1e3 / n_units,
+                       kernel_n=sum(kernel in e.name for e in events) / n_units)
+    return row
+
+
+def profile_text(row: dict, unit: str, kernel: str | None = None) -> str:
+    walls = ", ".join(f"{w:.3f}" for w in row["walls"])
+    text = (f"wall {row['wall_ms']:.3f} ms per {unit} (median of {len(row['walls'])}: {walls}); "
+            f"profiled {row['prof_wall_ms']:.3f} ms wall per {unit}")
+    if "busy" not in row:
+        return text + "; the profiler saw no device events: device ms not measured"
+    text += (f", device {row['device_ms']:.3f} ms per {unit} in {row['ops']:.0f} device ops, "
+             f"device busy {row['busy']:.1%} under the profiler, device ms over the unprofiled "
+             f"wall {row['device_ms'] / row['wall_ms']:.1%}")
+    if kernel:
+        text += f", {kernel} {row['kernel_ms']:.4f} ms per {unit} ({row['kernel_n']:.0f} launches)"
+    return text
+
+
+def profile_decode(engine, smi: str, kernel: str) -> None:
+    """The runner's decode blocks (steps_per_sync steps, and the young
+    block's stream_block_steps) with every slot live at the phase-3 ragged
+    write positions, each then its packed status copied to the host and
+    waited for: eagerly (`decode_steps_status`, the module function) and as
+    the engine's captured program (`DecodeEngine._decode_block`), side by
+    side: wall per step, device ms per step, device ops, the decode
+    kernel's ms and the device busy share (profile_run)."""
     de = engine.decode_engine
-    st, n = de.state, de.steps_per_sync
+    st = de.state
     lens = torch.tensor(WRITE_POS_SETS["ragged"][:de.num_slots], dtype=torch.int32,
                         device=engine.device)
+    host = torch.empty((de.num_slots,), dtype=torch.int32, pin_memory=True)
 
-    def block():
+    def reset():
         st.seq_lens.copy_(lens)
         st.audio_pos.fill_(1)
         st.n_generated.zero_()
         st.active.fill_(True)
         st.done.fill_(False)
-        decode_steps(de.params, de.cfg, st, n)
-        return pack_status(st).cpu()
 
-    block()  # warm
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        block()
-        walls.append((time.perf_counter() - t0) * 1e3 / n)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        block()
-        prof_wall = (time.perf_counter() - t0) * 1e3
-    events = device_events(prof)
-    head = (f"  decode block: {n} steps x {de.num_slots} live slots (write_pos "
-            f"{lens.tolist()}), wall {statistics.median(walls):.3f} ms per step (median of 3: "
-            f"{', '.join(f'{w:.3f}' for w in walls)})")
-    if not events:
-        say(f"{head}; the profiler saw no device events: device ms not measured ({smi})")
-        return
-    dev_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
-    k_ms = sum(e.time_range.elapsed_us() for e in events if kernel in e.name) / 1e3
-    k_n = sum(kernel in e.name for e in events)
-    busy = busy_ms(events)
-    say(f"{head}; profiled block {prof_wall / n:.3f} ms wall per step, device "
-        f"{dev_ms / n:.3f} ms per step in {len(events) / n:.0f} device ops, {kernel} "
-        f"{k_ms / n:.4f} ms per step ({k_n / n:.0f} launches), device busy "
-        f"{busy / prof_wall:.1%} ({smi})")
+    for n in sorted({de.steps_per_sync, de.stream_block_steps}, reverse=True):
+        def eager():
+            reset()
+            host.copy_(decode_steps_status(de.params, de._cfg_for(None, None), st, n),
+                       non_blocking=True)
+            torch.cuda.synchronize()
+
+        def graph():
+            reset()
+            de._decode_block(n, None, None, host)
+            torch.cuda.synchronize()
+
+        for mode, fn in (("eager", eager), ("graph", graph)):
+            row = profile_run(fn, n, kernel)
+            say(f"  decode block, {mode}: {n} steps x {de.num_slots} live slots (write_pos "
+                f"{lens.tolist()}), {profile_text(row, 'step', kernel)} ({smi})")
 
 
 def profile_vocoder(engine, smi: str) -> None:
-    """One 605-latent chunk through the engine's row vocoder (the bucket a
-    full chunk takes): wall per chunk (host clock to the PCM on the host,
-    median of 3), then one chunk under torch.profiler for the device busy
-    share (union of device event intervals over the profiled wall) and K3's
-    share of the device time."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """One 605-latent chunk through the row vocoder (the bucket a full chunk
+    takes), and first-segment batches of 1 and 8 lanes, each eagerly (the
+    module functions) and through the batcher's captured program
+    (`_vocode_batch`), PCM on the host at the end: wall, device ms, device
+    ops, K3's ms and the device busy share (profile_run)."""
     g = engine.gpt_config
     n = g.max_audio_tokens
     gen = torch.Generator(device=engine.device).manual_seed(8)
-    row = torch.randn((n, g.hidden_size), generator=gen, device=engine.device)
-    spk = np.random.default_rng(8).standard_normal((1, 512)).astype(np.float32) * 0.1
-    engine.vocode_device_row(row, n, spk)  # warm
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        engine.vocode_device_row(row, n, spk)
-        walls.append((time.perf_counter() - t0) * 1e3)
-    before = run_fused_stage.launches
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.vocode_device_row(row, n, spk)
-        prof_wall = (time.perf_counter() - t0) * 1e3
-    k3_launches = run_fused_stage.launches - before
-    dev_events = device_events(prof)
-    if not dev_events:
-        say(f"  vocoder: {n} latents, wall {statistics.median(walls):.2f} ms per chunk; the "
-            f"profiler saw no device events: busy share not measured ({smi})")
-        return
-    busy = busy_ms(dev_events)
-    k3_ms = sum(e.time_range.elapsed_us() for e in dev_events if "mrf_conv" in e.name) / 1e3
-    say(f"  vocoder: {n} latents, wall {statistics.median(walls):.2f} ms per chunk (median of "
-        f"3: {', '.join(f'{w:.2f}' for w in walls)}); profiled chunk {prof_wall:.2f} ms wall, "
-        f"device busy {busy:.2f} ms ({busy / prof_wall:.1%}), {len(dev_events)} device ops, "
-        f"K3 {k3_ms:.2f} ms in {k3_launches} launches ({smi})")
+    rows = [torch.randn((n, g.hidden_size), generator=gen, device=engine.device)
+            for _ in range(_VocodeBatcher.SEG_FIRST_MAX_BATCH)]
+    spk = [np.random.default_rng(8 + i).standard_normal((1, 512)).astype(np.float32) * 0.1
+           for i in range(len(rows))]
+    bucket = engine.row_bucket(n)
+    cases = [("605-latent chunk", lambda: engine.vocode_device_row(rows[0], n, spk[0]),
+              lambda: engine._vocode_batch("row", rows[:1], [n], spk[:1], bucket))]
+    for b in (1, _VocodeBatcher.SEG_FIRST_MAX_BATCH):
+        cases.append((f"seg_first batch of {b}",
+                      lambda b=b: engine._vocode_seg_first(torch.stack(rows[:b]), [n] * b,
+                                                           spk[:b]).cpu(),
+                      lambda b=b: engine._vocode_batch("seg_first", rows[:b], [n] * b, spk[:b])))
+    for name, eager, graph in cases:
+        for mode, fn in (("eager", eager), ("graph", graph)):
+            row = profile_run(fn, 1, "mrf_conv")
+            say(f"  vocoder {name}, {mode}: {profile_text(row, 'call', 'mrf_conv')} ({smi})")
 
 
 def run_slice(dev, smi: str, tokenizer, gpt_flags: dict, engine_flags: dict,
@@ -1030,6 +1095,7 @@ def run_slice(dev, smi: str, tokenizer, gpt_flags: dict, engine_flags: dict,
 
         for w in KERNELS.values():
             w["wrapper"].launches = 0
+        graphs.reset_counts()
         outs = []
         t_start = time.perf_counter()
         out = tts.generate_speech(request("Hello world, this is a test of speech."))
@@ -1048,20 +1114,23 @@ def run_slice(dev, smi: str, tokenizer, gpt_flags: dict, engine_flags: dict,
         for i, (o, wall) in enumerate(tts.loop.run_until_complete(two())):
             outs.append((f"async{i + 1}", o, wall))
         launches = {name: w["wrapper"].launches for name, w in KERNELS.items()}
+        requests_graphs = dict(graphs.counts)
         stream = {name: 0 for name in KERNELS}
         if stream_tokens:
             for w in KERNELS.values():
                 w["wrapper"].launches = 0
+            graphs.reset_counts()
             ttfa, n_seg, secs = tts.loop.run_until_complete(stream_ttfa(tts, TTSRequest(
                 text="Hello world, this is a test of speech.", speaker_files=[wav_path],
                 language="en", stream=True, max_new_tokens=stream_tokens), False))
             stream = {name: w["wrapper"].launches for name, w in KERNELS.items()}
             say(f"  [4f] stream ({stream_tokens}-token cap) on this engine: first segment "
-                f"{ttfa * 1e3:.1f} ms, {n_seg} segments, {secs:.2f} s audio; launches {stream} "
-                f"({smi})")
+                f"{ttfa * 1e3:.1f} ms, {n_seg} segments, {secs:.2f} s audio; launches {stream}; "
+                f"graphs {graphs_text(graphs.counts)} ({smi})")
             for name in must_launch:
                 if stream[name] <= 0:
                     raise AssertionError(f"kernel {name} was not launched by the stream")
+            must_replay("the stream", graphs.counts)
         tts.loop.run_until_complete(tts.shutdown())
 
     for name, o, wall in outs:
@@ -1071,10 +1140,11 @@ def run_slice(dev, smi: str, tokenizer, gpt_flags: dict, engine_flags: dict,
         say(f"  {name}: wall {wall:.2f} s, ~{tokens} audio tokens, {secs:.2f} s audio, "
             f"audio/wall {secs / wall:.2f} ({smi})")
     say(f"  peak device memory {torch.cuda.max_memory_allocated() / 1024**3:.2f} GiB; "
-        f"launches during the slice: {launches}")
+        f"launches during the slice: {launches}; graphs {graphs_text(requests_graphs)}")
     for name in must_launch:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the main path")
+    must_replay("the slice's requests", requests_graphs)
     profile_decode(engine, smi, decode_kernel)
     if vocoder:
         profile_vocoder(engine, smi)
@@ -1349,33 +1419,12 @@ def check_burst_inserts(engine, smi: str) -> None:
 
 def block_profile(p, g, st, n_steps: int, slot_bound, kernel: str) -> dict:
     """One `n_steps` block of decode_steps_status at `slot_bound` plus its
-    status copy, continuing `st`: host wall per step (median of 3 blocks),
-    then one block under torch.profiler: device ms per step (sum of device
-    event times), device ops and `kernel` ms per step, device busy share."""
-    from torch.profiler import ProfilerActivity, profile
-
+    status copy, continuing `st`, eagerly (the module function), through
+    profile_run."""
     def block():
         decode_steps_status(p, g, st, n_steps, slot_bound=slot_bound).cpu()
 
-    block()  # warm
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        block()
-        walls.append((time.perf_counter() - t0) * 1e3 / n_steps)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        block()
-        prof_wall = (time.perf_counter() - t0) * 1e3
-    events = device_events(prof)
-    row = {"wall_ms_per_step": statistics.median(walls)}
-    if events:
-        row.update(device_ms_per_step=sum(e.time_range.elapsed_us() for e in events) / 1e3
-                   / n_steps, ops_per_step=len(events) / n_steps,
-                   kernel_ms_per_step=sum(e.time_range.elapsed_us() for e in events
-                                          if kernel in e.name) / 1e3 / n_steps,
-                   busy=busy_ms(events) / prof_wall)
-    return row
+    return profile_run(block, n_steps, kernel)
 
 
 def check_slot_bounds(engine, smi: str, kernel: str) -> None:
@@ -1407,12 +1456,8 @@ def check_slot_bounds(engine, smi: str, kernel: str) -> None:
         bounds = (live,) if live == 4 else (live, None)
         for sb, st in zip(bounds, states):
             row = block_profile(p, g, st, 16, sb, kernel)
-            dev_part = (f", device {row['device_ms_per_step']:.3f} ms per step in "
-                        f"{row['ops_per_step']:.0f} ops, {kernel} {row['kernel_ms_per_step']:.4f} "
-                        f"ms, busy {row['busy']:.1%}" if "busy" in row
-                        else "; the profiler saw no device events: device ms not measured")
-            say(f"  block at slot_bound={sb or CONC_SLOTS} ({live} live): wall "
-                f"{row['wall_ms_per_step']:.3f} ms per step{dev_part} ({smi})")
+            say(f"  eager block at slot_bound={sb or CONC_SLOTS} ({live} live): "
+                f"{profile_text(row, 'step', kernel)} ({smi})")
         del states, a, b
 
 
@@ -1496,8 +1541,10 @@ def check_runner(engine, smi: str, must_launch: tuple, facade_wav: str | None) -
     de.reset_stats()
     for w in KERNELS.values():
         w["wrapper"].launches = 0
+    graphs.reset_counts()
     got, wall = asyncio.run(drive_runner(de, prompts, options))
     st = dict(de.stats)
+    runner_graphs = dict(graphs.counts)
     audio_s = sum(n for *_, n in got) * 1024 / 22050
     say(f"  runner, slot bucketing on, {CONC_SLOTS} slots: 16 chunks ({sum(n for *_, n in got)} "
         f"tokens, {audio_s:.2f} s of audio) in {wall:.2f} s wall, summed audio/wall "
@@ -1535,10 +1582,12 @@ def check_runner(engine, smi: str, must_launch: tuple, facade_wav: str | None) -
             raise AssertionError(f"facade request: {n_chunks} chunks, {new_batches} batches")
     launches = {name: w["wrapper"].launches for name, w in KERNELS.items()}
     say(f"  launches during the runner drive{' and the facade request' if facade_wav else ''}: "
-        f"{launches}")
+        f"{launches}; graphs in the runner drive {graphs_text(runner_graphs)}, and with the "
+        f"facade request {graphs_text(graphs.counts)}")
     for name in must_launch:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by phase 4e's main path")
+    must_replay("phase 4e's runner drive", runner_graphs)
     plain = DecodeEngine(engine.params, g, num_slots=CONC_SLOTS, cache_dtype=engine.cache_dtype,
                          steps_per_sync=de.steps_per_sync, device=dev)
     want, wall_u = asyncio.run(drive_runner(plain, prompts, options))
@@ -1724,26 +1773,6 @@ def run_streaming(dev, smi: str, tokenizer) -> dict:
             return await asyncio.gather(*(stream_ttfa(tts, request(), i > 0)
                                           for i in range(STREAM_CONCURRENCY)))
 
-        profile_summary(reset=True)
-        t0 = time.perf_counter()
-        outs = tts.loop.run_until_complete(burst())
-        wall = time.perf_counter() - t0
-        spans = profile_summary(reset=True)
-        ttfas = sorted(o[0] for o in outs)
-        p50 = ttfas[len(ttfas) // 2]
-        p95 = ttfas[min(len(ttfas) - 1, int(len(ttfas) * 0.95))]
-        sf = [k for kind, k in flights if kind == "seg_first"]
-        say(f"  TTFA at concurrency {STREAM_CONCURRENCY} (SENTENCE x 4, {STREAM_CAP}-token cap "
-            f"per chunk, sampled): p50 {p50 * 1e3:.1f} ms, p95 {p95 * 1e3:.1f} ms, all "
-            f"{', '.join(f'{t * 1e3:.1f}' for t in ttfas)} ms; speculative first segments "
-            f"{sum(sf)} in seg_first batches of {sf}; other batches "
-            f"{[f for f in flights if f[0] != 'seg_first']}; stream 0: {outs[0][1]} segments, "
-            f"{outs[0][2]:.2f} s audio; {wall:.2f} s wall ({smi})")
-        say("  where the burst's time went (host spans, mean / max ms x count): " + "; ".join(
-            f"{k} {v['mean_ms']:.1f} / {v['max_ms']:.1f} x {v['count']}"
-            for k, v in sorted(spans.items()) if k in TTFA_SPANS))
-        if not all(o[1] >= 1 for o in outs) or outs[0][1] < 2:
-            raise AssertionError(f"streams: segments {[o[1] for o in outs]}")
         de = engine.decode_engine
 
         async def drained():
@@ -1753,9 +1782,52 @@ def run_streaming(dev, smi: str, tokenizer) -> dict:
                     raise AssertionError(f"abandoned streams: {de.num_active} slots still live")
                 await asyncio.sleep(0.01)
 
-        tts.loop.run_until_complete(drained())
-        say(f"  abandonment: {STREAM_CONCURRENCY - 1} streams closed after their first segment; "
-            f"num_active back to 0")
+        # the first burst captures its programs lazily, in the threads that
+        # run them; TTS.warmup() then captures every key, and the second
+        # burst runs on captured programs only
+        for tag in ("lazy captures", "after TTS.warmup()"):
+            del flights[:]
+            graphs.reset_counts()
+            profile_summary(reset=True)
+            t0 = time.perf_counter()
+            outs = tts.loop.run_until_complete(burst())
+            wall = time.perf_counter() - t0
+            spans = profile_summary(reset=True)
+            ttfas = sorted(o[0] for o in outs)
+            p50 = ttfas[len(ttfas) // 2]
+            p95 = ttfas[min(len(ttfas) - 1, int(len(ttfas) * 0.95))]
+            sf = [k for kind, k in flights if kind == "seg_first"]
+            say(f"  TTFA at concurrency {STREAM_CONCURRENCY}, {tag} (SENTENCE x 4, "
+                f"{STREAM_CAP}-token cap per chunk, sampled): p50 {p50 * 1e3:.1f} ms, p95 "
+                f"{p95 * 1e3:.1f} ms, all {', '.join(f'{t * 1e3:.1f}' for t in ttfas)} ms; "
+                f"speculative first segments {sum(sf)} in seg_first batches of {sf}; other "
+                f"batches {[f for f in flights if f[0] != 'seg_first']}; stream 0: "
+                f"{outs[0][1]} segments, {outs[0][2]:.2f} s audio; {wall:.2f} s wall; graphs "
+                f"{graphs_text(graphs.counts)} ({smi})")
+            say("  where the burst's time went (host spans, mean / max ms x count): " + "; ".join(
+                f"{k} {v['mean_ms']:.1f} / {v['max_ms']:.1f} x {v['count']}"
+                for k, v in sorted(spans.items()) if k in TTFA_SPANS))
+            if not all(o[1] >= 1 for o in outs) or outs[0][1] < 2:
+                raise AssertionError(f"streams: segments {[o[1] for o in outs]}")
+            must_replay(f"the streaming burst ({tag})", graphs.counts)
+            tts.loop.run_until_complete(drained())
+            say(f"  abandonment: {STREAM_CONCURRENCY - 1} streams closed after their first "
+                f"segment; num_active back to 0")
+            if tag == "lazy captures":
+                graphs.reset_counts()
+                torch.cuda.synchronize()
+                reserved = torch.cuda.memory_reserved()
+                t0 = time.perf_counter()
+                tts.warmup(text="Hello world, this is a test of speech. The quick brown fox "
+                                "jumps over the lazy dog.")
+                say(f"  TTS.warmup (precompile hooks, then two sentences of traffic) completed "
+                    f"in {time.perf_counter() - t0:.1f} s: graphs {graphs_text(graphs.counts)}; "
+                    f"decode keys {len(de._programs.keys())} of {len(de.precompile_keys())}, "
+                    f"vocoder keys {len(engine._vocoder_programs.keys())}; memory reserved "
+                    f"{reserved / 2**30:.2f} -> {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+                    f"({smi})")
+                if len(de._programs.keys()) < len(de.precompile_keys()):
+                    raise AssertionError("TTS.warmup() left decode keys uncaptured")
 
         segs, row, n, spk = tts.loop.run_until_complete(
             greedy_stream(engine, wav_path, "Hello world, this is a test of speech.", 200))
@@ -1775,10 +1847,6 @@ def run_streaming(dev, smi: str, tokenizer) -> dict:
             raise AssertionError(f"streaming exactness: {len(segs)} segments, stream "
                                  f"{s_max} steps, batch {b_max} steps")
 
-        t0 = time.perf_counter()
-        tts.warmup(text="Hello world, this is a test of speech. The quick brown fox jumps "
-                        "over the lazy dog.")
-        say(f"  TTS.warmup (two sentences) completed in {time.perf_counter() - t0:.1f} s ({smi})")
         bf16 = {name: w["wrapper"].launches for name, w in KERNELS.items()}
         tts.loop.run_until_complete(tts.shutdown())
         del tts, engine
@@ -1787,6 +1855,206 @@ def run_streaming(dev, smi: str, tokenizer) -> dict:
         if bf16[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by phase 4f's bf16 drive")
     return bf16
+
+
+# ------------------------------------------------------------- graphs
+def state_tensors(st: DecodeState) -> dict:
+    """Every tensor of a decode state by name: the cache (and its scales),
+    the sampling rows and the per-slot counters and buffers."""
+    out = {name: t for name, t in (("k", st.cache.k), ("v", st.cache.v),
+                                   ("k_scale", st.cache.k_scale),
+                                   ("v_scale", st.cache.v_scale)) if t is not None}
+    out.update({f"sampling.{f.name}": getattr(st.sampling, f.name)
+                for f in dataclasses.fields(st.sampling)})
+    out.update({f.name: getattr(st, f.name) for f in dataclasses.fields(st)
+                if f.name not in ("cache", "sampling", "generator")})
+    return out
+
+
+def clone_state(st: DecodeState) -> DecodeState:
+    """An independent copy of a decode state, its generator's state too."""
+    gen = torch.Generator(device=st.seq_lens.device)
+    gen.set_state(st.generator.get_state())
+    c = st.cache
+    return DecodeState(
+        cache=KVCache(*(None if t is None else t.clone() for t in (c.k, c.v, c.k_scale,
+                                                                   c.v_scale))),
+        sampling=SamplingState(*(t.clone() for t in st.sampling.tensors())),
+        **{f.name: getattr(st, f.name).clone() for f in dataclasses.fields(st)
+           if f.name not in ("cache", "sampling", "generator")},
+        generator=gen)
+
+
+def restore_state(dst: DecodeState, src: DecodeState) -> None:
+    """Copy src into dst in place (dst's tensors are a graph's static
+    inputs), the generator's state too."""
+    want = state_tensors(src)
+    for name, t in state_tensors(dst).items():
+        t.copy_(want[name])
+    dst.generator.set_state(src.generator.get_state())
+
+
+def full_width_state(engine, sampled: bool, seed: int) -> DecodeState:
+    """A fresh decode state of the engine's slot count with every slot live
+    at the phase-3 ragged write positions (0 ... 1046): a random cache (int8
+    rows and positive scales under kv_int8), random last tokens below the
+    stop token, n_generated 1, and greedy or sampled rows (temperature 0.8,
+    top-p 0.9, top-k 50, repetition penalty 2)."""
+    g, dev = engine.gpt_config, engine.device
+    de = engine.decode_engine
+    st = init_decode_state(g, de.num_slots, seed=seed,
+                           dtype=engine.cache_dtype, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c = st.cache
+    if c.quantized:
+        for t in (c.k, c.v):
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen, device=dev, dtype=torch.int8))
+        for t in (c.k_scale, c.v_scale):
+            t.copy_(0.005 + 0.02 * torch.rand(t.shape, generator=gen, device=dev))
+    else:
+        for t in (c.k, c.v):
+            t.copy_(0.5 * torch.randn(t.shape, generator=gen, device=dev))
+    s = de.num_slots
+    st.seq_lens.copy_(torch.tensor(WRITE_POS_SETS["ragged"][:s], dtype=torch.int32))
+    st.audio_pos.fill_(1)
+    st.n_generated.fill_(1)
+    st.last_token.copy_(torch.randint(0, g.stop_audio_token, (s,), generator=gen, device=dev))
+    st.tokens_buf[:, 0] = st.last_token
+    st.active.fill_(True)
+    sp = st.sampling
+    sp.do_sample.fill_(sampled)
+    sp.temperature.fill_(0.8)
+    sp.top_p.fill_(0.9)
+    sp.top_k.fill_(50)
+    sp.repetition_penalty.fill_(2.0)
+    sp.seen[torch.arange(s, device=dev), st.last_token.long()] = True
+    return st
+
+
+def check_graph_blocks(engine, tag: str, smi: str) -> None:
+    """A 16-step and a 13-step block (the young one), greedy and with the
+    generator's own draws, through the engine's captured program and
+    eagerly (`decode_steps_status`) from one cloned full-width state: every
+    tensor of the state (tokens, latents, KV rows and int8 scales, the
+    sampling rows, the counters), the packed status and the generator's
+    state must be bit-equal. The program is captured on the first call
+    (an eager block on a copy), the copy is restored in place and the
+    second call replays."""
+    de = engine.decode_engine
+    home = de.state
+    host = torch.empty((de.num_slots,), dtype=torch.int32, pin_memory=True)
+    for n_steps in (de.steps_per_sync, de.stream_block_steps):
+        for sampled in (False, True):
+            s0 = full_width_state(engine, sampled, seed=70 + n_steps)
+            graphed, eager = clone_state(s0), clone_state(s0)
+            de.state = graphed
+            de._decode_block(n_steps, None, None, host)
+            restore_state(graphed, s0)
+            replays = graphs.counts["replays"]
+            de._decode_block(n_steps, None, None, host)
+            torch.cuda.synchronize()
+            if graphs.counts["replays"] != replays + 1:
+                raise AssertionError(f"{tag}: the second block did not replay a graph")
+            want = decode_steps_status(de.params, de._cfg_for(None, None), eager, n_steps).cpu()
+            got_t, want_t = state_tensors(graphed), state_tensors(eager)
+            differ = [name for name in got_t if not torch.equal(got_t[name], want_t[name])]
+            if not torch.equal(host, want):
+                differ.append("packed status")
+            if not torch.equal(graphed.generator.get_state(), eager.generator.get_state()):
+                differ.append("generator state")
+            moved = int((eager.n_generated - s0.n_generated).sum())
+            say(f"  {tag} block of {n_steps} steps, {'sampled' if sampled else 'greedy'}: graph "
+                f"vs eager over {len(got_t)} state tensors, the packed status and the generator "
+                f"({moved} tokens generated): "
+                f"{'bit-equal' if not differ else 'DIFFER in ' + ', '.join(differ)}")
+            if differ:
+                raise AssertionError(f"{tag} graph block differs from eager: {differ}")
+            del s0, graphed, eager
+    de.state = home
+
+
+def check_graph_vocoders(engine) -> None:
+    """The batcher's vocoder programs against the eager functions, PCM 0
+    steps apart: seg_first at B = 1 and 8, seg at B = 1 and 4, the row
+    vocoder in every bucket at B = 1 and 4, each on two sets of random
+    rows (the second replays the program the first captured or
+    replayed)."""
+    g, dev = engine.gpt_config, engine.device
+    t_max = g.max_audio_tokens
+    gen = torch.Generator(device=dev).manual_seed(33)
+    rng = np.random.default_rng(33)
+    buckets = sorted({engine.row_bucket(n) for n in range(1, t_max + 1)})
+    cases = ([("seg_first", b, None) for b in (1, _VocodeBatcher.SEG_FIRST_MAX_BATCH)]
+             + [("seg", b, None) for b in (1, _VocodeBatcher.MAX_BATCH)]
+             + [("row", b, bucket) for bucket in buckets for b in (1, _VocodeBatcher.MAX_BATCH)])
+    worst = 0
+    for kind, b, bucket in cases:
+        for _ in range(2):
+            rows = [torch.randn((t_max, g.hidden_size), generator=gen, device=dev)
+                    for _ in range(b)]
+            spk = [rng.standard_normal((1, 512)).astype(np.float32) * 0.1 for _ in range(b)]
+            if kind == "row":
+                top = min(bucket - 4, t_max)
+                ns = [top] + [int(x) for x in rng.integers(1, top + 1, b - 1)]
+                arg = bucket
+                want = engine._rows_pcm(torch.stack(rows), engine._lanes(ns),
+                                        engine._speaker_rows(spk), bucket)
+            elif kind == "seg":
+                ns = [int(x) for x in rng.integers(1, t_max + 1, b)]
+                arg = [engine._seg_slice_start(int(x))
+                       for x in rng.integers(0, engine._bucket_pf, b)]
+                want = engine._vocode_seg(torch.stack(rows), ns, arg, spk)
+            else:
+                ns = [int(x) for x in rng.integers(1, min(64, t_max) + 1, b)]
+                arg = None
+                want = engine._vocode_seg_first(torch.stack(rows), ns, spk)
+            got = engine._vocode_batch(kind, rows, ns, spk, arg)
+            want = want.cpu().numpy()
+            if got.shape != want.shape:
+                raise AssertionError(f"vocoder {kind} B={b}: shape {got.shape} != {want.shape}")
+            worst = max(worst, int(np.abs(got.astype(np.int64) - want.astype(np.int64)).max()))
+            if worst:
+                raise AssertionError(f"vocoder {kind} bucket={bucket} B={b}: graph PCM "
+                                     f"{worst} steps from eager")
+    say(f"  vocoder programs vs eager: {len(cases)} keys (seg_first B = 1, 8; seg B = 1, 4; "
+        f"rows in buckets {buckets} at B = 1, 4), two batches each: PCM {worst} steps apart")
+
+
+def run_graphs(dev, smi: str, tokenizer) -> None:
+    """Phase 4g: the captured programs on the full-width bf16 (K2) and int8
+    (K4) engines of phases 4 and 4b. Per engine, `precompile_decode_programs`
+    (and on bf16 `precompile_vocoder_buckets`) with its time, captures,
+    capture and instantiation seconds and memory_reserved before and
+    after; then the decode blocks against eager (check_graph_blocks) and,
+    on bf16, the vocoder programs (check_graph_vocoders)."""
+    for tag, gpt_flags, engine_flags in (
+            ("bf16", {"flash_decode": True, "prefill_flash": True}, {}),
+            ("int8", {"prefill_flash": True, "ragged_decode": True},
+             {"kv_int8": True, "decode_w8a8": True, "prefill_w8a8": True})):
+        torch.cuda.empty_cache()
+        engine = build_engine(dev, tokenizer, gpt_flags, engine_flags)
+        de = engine.decode_engine
+        hooks = [("decode", engine.precompile_decode_programs)]
+        if tag == "bf16":
+            hooks.append(("vocoder", engine.precompile_vocoder_buckets))
+        for name, hook in hooks:
+            graphs.reset_counts()
+            torch.cuda.synchronize()
+            reserved = torch.cuda.memory_reserved()
+            t0 = time.perf_counter()
+            hook()
+            torch.cuda.synchronize()
+            say(f"  {tag} precompile ({name}): {time.perf_counter() - t0:.1f} s, graphs "
+                f"{graphs_text(graphs.counts)}; memory reserved {reserved / 2**30:.2f} -> "
+                f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB ({smi})")
+        keys = de._programs.keys()
+        if len(keys) != len(de.precompile_keys()):
+            raise AssertionError(f"{tag}: precompile captured {len(keys)} of "
+                                 f"{len(de.precompile_keys())} decode keys")
+        check_graph_blocks(engine, tag, smi)
+        if tag == "bf16":
+            check_graph_vocoders(engine)
+        del engine, de
 
 
 # ------------------------------------------------------ checkpoint and server
@@ -2233,13 +2501,16 @@ def run_checkpoint_server(smi: str, tokenizer) -> dict:
 
         for w in KERNELS.values():
             w["wrapper"].launches = 0
+        graphs.reset_counts()
         serve_in_process(["--model", core_dir, "--gpt_model", gpt_dir, "--max_concurrency", "4",
                           "--decode_slots", "8", "--voices_dir", voices], smi, wav_path)
         launches = {name: w["wrapper"].launches for name, w in KERNELS.items()}
-        say(f"  launches during the in-process server: {launches}")
+        say(f"  launches during the in-process server: {launches}; graphs "
+            f"{graphs_text(graphs.counts)}")
         for name in BF16_PATH:
             if launches[name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched by phase 6's server")
+        must_replay("phase 6's in-process server", graphs.counts)
         torch.cuda.empty_cache()
 
         int8_dir = os.path.join(tmp, "int8")
@@ -2329,6 +2600,10 @@ def main() -> int:
     stream = run_streaming(dev, smi, tokenizer)
     for name in KERNELS:
         launches[name] += stream[name] + int8_stream[name]
+    torch.cuda.empty_cache()
+    phase("[4g] captured programs: decode blocks and vocoder programs as CUDA graphs against "
+          "eager, precompile")
+    run_graphs(dev, smi, tokenizer)
     torch.cuda.empty_cache()
     phase("[5] reference check: card vs CPU, f32, greedy")
     run_reference_check(dev, tokenizer)

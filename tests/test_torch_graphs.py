@@ -1,0 +1,428 @@
+"""The port's captured programs (auralis_tpu_torch/runtime/graphs.py) on the
+CPU, tiny config: the decode-block key set against the JAX runner's
+precompile, and the capture machinery through a test double of the CUDA
+graph, since a real capture needs the card (chip_smoke.py's phase 4g holds
+real graphs against eager bit for bit).
+
+`RecordingGraph` is that double. It stands in for `graphs.CudaGraph`, the
+wrapper of torch.cuda.CUDAGraph: its capture records the callable and runs
+nothing (a real capture issues no work), and its replay re-runs the
+recorded callable on the program's static inputs, its kernel launches
+uncounted (the program adds the capture's tally). So the tests below hold
+what the port adds around the graph: the keys, the lazy eager-then-capture
+order, the static inputs and their locks, the launch tallies and the
+generator's state."""
+import asyncio
+import dataclasses
+import sys
+import threading
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from test_torch_runner import _both, _cfgs, _params_run_to_cap
+
+from auralis_tpu.runtime import engine_core as jcore
+from auralis_tpu.runtime import sampler as jsamp
+from auralis_tpu_torch.models.xttsv2.config import tiny_test_config
+from auralis_tpu_torch.models.xttsv2.engine import XTTSv2Engine
+from auralis_tpu_torch.ops import _build
+from auralis_tpu_torch.runtime import engine_core as tcore
+from auralis_tpu_torch.runtime import graphs
+from auralis_tpu_torch.runtime import sampler as tsamp
+
+
+class RecordingGraph:
+    """Test double of the CUDA graph (`graphs.CudaGraph`): capture records
+    the callable and runs nothing; replay re-runs it and returns its
+    outputs; the registered generators are kept for inspection."""
+
+    instances: list = []
+
+    @staticmethod
+    def new_pool():
+        return None
+
+    def __init__(self, pool, generators=()):
+        self.generators = list(generators)
+        self.fn = None
+        self.replays = 0
+        RecordingGraph.instances.append(self)
+
+    def capture(self, fn):
+        self.fn = fn
+
+    def replay(self):
+        # a real replay runs no Python: the launches of the re-run are not
+        # counted here (the program adds the capture's tally)
+        self.replays += 1
+        with _build.tally_launches():
+            return self.fn()
+
+
+@pytest.fixture()
+def recording_graphs(monkeypatch):
+    """Captured programs on the CPU, through RecordingGraph."""
+    RecordingGraph.instances = []
+    monkeypatch.setattr(graphs, "CudaGraph", RecordingGraph)
+    monkeypatch.setattr(graphs, "captures_on", lambda device: True)
+    graphs.reset_counts()
+    yield RecordingGraph.instances
+    graphs.reset_counts()
+
+
+# ------------------------------------------------------------- key set
+def _jax_precompile_set(je) -> list:
+    """The (n_steps, slot_bound, len_bound) blocks the JAX runner's
+    precompile lowers, recorded from its calls."""
+    seen = []
+
+    class Lowered:
+        def compile(self):
+            return None
+
+    class Recorder:
+        def lower(self, params, cfg, state, n_steps, len_bound, slot_bound):
+            seen.append((n_steps, slot_bound, len_bound))
+            assert cfg is je._cfg_for(len_bound, slot_bound)
+            return Lowered()
+
+    class MigrateRecorder:
+        def lower(self, *args):
+            return Lowered()
+
+    real = jcore.decode_steps_status, jcore.migrate_slot
+    jcore.decode_steps_status, jcore.migrate_slot = Recorder(), MigrateRecorder()
+    try:
+        je.precompile()
+    finally:
+        jcore.decode_steps_status, jcore.migrate_slot = real
+    return seen
+
+
+@pytest.mark.parametrize("bucketing", [False, True])
+@pytest.mark.parametrize("stream_steps", [None, 13])
+def test_precompile_keys_match_jax(bucketing, stream_steps, monkeypatch):
+    """DecodeEngine.precompile_keys() is the set the JAX DecodeEngine's
+    precompile lowers (recorded from its calls), and that set is the cross
+    product of its block lengths {min(stream_block_steps, steps_per_sync),
+    steps_per_sync}, its slot bounds (None and, with slot_bucketing,
+    _slot_buckets()) and its length bounds (LEN_BUCKETS and None)."""
+    monkeypatch.setenv("AURALIS_PAR_COMPILE", "1")
+    jc, tc = _cfgs()
+    jp, tp = _both(_params_run_to_cap(6))
+    kw = dict(num_slots=16, steps_per_sync=16, slot_bucketing=bucketing,
+              stream_block_steps=stream_steps)
+    je = jcore.DecodeEngine(jp, jc, cache_dtype=jnp.float32, **kw)
+    te = tcore.DecodeEngine(tp, tc, cache_dtype=torch.float32, device="cpu", **kw)
+    steps = sorted({min(je.stream_block_steps, je.steps_per_sync), je.steps_per_sync})
+    slots = [None] + (list(je._slot_buckets()) if bucketing else [])
+    derived = {(n, sb, lb) for n in steps for sb in slots for lb in (*je.LEN_BUCKETS, None)}
+    lowered = _jax_precompile_set(je)
+    assert len(lowered) == len(set(lowered))
+    assert set(lowered) == derived
+    assert set(te.precompile_keys()) == derived
+    assert len(te.precompile_keys()) == len(derived)
+    assert len(derived) == len(steps) * (3 if bucketing else 1) * 5
+
+
+@pytest.mark.parametrize("bucketing", [False, True])
+def test_precompile_captures_the_key_set_and_restores_the_generator(recording_graphs,
+                                                                    bucketing):
+    """precompile() captures one program per key (through the double),
+    each registered with the state's generator; the generator's state is
+    restored afterwards; no slot becomes active and no counter, token or
+    latent row moves. A second precompile captures nothing new. Before
+    serving only: with a slot owned it raises."""
+    _, tc = _cfgs()
+    _, tp = _both(_params_run_to_cap(6))
+    te = tcore.DecodeEngine(tp, tc, num_slots=8, cache_dtype=torch.float32, steps_per_sync=4,
+                            stream_block_steps=3, slot_bucketing=bucketing, device="cpu")
+    st = te.state
+    st.generator.manual_seed(123)
+    rng = st.generator.get_state()
+    before = {k: getattr(st, k).clone() for k in ("active", "done", "n_generated", "seq_lens",
+                                                  "audio_pos", "tokens_buf", "latents_buf")}
+    te.precompile()
+    assert torch.equal(st.generator.get_state(), rng)
+    for k, v in before.items():
+        assert torch.equal(getattr(st, k), v), k
+    assert set(te._programs.keys()) == {(n, lb, sb) for n, sb, lb in te.precompile_keys()}
+    assert graphs.counts["captures"] == len(te.precompile_keys()) == len(recording_graphs)
+    assert all(g.generators == [st.generator] for g in recording_graphs)
+    te.precompile()
+    assert graphs.counts["captures"] == len(te.precompile_keys())
+    assert graphs.counts["replays"] == len(te.precompile_keys())
+    assert torch.equal(st.generator.get_state(), rng)
+    te._slot_owner[0] = object()
+    with pytest.raises(RuntimeError, match="before serving"):
+        te.precompile()
+
+
+# ------------------------------------------------------------- launches
+class _FakeKernel:
+    """A kernel wrapper's count: what _build.count_launch adds to."""
+
+    launches = 0
+
+
+class _RunningGraph(RecordingGraph):
+    """RecordingGraph whose capture also runs the callable's Python, as a
+    real capture does (its launches are recorded, not run): for a function
+    without side effects."""
+
+    def capture(self, fn):
+        self.fn = fn
+        fn()
+
+
+def test_replays_add_the_captured_launch_counts(monkeypatch):
+    """A program whose function launches a kernel three times: the eager
+    first call counts 3, the capture none (it runs nothing), and each
+    replay adds the 3 the capture tallied; launches outside a capture
+    count as before."""
+    monkeypatch.setattr(graphs, "CudaGraph", _RunningGraph)
+    monkeypatch.setattr(graphs, "captures_on", lambda device: True)
+    _FakeKernel.launches = 0
+
+    def fn():
+        for _ in range(3):
+            _build.count_launch(_FakeKernel)
+        return torch.ones(2)
+
+    cache = graphs.ProgramCache("cpu")
+    prog = cache.get("k", lambda: (fn, {}))
+    with prog.lock:
+        prog()
+    assert _FakeKernel.launches == 3 and prog.captured
+    assert prog.launches == {_FakeKernel: 3}
+    for i in range(4):
+        with prog.lock:
+            prog()
+        assert _FakeKernel.launches == 3 + 3 * (i + 1)
+    _build.count_launch(_FakeKernel)
+    assert _FakeKernel.launches == 16
+    assert cache.get("k", lambda: pytest.fail("built twice")) is prog
+
+
+def test_a_failed_capture_raises(monkeypatch):
+    """A capture that fails raises out of the call; nothing falls back."""
+
+    class Failing(RecordingGraph):
+        def capture(self, fn):
+            raise RuntimeError("capture failed")
+
+    monkeypatch.setattr(graphs, "CudaGraph", Failing)
+    monkeypatch.setattr(graphs, "captures_on", lambda device: True)
+    prog = graphs.ProgramCache("cpu").get("k", lambda: (lambda: torch.zeros(1), {}))
+    with pytest.raises(RuntimeError, match="capture failed"), prog.lock:
+        prog()
+    assert not prog.captured
+
+
+# -------------------------------------------------- the runner, eager vs graphs vs JAX
+def _noise(n_slots: int, vocab: int) -> np.ndarray:
+    return np.random.default_rng(21).gumbel(size=(n_slots, vocab)).astype(np.float32)
+
+
+def _drive_port(tp, tc, prompts, options, noise):
+    engine = tcore.DecodeEngine(tp, tc, num_slots=8, cache_dtype=torch.float32,
+                                steps_per_sync=4, slot_bucketing=True, device="cpu")
+
+    async def go():
+        out = await asyncio.gather(*(engine.generate(p, o) for p, o in zip(prompts, options)))
+        await engine.shutdown()
+        return out
+
+    out = asyncio.run(go())
+    return [(np.asarray(t), r[:n].numpy(), n) for t, r, n in out], engine
+
+
+def _drive_jax(jp, jc, prompts, options):
+    engine = jcore.DecodeEngine(jp, jc, num_slots=8, cache_dtype=jnp.float32, steps_per_sync=4,
+                                slot_bucketing=True)
+
+    async def go():
+        out = await asyncio.gather(*(engine.generate(
+            jcore.TokenPrompt(cond=jnp.asarray(p.cond.numpy()), ids=p.ids.astype(np.int32)),
+            jcore.SamplingOptions(**dataclasses.asdict(o))) for p, o in zip(prompts, options)))
+        await engine.shutdown()
+        return out
+
+    return [(np.asarray(t), np.asarray(lat)) for t, lat in asyncio.run(go())]
+
+
+@pytest.mark.parametrize("sampled", [False, True])
+def test_runner_through_graphs_equals_eager_and_jax(sampled, monkeypatch):
+    """Six chunks (max_new_tokens 5-14, so they finish in different blocks
+    and the slot bound narrows) through the port's runner eagerly, through
+    its captured programs (the double) and through the JAX runner: the same
+    tokens and n everywhere; latents bit-equal between the port's two runs
+    and within 1e-4 of JAX's (f32). Sampled, both packages draw the same
+    injected Gumbel noise. The graph run captured each key once and
+    replayed the later blocks of each."""
+    jc, tc = _cfgs()
+    jp, tp = _both(_params_run_to_cap(9))
+    rng = np.random.default_rng(3)
+    prompts = []
+    for _ in range(6):
+        cond = torch.from_numpy((0.5 * rng.standard_normal(
+            (tc.num_cond_latents, tc.hidden_size))).astype(np.float32))
+        prompts.append(tcore.TokenPrompt(cond=cond, ids=rng.integers(5, 300, 12).astype(np.int64)))
+    caps = [5, 14, 7, 12, 6, 9]
+    options = [tcore.SamplingOptions(do_sample=sampled, temperature=0.9, top_k=20, top_p=0.9,
+                                     repetition_penalty=2.0, max_new_tokens=c) for c in caps]
+    noise = _noise(8, tc.num_audio_tokens)
+    if sampled:
+        monkeypatch.setattr(tsamp, "gumbel_noise", lambda shape, gen, device: torch.from_numpy(
+            noise[: shape[0], : shape[1]].copy()))
+        monkeypatch.setattr(jsamp.jax.random, "gumbel", lambda key, shape, dtype=None: (
+            jnp.asarray(noise[: shape[0], : shape[1]])))
+        jax.clear_caches()  # programs traced before the patch draw their own noise
+    try:
+        want = _drive_jax(jp, jc, prompts, options)
+    finally:
+        if sampled:
+            monkeypatch.undo()
+            jax.clear_caches()
+            monkeypatch.setattr(tsamp, "gumbel_noise", lambda shape, gen, device: (
+                torch.from_numpy(noise[: shape[0], : shape[1]].copy())))
+    eager, _ = _drive_port(tp, tc, prompts, options, noise)
+    with monkeypatch.context() as m:
+        RecordingGraph.instances = []
+        m.setattr(graphs, "CudaGraph", RecordingGraph)
+        m.setattr(graphs, "captures_on", lambda device: True)
+        graphs.reset_counts()
+        graphed, engine = _drive_port(tp, tc, prompts, options, noise)
+        counts = dict(graphs.counts)
+        keys = engine._programs.keys()
+    assert counts["captures"] == len(keys) > 0
+    assert counts["replays"] > 0 and counts["replays"] + len(keys) == engine.stats["blocks"]
+    assert any(sb is not None for _, _, sb in keys), "no block ran at a slot bound"
+    for (te, le, ne), (tg, lg, ng), (tj, lj), cap in zip(eager, graphed, want, caps):
+        assert ne == ng == cap
+        np.testing.assert_array_equal(tg, te)
+        np.testing.assert_array_equal(tj, te)
+        np.testing.assert_array_equal(lg, le)
+        np.testing.assert_allclose(le, lj, rtol=0, atol=1e-4)
+
+
+# --------------------------------------------------------------- vocoder
+@pytest.fixture(scope="module")
+def vocoder_engine():
+    return XTTSv2Engine.random_init(tiny_test_config(), dtype=torch.float32, device="cpu",
+                                    max_concurrency=2, vocoder_dtype=torch.float32)
+
+
+def _lanes(engine, b: int, seed: int):
+    g = engine.gpt_config
+    rng = np.random.default_rng(seed)
+    rows = [torch.from_numpy(rng.standard_normal((g.max_audio_tokens, g.hidden_size))
+                             .astype(np.float32)) for _ in range(b)]
+    ns = [int(x) for x in rng.integers(20, g.max_audio_tokens, b)]
+    spk = [rng.standard_normal((1, 512)).astype(np.float32) * 0.1 for _ in range(b)]
+    return rows, ns, spk
+
+
+def _eager(engine, kind, rows, ns, spk, arg):
+    stacked = torch.stack(rows)
+    if kind == "row":
+        return engine._rows_pcm(stacked, engine._lanes(ns), engine._speaker_rows(spk),
+                                arg).numpy()
+    if kind == "seg":
+        return engine._vocode_seg(stacked, ns, arg, spk).numpy()
+    return engine._vocode_seg_first(stacked, ns, spk).numpy()
+
+
+def _arg(engine, kind, ns, seed):
+    if kind == "row":
+        return engine.row_bucket(max(ns))
+    if kind == "seg":
+        rng = np.random.default_rng(seed)
+        return [engine._seg_slice_start(int(x)) for x in rng.integers(0, engine._bucket_pf, len(ns))]
+    return None
+
+
+@pytest.mark.parametrize("kind,b", [("seg_first", 1), ("seg_first", 3), ("seg", 1), ("seg", 2),
+                                    ("row", 1), ("row", 2)])
+def test_vocoder_programs_equal_eager(vocoder_engine, recording_graphs, monkeypatch, kind, b):
+    """Through the double, every vocoder kind at an exact batch size: the
+    first call (eager, then capture) and later replays on other inputs give
+    the eager functions' PCM bit for bit (the static inputs are staged
+    afresh each call; the segment window is a gather on the staged starts),
+    one program per (kind, bucket, B)."""
+    eng = vocoder_engine
+    monkeypatch.setattr(eng, "_vocoder_programs", graphs.ProgramCache("cpu"))
+    for seed in range(3):
+        rows, ns, spk = _lanes(eng, b, seed)
+        arg = _arg(eng, kind, ns, seed)
+        got = eng._vocode_batch(kind, rows, ns, spk, arg)
+        np.testing.assert_array_equal(got, _eager(eng, kind, rows, ns, spk, arg))
+    keys = eng._vocoder_programs.keys()
+    assert all(k[0] == kind and k[2] == b for k in keys)
+    assert graphs.counts["replays"] == 3 - len(keys)
+
+
+def test_two_threads_through_one_vocoder_program(vocoder_engine, recording_graphs, monkeypatch):
+    """Two threads run batches of the same key (seg_first, B = 2) at once,
+    each with its own inputs, 6 times each: the program's lock covers the
+    staging, the replay and the copy out, so each gets the PCM of its own
+    inputs."""
+    eng = vocoder_engine
+    monkeypatch.setattr(eng, "_vocoder_programs", graphs.ProgramCache("cpu"))
+    lanes = [_lanes(eng, 2, 40 + t) for t in range(2)]
+    want = [_eager(eng, "seg_first", *lane, None) for lane in lanes]
+    start = threading.Barrier(2)
+    errors = []
+
+    def worker(t):
+        try:
+            start.wait()
+            for _ in range(6):
+                got = eng._vocode_batch("seg_first", *lanes[t])
+                np.testing.assert_array_equal(got, want[t])
+        except Exception as e:  # reported on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errors, errors
+    assert eng._vocoder_programs.keys() == [("seg_first", None, 2)]
+    assert graphs.counts["replays"] == 11
+
+
+def test_precompile_vocoder_buckets_captures_every_batcher_key(vocoder_engine, recording_graphs,
+                                                              monkeypatch):
+    """precompile_vocoder_buckets() captures the first segment at B = 1..8,
+    the segment window at B = 1..4 and the row vocoder in every bucket
+    that row_bucket() returns for 1..max_audio_tokens latents at B =
+    1..4: every key the batcher can form."""
+    eng = vocoder_engine
+    monkeypatch.setattr(eng, "_vocoder_programs", graphs.ProgramCache("cpu"))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    eng.precompile_vocoder_buckets()
+    buckets = {eng.row_bucket(n) for n in range(1, eng.gpt_config.max_audio_tokens + 1)}
+    want = ({("seg_first", None, b) for b in range(1, 9)} | {("seg", None, b) for b in range(1, 5)}
+            | {("row", bucket, b) for bucket in buckets for b in range(1, 5)})
+    assert set(eng._vocoder_programs.keys()) == want
+    assert graphs.counts["captures"] == len(want)
+
+
+def test_vocoder_and_decode_programs_stay_eager_on_the_cpu(vocoder_engine):
+    """Without the double, a CPU engine captures nothing: its caches are
+    not capturing and its precompile hooks return at once."""
+    eng = vocoder_engine
+    assert not eng._vocoder_programs.captures and not eng.decode_engine._programs.captures
+    graphs.reset_counts()
+    eng.precompile_vocoder_buckets()
+    eng.precompile_decode_programs()
+    assert graphs.counts["captures"] == 0
+    assert eng._vocoder_programs.keys() == [] and eng.decode_engine._programs.keys() == []

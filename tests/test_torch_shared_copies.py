@@ -71,7 +71,7 @@ PORTED = {
     "models/xttsv2/__init__.py", "models/xttsv2/gpt.py",
     "models/xttsv2/modules.py", "models/xttsv2/hifigan.py", "models/xttsv2/weights.py",
     "models/xttsv2/engine.py", "runtime/__init__.py", "runtime/sampler.py",
-    "runtime/decode_loop.py", "runtime/engine_core.py",
+    "runtime/decode_loop.py", "runtime/engine_core.py", "runtime/graphs.py",
 }
 # numpy functions the port's ops modules carry verbatim
 COPIED_FUNCTIONS = {
