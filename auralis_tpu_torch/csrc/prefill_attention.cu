@@ -25,6 +25,10 @@
 //
 // Layout: q/k/v rows are [T, H*64] views with a shared row stride (they may
 // be slices of one fused [T, 3*H*64] qkv row); out is [T, H, 64] f32.
+//
+// The prompt length is read from device memory (one int32) when a block
+// starts, so a launch captured in a CUDA graph takes each replay's length
+// from the graph's static input instead of the value seen at capture.
 
 #include "common.cuh"
 
@@ -44,8 +48,10 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 prefill_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, float* __restrict__ out, int t_len,
-                         int n_heads, int row_stride, int length, float scale) {
+                         int n_heads, int row_stride, const int* __restrict__ length_ptr,
+                         float scale) {
   extern __shared__ float smem[];
+  const int length = *length_ptr;
   float* ks = smem;              // [BK][KS]
   float* vs = ks + BK * KS;      // [BK][HD]
   float* ps = vs + BK * HD;      // [BQ][BK + 1]
@@ -150,10 +156,12 @@ constexpr int PITCH = HD + 8;      // smem row pitch (bf16): 144 B, ldmatrix con
 __global__ void __launch_bounds__(MMA_THREADS)
 prefill_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              const bf16* __restrict__ v, float* __restrict__ out, int t_len,
-                             int n_heads, int row_stride, int length, float scale) {
+                             int n_heads, int row_stride, const int* __restrict__ length_ptr,
+                             float scale) {
   __shared__ __align__(16) bf16 qs[BQ * PITCH];
   __shared__ __align__(16) bf16 ks[2][BK * PITCH];
   __shared__ __align__(16) bf16 vs[2][BK * PITCH];
+  const int length = *length_ptr;  // first used after the first tiles' copies
 
   const int h = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
@@ -170,12 +178,14 @@ prefill_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
     }
   };
 
-  const int kv_end = min(q0 + BQ, length);
-  const int n_tiles = (kv_end + BK - 1) / BK;
+  // the first tiles do not depend on the length: issue their copies before
+  // the length's load is waited for
   load_tile(qs, q, q0);
   load_tile(ks[0], k, 0);
   load_tile(vs[0], v, 0);
   cp_async_commit();
+  const int kv_end = min(q0 + BQ, length);
+  const int n_tiles = (kv_end + BK - 1) / BK;
 
   uint32_t qf[HD / 16][4];
   float o[HD / 8][4];
@@ -298,10 +308,11 @@ prefill_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 }
 
 int launch_f32(const void* q, const void* k, const void* v, void* out, int t_len, int n_heads,
-               int row_stride, int length, float scale, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(prefill_attention_kernel<float>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM_BYTES);
+               int row_stride, const int* length, float scale, cudaStream_t stream) {
+  // set once per process: launches may be captured into CUDA graphs
+  static const cudaError_t err = cudaFuncSetAttribute(
+      prefill_attention_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((t_len + BQ - 1) / BQ, n_heads);
   prefill_attention_kernel<float><<<grid, THREADS, SMEM_BYTES, stream>>>(
@@ -311,7 +322,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int t_len
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, void* out, int t_len, int n_heads,
-                int row_stride, int length, float scale, cudaStream_t stream) {
+                int row_stride, const int* length, float scale, cudaStream_t stream) {
   dim3 grid((t_len + BQ - 1) / BQ, n_heads);
   prefill_attention_mma_kernel<<<grid, MMA_THREADS, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
@@ -322,10 +333,10 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int t_le
 }  // namespace
 
 extern "C" int prefill_attention(const void* q, const void* k, const void* v, void* out,
-                                 int t_len, int n_heads, int row_stride, int length,
+                                 int t_len, int n_heads, int row_stride, const void* length,
                                  float scale, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_bf16(q, k, v, out, t_len, n_heads, row_stride, length, scale, st);
-  return launch_f32(q, k, v, out, t_len, n_heads, row_stride, length, scale, st);
+  const int* len = static_cast<const int*>(length);
+  if (is_bf16) return launch_bf16(q, k, v, out, t_len, n_heads, row_stride, len, scale, st);
+  return launch_f32(q, k, v, out, t_len, n_heads, row_stride, len, scale, st);
 }

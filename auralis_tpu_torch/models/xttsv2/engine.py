@@ -42,6 +42,14 @@ runner's. A key's first call runs eagerly and is captured after it;
 the CPU path. Not ported, by design: the hot/warming row-bucket sets
 (`serving_row_bucket`), which keep XLA compiles off the serving path, and
 the legacy embeds-prompt branch.
+
+So is conditioning: on the card `get_gpt_cond_latents` replays one program
+per 22.05 kHz chunk length ("cond", n_samples) and the speaker embedding one
+per 16 kHz reference length ("speaker", n_samples), the JAX engine's
+`_cond_fn(n_samples)` and `_speaker_fn(n_samples)`, captured lazily on a
+key's first call (`ref_length_quantum_s` bounds the lengths, as in JAX)
+in a memory pool of their own. The eager functions (`_cond_latents`,
+`_speaker_dvector`) stay the reference and the CPU path.
 """
 from __future__ import annotations
 
@@ -70,7 +78,7 @@ from ...ops.mel import wav_to_mel_cloning
 from ...ops.mrf import pack_hifigan_mrf
 from ...ops.resample import resample_np
 from ...runtime.engine_core import DecodeEngine, SamplingOptions, TokenPrompt
-from ...runtime.graphs import Program, ProgramCache
+from ...runtime.graphs import Program, ProgramCache, upload
 from ..base import BaseAsyncTTSEngine, ConditioningConfig
 from .config import XTTSConfig, XTTSGPTConfig, tiny_test_config
 from .gpt import quantize_decode_weights
@@ -350,6 +358,8 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         # the batcher's vocoder programs, in a memory pool apart from the
         # decode blocks'
         self._vocoder_programs = ProgramCache(self.device)
+        # the conditioning programs, keyed by reference length, in a third
+        self._cond_programs = ProgramCache(self.device)
         self.get_memory_usage_curve()
 
     # ----------------------------------------------------------- properties
@@ -514,23 +524,50 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         step = sr * chunk_length
         chunks = [audio_22k[:, i:i + step] for i in range(0, audio_22k.shape[1], step)]
         chunks = [c for c in chunks if c.shape[-1] >= sr * 0.33] or [audio_22k]
-        embs = []
-        for chunk in chunks:
-            wav = torch.from_numpy(np.ascontiguousarray(chunk, np.float32)).to(self.device)
-            mel = wav_to_mel_cloning(
-                wav, mel_norms=self.core["mel_stats"], n_fft=2048, hop_length=256,
-                win_length=1024, power=2.0, sample_rate=22050, f_min=0.0, f_max=8000.0,
-                n_mels=80,
-            )  # [1, 80, F]
-            h = conditioning_encoder(self.core["cond_encoder"], mel.transpose(1, 2),
-                                     self.gpt_config.num_attention_heads)
-            embs.append(perceiver_resampler(self.core["perceiver"], h).float().cpu().numpy())
+        embs = [self._conditioning("cond", chunk) for chunk in chunks]
         return np.mean(embs, axis=0)  # [1, C, D]
 
     @torch.no_grad()
     def _speaker_embedding(self, wav16: np.ndarray) -> np.ndarray:
-        w = torch.from_numpy(np.ascontiguousarray(wav16, np.float32)).to(self.device)
-        return speaker_encoder(self.core["speaker_encoder"], w, l2_norm=True).float().cpu().numpy()
+        return self._conditioning("speaker", wav16)
+
+    def _cond_latents(self, wav: torch.Tensor) -> torch.Tensor:
+        """22.05 kHz wav [1, n] on the device -> perceiver latents [1, C, D]."""
+        mel = wav_to_mel_cloning(
+            wav, mel_norms=self.core["mel_stats"], n_fft=2048, hop_length=256,
+            win_length=1024, power=2.0, sample_rate=22050, f_min=0.0, f_max=8000.0,
+            n_mels=80,
+        )  # [1, 80, F]
+        h = conditioning_encoder(self.core["cond_encoder"], mel.transpose(1, 2),
+                                 self.gpt_config.num_attention_heads)
+        return perceiver_resampler(self.core["perceiver"], h)
+
+    def _speaker_dvector(self, wav16: torch.Tensor) -> torch.Tensor:
+        """16 kHz wav [1, n] on the device -> d-vector [1, 512]."""
+        return speaker_encoder(self.core["speaker_encoder"], wav16, l2_norm=True)
+
+    @torch.no_grad()
+    def _conditioning(self, kind: str, wav: np.ndarray) -> np.ndarray:
+        """`_cond_latents` ("cond") or `_speaker_dvector` ("speaker") of a host
+        wav [1, n], f32 on the host. On the card the program of (kind, n):
+        the wav staged through pinned memory and the output copied to the
+        host under the program's lock (conditioning runs in worker threads);
+        on the CPU the eager function."""
+        wav = np.ascontiguousarray(wav, np.float32)
+        fn = self._cond_latents if kind == "cond" else self._speaker_dvector
+        if not self._cond_programs.captures:
+            return fn(torch.from_numpy(wav).to(self.device)).float().cpu().numpy()
+        if wav.ndim != 2 or wav.shape[0] != 1:
+            raise ValueError(f"conditioning takes one [1, n] reference, got {wav.shape}")
+
+        def build():
+            inp = {"wav": torch.zeros(wav.shape, dtype=torch.float32, device=self.device)}
+            return (lambda: fn(inp["wav"])), inp
+
+        prog = self._cond_programs.get((kind, wav.shape[1]), build)
+        with prog.lock:
+            upload(prog.inputs["wav"], wav)
+            return prog().float().cpu().numpy()
 
     async def get_audio_conditioning(
         self,
@@ -888,10 +925,10 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
             width = inp["rows"].shape[1]
             for lane, row in zip(inp["rows"], rows):
                 lane.copy_(row[:width])
-            _upload(inp["n"], np.asarray(ns, np.int64))
-            _upload(inp["g"], _lane_floats(speaker_embeddings))
+            upload(inp["n"], np.asarray(ns, np.int64))
+            upload(inp["g"], _lane_floats(speaker_embeddings))
             if kind == "seg":
-                _upload(inp["starts"], np.asarray(arg, np.int64))
+                upload(inp["starts"], np.asarray(arg, np.int64))
             return prog().cpu().numpy()
 
     def precompile_vocoder_buckets(self) -> None:
@@ -919,12 +956,13 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         logger.info("vocoder programs captured: %d in %.1f s", len(keys), time.perf_counter() - t0)
 
     def precompile_decode_programs(self) -> None:
-        """Capture every decode block the runner can dispatch before serving
-        (`DecodeEngine.precompile`). The JAX engine also warms its insert
-        programs here (`precompile_inserts`); the port's inserts run eagerly
-        (they write sampling rows from host scalars), and their programs
-        are to be added at this point."""
+        """Capture every program the runner can dispatch before serving: the
+        decode blocks (`DecodeEngine.precompile`), then every insert program
+        and `migrate_slot` (`DecodeEngine.precompile_inserts` at the
+        perceiver's latent count, the cond width of every prompt), as the
+        JAX engine does here."""
         self.decode_engine.precompile()
+        self.decode_engine.precompile_inserts(int(self.gpt_config.num_cond_latents))
 
     def _seg_slice_start(self, emit_start_pf: int) -> int:
         slice_len = PAD_PF + SEG_PF + PAD_PF
@@ -1063,14 +1101,6 @@ def _unpack_handle(handle) -> tuple:
 def _lane_floats(speaker_embeddings: list) -> np.ndarray:
     """One d-vector per lane (host [1, 512] each) -> [B, 512] f32."""
     return np.concatenate([np.asarray(e, np.float32).reshape(1, -1) for e in speaker_embeddings])
-
-
-def _upload(dst: torch.Tensor, values: np.ndarray) -> None:
-    """Copy host values into a static tensor; into a device tensor without a
-    host sync, through pinned memory that the copy keeps alive until it has
-    run."""
-    src = torch.from_numpy(values)
-    dst.copy_(src.pin_memory() if dst.is_cuda else src, non_blocking=True)
 
 
 def _nbytes(tree) -> int:

@@ -22,9 +22,16 @@ Differences from the JAX module:
 - the int8 x int8 products that XLA runs as int32 dots are `torch._int_mm`
   (ops/quant.py) for the W8A8 matmuls and exact f32/f64 sums of integers in
   the dense int8 attention body;
-- the batched prefill takes its target slots as host ints (the runner knows
-  them), so padding lanes are skipped on the host instead of by a dropping
-  scatter.
+- the per-call values of a prefill (the single prefill's length and slot,
+  the batched prefill's lengths and slots) may be device tensors, which no
+  code path reads on the host, so a prefill can replay inside a captured
+  CUDA graph (runtime/graphs.py) as the JAX functions take traced scalars;
+  Python numbers are accepted too;
+- the batched prefill takes its target slots as host ints, whose padding
+  lanes (slot >= num_slots) are skipped on the host instead of by a dropping
+  scatter, or as a device tensor of distinct real slots (no padding lane:
+  torch's index writes neither drop out-of-range indices nor define
+  duplicates).
 """
 from __future__ import annotations
 
@@ -121,6 +128,24 @@ def _dot_w8a8(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
 # -------------------------------------------------------------------- math
 
 
+def device_scalar(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """A per-call value as a 0-d `dtype` tensor on `device`: a tensor (a
+    captured program's staged input) is cast without a host read, a Python
+    or numpy number is written by a fill (no upload)."""
+    if torch.is_tensor(x):
+        return x.to(device=device, dtype=dtype)
+    return torch.full((), x, dtype=dtype, device=device)
+
+
+def device_values(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """Per-lane values as a `dtype` tensor on `device`: a tensor is cast
+    without a host read, host numbers are uploaded."""
+    if torch.is_tensor(x):
+        return x.to(device=device, dtype=dtype)
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm computed in f32 regardless of activation dtype."""
@@ -187,19 +212,25 @@ def _mlp(params: dict, layer: int, x: torch.Tensor, w8: bool) -> torch.Tensor:
 
 
 @torch.no_grad()
-def gpt_prefill(params: dict, cfg: XTTSGPTConfig, embeds: torch.Tensor, length: int,
-                slot: int, cache: KVCache) -> torch.Tensor:
+def gpt_prefill(params: dict, cfg: XTTSGPTConfig, embeds: torch.Tensor,
+                length: int | torch.Tensor, slot: int | torch.Tensor,
+                cache: KVCache) -> torch.Tensor:
     """Run the prompt `embeds` [T_pad, D] (zero-padded past `length`) through
     all layers, write its K/V rows (int8 + scales under cfg.kv_int8) into
     cache[:, slot, :T_pad] IN PLACE, and return the last real position's
-    hidden state (pre-ln_f) [D]. With cfg.prefill_w8a8 and `blocks_q8` in
-    params the four matmuls run W8A8."""
+    hidden state (pre-ln_f) [D]. `length` and `slot` are ints or 0-d integer
+    tensors on the device (read there only). With cfg.prefill_w8a8 and
+    `blocks_q8` in params the four matmuls run W8A8."""
     t_pad, d = embeds.shape
     nh, hd = cfg.num_attention_heads, cfg.head_dim
     bp = params["blocks"]
     w8 = cfg.prefill_w8a8 and "blocks_q8" in params
     x = embeds
-    if not cfg.prefill_flash:
+    length = device_scalar(length, torch.int64, x.device)
+    slot_idx = device_scalar(slot, torch.int64, x.device).reshape(1)
+    if cfg.prefill_flash:
+        length32 = length.to(torch.int32)  # K1 reads it on the device
+    else:
         pos = torch.arange(t_pad, device=x.device)
         mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] < length)
     for layer in range(cfg.num_hidden_layers):
@@ -207,7 +238,7 @@ def gpt_prefill(params: dict, cfg: XTTSGPTConfig, embeds: torch.Tensor, length: 
         qkv = _mm(params, layer, "attn_w", xn, w8)  # [T, 3D]
         q, k, v = (t.view(t_pad, nh, hd) for t in qkv.split(d, dim=-1))
         if cfg.prefill_flash:
-            ctx = prefill_flash_attention(q, k, v, length)  # [T, H, Dh] f32
+            ctx = prefill_flash_attention(q, k, v, length32)  # [T, H, Dh] f32
         else:
             scores = torch.einsum("qhd,khd->hqk", q.float(), k.float()) * (1.0 / math.sqrt(hd))
             scores = scores.masked_fill(~mask[None], torch.finfo(torch.float32).min)
@@ -218,11 +249,11 @@ def gpt_prefill(params: dict, cfg: XTTSGPTConfig, embeds: torch.Tensor, length: 
         x = _mlp(params, layer, x, w8)
         k_rows, v_rows = k.reshape(t_pad, d), v.reshape(t_pad, d)
         if cfg.kv_int8:
-            k_rows, cache.k_scale[layer, slot, :t_pad] = _quantize_rows(k_rows)
-            v_rows, cache.v_scale[layer, slot, :t_pad] = _quantize_rows(v_rows)
-        cache.k[layer, slot, :t_pad] = k_rows.to(cache.k.dtype)
-        cache.v[layer, slot, :t_pad] = v_rows.to(cache.v.dtype)
-    return x[length - 1]
+            k_rows, cache.k_scale[layer, slot_idx, :t_pad] = _quantize_rows(k_rows)
+            v_rows, cache.v_scale[layer, slot_idx, :t_pad] = _quantize_rows(v_rows)
+        cache.k[layer, slot_idx, :t_pad] = k_rows.to(cache.k.dtype)
+        cache.v[layer, slot_idx, :t_pad] = v_rows.to(cache.v.dtype)
+    return x.index_select(0, (length - 1).reshape(1))[0]
 
 
 @torch.no_grad()
@@ -231,11 +262,13 @@ def gpt_prefill_batched(params: dict, cfg: XTTSGPTConfig, embeds: torch.Tensor,
     """Burst prefill (the JAX `gpt_prefill_batched`): K prompts `embeds`
     [K, T_pad, D] through all layers together, so the weights stream once
     for the burst instead of once per prompt. `lengths` [K] are the true
-    prompt lengths (0 on padding lanes), `slots` [K] host ints, the target
-    cache slots (>= num_slots on padding lanes). Each real lane's K/V rows
-    (int8 + scales under cfg.kv_int8) are written into
-    cache[:, slot, :T_pad] IN PLACE; padding lanes write nothing. Returns
-    the last real position's hidden state (pre-ln_f) per lane, [K, D].
+    prompt lengths (0 on padding lanes), `slots` the target cache slots:
+    [K] host ints (>= num_slots on padding lanes) or a [K] integer tensor
+    on the device whose lanes are all real and distinct (a captured burst:
+    nothing is read on the host). Each real lane's K/V rows (int8 + scales
+    under cfg.kv_int8) are written into cache[:, slot, :T_pad] IN PLACE;
+    padding lanes write nothing. Returns the last real position's hidden
+    state (pre-ln_f) per lane, [K, D].
 
     Attention is a dense masked softmax in PyTorch matmuls (causal and key
     within the lane's length), whatever cfg.prefill_flash says, as in the
@@ -247,11 +280,15 @@ def gpt_prefill_batched(params: dict, cfg: XTTSGPTConfig, embeds: torch.Tensor,
     bp = params["blocks"]
     dev = embeds.device
     w8 = cfg.prefill_w8a8 and "blocks_q8" in params
-    lengths = torch.as_tensor(lengths, dtype=torch.long, device=dev)
-    slots = [int(s) for s in slots]
-    lanes = [i for i, s in enumerate(slots) if s < cache.num_slots]
-    lane_idx = torch.tensor(lanes, dtype=torch.long, device=dev)
-    slot_idx = torch.tensor([slots[i] for i in lanes], dtype=torch.long, device=dev)
+    lengths = device_values(lengths, torch.long, dev)
+    if torch.is_tensor(slots):  # every lane real
+        lane_idx, slot_idx, any_lane = None, slots.to(device=dev, dtype=torch.long), True
+    else:
+        slots = [int(s) for s in slots]
+        lanes = [i for i, s in enumerate(slots) if s < cache.num_slots]
+        lane_idx = torch.tensor(lanes, dtype=torch.long, device=dev)
+        slot_idx = torch.tensor([slots[i] for i in lanes], dtype=torch.long, device=dev)
+        any_lane = bool(lanes)
     pos = torch.arange(t_pad, device=dev)
     # [K, T, T]: causal and key within each prompt's real length
     mask = ((pos[None, None, :] <= pos[None, :, None])
@@ -268,9 +305,11 @@ def gpt_prefill_batched(params: dict, cfg: XTTSGPTConfig, embeds: torch.Tensor,
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
         x = x + _mm(params, layer, "attn_proj_w", ctx.reshape(kb, t_pad, d).to(x.dtype), w8)
         x = _mlp(params, layer, x, w8)
-        if not lanes:
+        if not any_lane:
             continue
-        k_rows, v_rows = k.reshape(kb, t_pad, d)[lane_idx], v.reshape(kb, t_pad, d)[lane_idx]
+        k_rows, v_rows = k.reshape(kb, t_pad, d), v.reshape(kb, t_pad, d)
+        if lane_idx is not None:
+            k_rows, v_rows = k_rows[lane_idx], v_rows[lane_idx]
         if cfg.kv_int8:
             k_rows, cache.k_scale[layer, slot_idx, :t_pad] = _quantize_rows(k_rows)
             v_rows, cache.v_scale[layer, slot_idx, :t_pad] = _quantize_rows(v_rows)

@@ -34,8 +34,9 @@ _F = ctypes.c_float
 
 # C signature of every entry point: name -> argument types (restype is int)
 SIGNATURES = {
-    # q, k, v, out, T, H, row_stride, length, scale, is_bf16, stream
-    "prefill_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, out, T, H, row_stride, length (int32 on the device), scale,
+    # is_bf16, stream
+    "prefill_attention": [_P, _P, _P, _P, _I, _I, _I, _P, _F, _I, _P],
     # q, k_new, v_new, k_cache, v_cache, write_pos, ctx, partials, tickets,
     # S (the step's), S_cache, H, T, layer, split, scale, is_bf16 (q, rows and
     # caches), stream

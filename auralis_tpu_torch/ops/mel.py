@@ -4,7 +4,11 @@ Counterpart of auralis_tpu/ops/mel.py. The filterbank and window helpers are
 verbatim copies of the JAX package's numpy code (`mel_filterbank` is also
 what the copied host enhancer imports); the STFT and mel pipelines run in
 torch with the same semantics as torchaudio (centered, reflect-padded,
-|.|**power magnitude, no per-window normalization).
+|.|**power magnitude, no per-window normalization). The named windows and
+the filterbanks are uploaded once per (device, dtype, parameters) and
+kept as device tables, so a call whose shapes have run once uploads
+nothing and can be captured in a CUDA graph (the engine's conditioning
+programs).
 """
 from __future__ import annotations
 
@@ -84,6 +88,29 @@ def hamming_window(win_length: int, dtype=np.float32) -> np.ndarray:
     return (0.54 - 0.46 * np.cos(2.0 * math.pi * n / win_length)).astype(dtype)
 
 
+_WINDOWS = {"hann": hann_window, "hamming": hamming_window}
+_tables: dict = {}
+
+
+def _device_table(key: tuple, make) -> torch.Tensor:
+    """The device tensor of `key` (made by make() on first use, then kept)."""
+    table = _tables.get(key)
+    if table is None:
+        table = _tables[key] = make()
+    return table
+
+
+def _window_table(window: str, win_length: int, n_fft: int, device, dtype) -> torch.Tensor:
+    """A named periodic window of `win_length`, centre-padded to n_fft as
+    torch.stft pads it, on `device`."""
+    def make():
+        w = _WINDOWS[window](win_length)
+        lpad = (n_fft - win_length) // 2
+        return torch.from_numpy(np.pad(w, (lpad, n_fft - win_length - lpad))).to(device, dtype)
+
+    return _device_table(("window", window, win_length, n_fft, str(device), dtype), make)
+
+
 def _reflect_pad(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
     """Reflect-pad the last axis of [..., T] (numpy/jnp "reflect" mode)."""
     lead = x.shape[:-1]
@@ -96,25 +123,28 @@ def stft_mag(
     n_fft: int,
     hop_length: int,
     win_length: int,
-    window: np.ndarray | None = None,
+    window: np.ndarray | str = "hann",
     power: float = 2.0,
     center: bool = True,
 ) -> torch.Tensor:
     """Magnitude (|.|**power) STFT of [..., T] -> [..., n_fft//2+1, n_frames].
 
     Matches torch.stft(center=True, pad_mode="reflect", normalized=False,
-    onesided=True) followed by abs()**power.
+    onesided=True) followed by abs()**power. `window` names a periodic
+    window ("hann", "hamming"; a device table) or is an array of
+    `win_length` values (uploaded per call).
     """
-    if window is None:
-        window = hann_window(win_length)
-    if win_length < n_fft:  # torch center-pads the window to n_fft
-        lpad = (n_fft - win_length) // 2
-        window = np.pad(window, (lpad, n_fft - win_length - lpad))
+    if isinstance(window, str):
+        win = _window_table(window, win_length, n_fft, x.device, x.dtype)
+    else:
+        lpad = (n_fft - win_length) // 2  # torch center-pads the window to n_fft
+        win = torch.from_numpy(np.pad(np.asarray(window), (lpad, n_fft - win_length - lpad))).to(
+            x.device, x.dtype)
     if center:
         pad = n_fft // 2
         x = _reflect_pad(x, pad, pad)
     frames = x.unfold(-1, n_fft, hop_length)  # [..., n_frames, n_fft]
-    frames = frames * torch.from_numpy(np.asarray(window)).to(x.device, x.dtype)
+    frames = frames * win
     spec = torch.fft.rfft(frames, n=n_fft, dim=-1)  # [..., n_frames, n_fft//2+1]
     mag = spec.abs()
     if power != 1.0:
@@ -134,13 +164,13 @@ def mel_spectrogram(
     power: float = 2.0,
     norm: str | None = None,
     mel_scale: str = "htk",
-    window: np.ndarray | None = None,
+    window: np.ndarray | str = "hann",
 ) -> torch.Tensor:
     """[..., T] -> [..., n_mels, n_frames]; torchaudio.transforms.MelSpectrogram."""
     spec = stft_mag(x, n_fft, hop_length, win_length, window=window, power=power)
-    fb = torch.from_numpy(
-        mel_filterbank(n_fft // 2 + 1, n_mels, sample_rate, f_min, f_max, norm, mel_scale)
-    ).to(x.device, spec.dtype)
+    args = (n_fft // 2 + 1, n_mels, sample_rate, f_min, f_max, norm, mel_scale)
+    fb = _device_table(("mel", *args, str(x.device), spec.dtype), lambda: torch.from_numpy(
+        mel_filterbank(*args)).to(x.device, spec.dtype))
     return torch.einsum("...ft,fm->...mt", spec, fb)
 
 
@@ -196,6 +226,6 @@ def speaker_encoder_mel(x: torch.Tensor, *, sample_rate: int = 16000) -> torch.T
         power=2.0,
         norm=None,
         mel_scale="htk",
-        window=hamming_window(400),
+        window="hamming",
     )
     return torch.log(mel + 1e-6)

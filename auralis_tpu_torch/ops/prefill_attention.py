@@ -15,7 +15,9 @@ shared memory. The kernel is flash-attention-2 shaped instead: one block per
 length) with an online softmax in f32 registers, so scores never leave the
 SM. bf16 inputs (serving) run QK^T and PV on the tensor cores (mma.sync,
 P split into bf16 hi + lo parts so it keeps ~16 bits); f32 inputs (the
-reference engine) run plain f32 FMA.
+reference engine) run plain f32 FMA. The kernel reads `length` from an
+int32 in device memory, so a prefill captured in a CUDA graph
+(runtime/graphs.py) takes each replay's length from its staged inputs.
 """
 from __future__ import annotations
 
@@ -27,9 +29,10 @@ from . import _build
 
 
 def prefill_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                            length: int) -> torch.Tensor:
+                            length: int | torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: the masked softmax of `_attn_kernel` in f32.
-    q/k/v [T, H, D] -> [T, H, D] f32."""
+    q/k/v [T, H, D] -> [T, H, D] f32; `length` an int or a 0-d integer
+    tensor on q's device."""
     t, h, d = q.shape
     qf, kf, vf = q.float(), k.float(), v.float()
     scores = torch.einsum("qhd,khd->hqk", qf, kf) * (1.0 / math.sqrt(d))
@@ -41,12 +44,16 @@ def prefill_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def prefill_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                            length: int) -> torch.Tensor:
+                            length: int | torch.Tensor) -> torch.Tensor:
     """q/k/v [T, H, D] (bf16 or f32) -> context [T, H, D] f32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise. q, k and v may be strided views of one fused qkv row (as gpt.py
-    passes them); they must share strides, with unit stride inside a head."""
+    passes them); they must share strides, with unit stride inside a head.
+    `length` is an int, checked against [1, T] and written into a fresh
+    int32 scalar on the card, or a 0-d integer tensor on q's device, which
+    the kernel reads as it runs (no host read; the caller keeps it in
+    [1, T])."""
     if not q.is_cuda:
         return prefill_attention_plain(q, k, v, length)
     _build.require_cuda(q, k, v)
@@ -57,8 +64,14 @@ def prefill_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k, v must share shape and dtype")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"unsupported dtype {q.dtype}")
-    if not 1 <= length <= t:
-        raise ValueError(f"length {length} outside [1, {t}]")
+    if torch.is_tensor(length):
+        if length.dim() != 0 or length.is_floating_point() or length.device != q.device:
+            raise ValueError(f"length must be a 0-d integer tensor on {q.device}")
+        length = length.to(torch.int32)
+    else:
+        if not 1 <= length <= t:
+            raise ValueError(f"length {length} outside [1, {t}]")
+        length = torch.full((), int(length), dtype=torch.int32, device=q.device)
     if not (q.stride() == k.stride() == v.stride() and q.stride(2) == 1 and q.stride(1) == d):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     # the bf16 kernel copies rows into shared memory 16 bytes at a time
@@ -70,7 +83,7 @@ def prefill_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(
         lib.prefill_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            t, h, q.stride(0), int(length), 1.0 / math.sqrt(d),
+            t, h, q.stride(0), length.data_ptr(), 1.0 / math.sqrt(d),
             int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device),
         ),
         "prefill_attention",

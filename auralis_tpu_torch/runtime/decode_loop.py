@@ -17,6 +17,13 @@ blocks with `len_bound` (the dense bodies' read bound) and `slot_bound`
 packed status left on the device, slot migration, status packing, release
 and harvest, with a bf16/f32 or an int8 KV cache.
 
+The per-call values of an insert (slot or slots, id counts, lengths and
+the sampling options) and of a migration (source and destination) may be
+device tensors, as the JAX functions take traced scalars: nothing on those
+paths reads the device on the host, uploads a host list or branches on a
+device value, so the runner replays each as a captured CUDA graph
+(runtime/graphs.py). Python numbers are accepted as before.
+
 A slot-bounded step needs no merge: `_slice_state` returns views of the
 first `sb` slots of every per-slot tensor (the cache stays whole, its rows
 addressed by slot), and every update below is in place, so it writes
@@ -35,6 +42,8 @@ from ..models.xttsv2.gpt import (
     gpt_decode_step,
     gpt_prefill,
     gpt_prefill_batched,
+    device_scalar,
+    device_values,
     heads,
     make_kv_cache,
 )
@@ -48,11 +57,12 @@ def _prompt_seen_row(cfg: XTTSGPTConfig, device="cuda") -> torch.Tensor:
     """Initial seen-mask row for a fresh sequence: with
     cfg.reppen_penalize_prompt_ids (reference parity) ids {1,
     start_audio_token} are penalized from step 0."""
-    row = torch.zeros((cfg.num_audio_tokens,), dtype=torch.bool, device=device)
+    ids = torch.arange(cfg.num_audio_tokens, device=device)
     if cfg.reppen_penalize_prompt_ids:
-        row[1] = True
-        row[cfg.start_audio_token] = True
-    return row
+        # built by comparison: a host number written into one element is an
+        # upload, which a captured insert cannot hold
+        return (ids == 1) | (ids == cfg.start_audio_token)
+    return torch.zeros_like(ids, dtype=torch.bool)
 
 
 def prefill_bucket(length: int, max_len: int) -> int:
@@ -132,49 +142,54 @@ def _record_and_advance(cfg: XTTSGPTConfig, state: DecodeState, latent: torch.Te
 
 
 def _assemble_prompt(params: dict, cfg: XTTSGPTConfig, cond: torch.Tensor,
-                     ids: torch.Tensor, n_ids: int) -> torch.Tensor:
+                     ids: torch.Tensor, n_ids) -> torch.Tensor:
     """[cond ⊕ text(ids)+text_wpe ⊕ start-audio] -> [C + Tb, D]. Row
     C + n_ids carries the start-audio embed (wte[start] + wpe[0]); rows
-    beyond are garbage and masked by gpt_prefill's length mask."""
-    tb = ids.shape[0]
-    pos = torch.clamp(torch.arange(tb, device=ids.device), max=params["text_wpe"].shape[0] - 1)
-    text = params["text_wte"][ids.long()] + params["text_wpe"][pos]
-    start = params["wte"][cfg.start_audio_token] + params["wpe"][0]
-    text[n_ids] = start
-    return torch.cat([cond.to(text.dtype), text], dim=0)
+    beyond are garbage and masked by gpt_prefill's length mask. `n_ids` is
+    an int or a 0-d integer tensor on the device."""
+    n = device_scalar(n_ids, torch.int64, ids.device).reshape(1)
+    return _assemble_prompts(params, cfg, cond[None], ids[None], n)[0]
+
+
+def _set_rows(field: torch.Tensor, onehot: torch.Tensor, value) -> None:
+    """field[s] = value on the slots where onehot [S] is set; `value` a
+    number or a 0-d tensor on the device. In place, no host read."""
+    value = device_scalar(value, field.dtype, field.device)
+    field.copy_(torch.where(onehot.reshape(-1, *(1,) * (field.dim() - 1)), value, field))
 
 
 @torch.no_grad()
 def insert_sequence(params: dict, cfg: XTTSGPTConfig, state: DecodeState,
-                    embeds: torch.Tensor, length: int, slot: int, temperature: float,
-                    top_p: float, top_k: int, repetition_penalty: float, do_sample: bool,
-                    max_new: int = 0, gumbel: torch.Tensor | None = None) -> None:
+                    embeds: torch.Tensor, length, slot, temperature, top_p, top_k,
+                    repetition_penalty, do_sample, max_new=0,
+                    gumbel: torch.Tensor | None = None) -> None:
     """Prefill a prompt into `slot`, sample its first token, mark it active
-    (the JAX `_insert_body`). In place."""
+    (the JAX `_insert_body`). `length`, `slot` and the sampling options are
+    Python numbers or 0-d tensors on the device (a captured insert's staged
+    inputs; nothing is read on the host). In place."""
     s = state.seq_lens.shape[0]
     dev = state.seq_lens.device
+    slot = device_scalar(slot, torch.int64, dev)
+    length = device_scalar(length, torch.int64, dev)
     onehot = torch.arange(s, device=dev) == slot
 
     h_last = gpt_prefill(params, cfg, embeds, length, slot, state.cache)
     logits, latent = heads(params, h_last[None])  # [1, V], [1, D]
 
     sp = state.sampling
-    sp.temperature[slot] = temperature
-    sp.top_p[slot] = top_p
-    sp.top_k[slot] = top_k
-    sp.repetition_penalty[slot] = repetition_penalty
-    sp.do_sample[slot] = bool(do_sample)
-    sp.max_new[slot] = max_new
-    sp.seen[slot] = _prompt_seen_row(cfg, dev)
+    for field, value in ((sp.temperature, temperature), (sp.top_p, top_p), (sp.top_k, top_k),
+                         (sp.repetition_penalty, repetition_penalty),
+                         (sp.do_sample, do_sample), (sp.max_new, max_new)):
+        _set_rows(field, onehot, value)
+    _set_rows(sp.seen, onehot, _prompt_seen_row(cfg, dev))
 
     logits_s = torch.where(onehot[:, None], logits, torch.zeros_like(logits))
     tokens = sample_tokens(logits_s, sp, state.generator, gumbel=gumbel, mark=onehot)
 
-    state.seq_lens[slot] = length - 1
-    state.audio_pos[slot] = 0
-    state.active[slot] = True
-    state.done[slot] = False
-    state.n_generated[slot] = 0
+    _set_rows(state.seq_lens, onehot, length - 1)
+    for field in (state.audio_pos, state.done, state.n_generated):
+        _set_rows(field, onehot, 0)
+    _set_rows(state.active, onehot, True)
     latent_full = torch.where(onehot[:, None], latent, torch.zeros_like(latent))
     _record_and_advance(cfg, state, latent_full, tokens, onehot)
 
@@ -189,44 +204,51 @@ def insert_sequences(params: dict, cfg: XTTSGPTConfig, state: DecodeState,
     the K slots' sampling rows and seen rows, sample all K first tokens in
     one `sample_tokens` call over [S, V] and record them. `lengths` [K] (0
     on padding lanes); `slots` [K] host ints (>= num_slots on padding lanes,
-    which touch nothing); the sampling arguments are [K] sequences or
-    tensors, or scalars for every lane. `gumbel` [S, V] optionally injects
-    the noise. One draw covers the burst, so sampled tokens differ from K
-    single inserts; greedy ones are equal. In place."""
+    which touch nothing) or a [K] integer tensor on the device of distinct
+    real slots (a captured burst: no padding lane, nothing read on the
+    host); the sampling arguments are [K] sequences or tensors, or scalars
+    for every lane. `gumbel` [S, V] optionally injects the noise. One draw
+    covers the burst, so sampled tokens differ from K single inserts; greedy
+    ones are equal. In place."""
     s = state.seq_lens.shape[0]
     dev = state.seq_lens.device
     kb = embeds.shape[0]
-    slots = [int(x) for x in slots]
-    lanes = [i for i, x in enumerate(slots) if x < s]
-    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
-    h_last = gpt_prefill_batched(params, cfg, embeds, lengths, slots, state.cache)
-    if not lanes:
-        return
+    lengths = device_values(lengths, torch.int32, dev)
+    if torch.is_tensor(slots):  # every lane real
+        lane_idx, slot_idx = None, slots.to(device=dev, dtype=torch.long)
+        h_last = gpt_prefill_batched(params, cfg, embeds, lengths, slot_idx, state.cache)
+    else:
+        slots = [int(x) for x in slots]
+        lanes = [i for i, x in enumerate(slots) if x < s]
+        h_last = gpt_prefill_batched(params, cfg, embeds, lengths, slots, state.cache)
+        if not lanes:
+            return
+        lane_idx = torch.tensor(lanes, dtype=torch.long, device=dev)
+        slot_idx = torch.tensor([slots[i] for i in lanes], dtype=torch.long, device=dev)
+
+    def real(lane_vals: torch.Tensor) -> torch.Tensor:
+        return lane_vals if lane_idx is None else lane_vals[lane_idx]
+
     logits, latent = heads(params, h_last)  # [K, V], [K, D]
-    lane_idx = torch.tensor(lanes, dtype=torch.long, device=dev)
-    slot_idx = torch.tensor([slots[i] for i in lanes], dtype=torch.long, device=dev)
-    khot = torch.zeros((s,), dtype=torch.bool, device=dev)
-    khot[slot_idx] = True
+    khot = (torch.arange(s, device=dev)[:, None] == slot_idx[None, :]).any(dim=1)
 
     sp = state.sampling
     for field, values in ((sp.temperature, temperature), (sp.top_p, top_p), (sp.top_k, top_k),
                           (sp.repetition_penalty, repetition_penalty),
                           (sp.do_sample, do_sample), (sp.max_new, max_new)):
-        lane_vals = torch.as_tensor(values, device=dev).to(field.dtype).expand(kb)
-        field[slot_idx] = lane_vals[lane_idx]
+        field[slot_idx] = real(device_values(values, field.dtype, dev).expand(kb))
     sp.seen[slot_idx] = _prompt_seen_row(cfg, dev)
 
     logits_s = torch.zeros((s, logits.shape[-1]), dtype=logits.dtype, device=dev)
-    logits_s[slot_idx] = logits[lane_idx]
+    logits_s[slot_idx] = real(logits)
     tokens = sample_tokens(logits_s, sp, state.generator, gumbel=gumbel, mark=khot)
 
-    state.seq_lens[slot_idx] = lengths[lane_idx] - 1
-    state.audio_pos[slot_idx] = 0
-    state.active[slot_idx] = True
-    state.done[slot_idx] = False
-    state.n_generated[slot_idx] = 0
+    state.seq_lens[slot_idx] = real(lengths) - 1
+    for field in (state.audio_pos, state.done, state.n_generated):
+        _set_rows(field, khot, 0)
+    _set_rows(state.active, khot, True)
     latent_full = torch.zeros((s, latent.shape[-1]), dtype=latent.dtype, device=dev)
-    latent_full[slot_idx] = latent[lane_idx]
+    latent_full[slot_idx] = real(latent)
     _record_and_advance(cfg, state, latent_full, tokens, khot)
 
 
@@ -252,27 +274,30 @@ def insert_sequences_tokens(params: dict, cfg: XTTSGPTConfig, state: DecodeState
     conditioning latents cond [K, C, D] (often one voice repeated) and
     padded text ids [K, Tb] (one upload for the burst), then
     `insert_sequences`. Lengths are C + n_ids + 1, and 0 on padding lanes
-    (slots >= num_slots), as in JAX. The prompts are in the cache dtype, or
-    bf16 under cfg.kv_int8."""
+    (host slots >= num_slots), as in JAX; device `slots` have no padding
+    lane. The prompts are in the cache dtype, or bf16 under cfg.kv_int8."""
     dev = state.seq_lens.device
     num_slots = state.seq_lens.shape[0]
-    n_ids = torch.as_tensor(n_ids, dtype=torch.long, device=dev)
+    n_ids = device_values(n_ids, torch.long, dev)
     embeds = _assemble_prompts(params, cfg, cond, ids.to(dev), n_ids).to(
         torch.bfloat16 if cfg.kv_int8 else state.cache.k.dtype)
-    real = torch.tensor([int(x) < num_slots for x in slots], device=dev)
-    lengths = torch.where(real, cond.shape[1] + n_ids + 1, 0)
+    lengths = cond.shape[1] + n_ids + 1
+    if not torch.is_tensor(slots):
+        real = torch.tensor([int(x) < num_slots for x in slots], device=dev)
+        lengths = torch.where(real, lengths, 0)
     insert_sequences(params, cfg, state, embeds, lengths, slots, temperature, top_p, top_k,
                      repetition_penalty, do_sample, max_new, gumbel=gumbel)
 
 
 def insert_sequence_tokens(params: dict, cfg: XTTSGPTConfig, state: DecodeState,
-                           cond: torch.Tensor, ids: torch.Tensor, n_ids: int, slot: int,
-                           temperature: float, top_p: float, top_k: int,
-                           repetition_penalty: float, do_sample: bool, max_new: int = 0,
+                           cond: torch.Tensor, ids: torch.Tensor, n_ids, slot, temperature,
+                           top_p, top_k, repetition_penalty, do_sample, max_new=0,
                            gumbel: torch.Tensor | None = None) -> None:
     """Assemble the prompt from device conditioning latents [C, D] and padded
     text ids [Tb] (bos/eos included, n_ids real), then insert it. The prompt
-    is in the cache dtype, or bf16 under cfg.kv_int8 (the activation dtype)."""
+    is in the cache dtype, or bf16 under cfg.kv_int8 (the activation dtype).
+    The per-call values are Python numbers or 0-d tensors on the device, as
+    `insert_sequence` takes them."""
     embeds = _assemble_prompt(params, cfg, cond, ids, n_ids).to(
         torch.bfloat16 if cfg.kv_int8 else state.cache.k.dtype)
     length = cond.shape[0] + n_ids + 1
@@ -340,24 +365,29 @@ def decode_steps_status(params: dict, cfg: XTTSGPTConfig, state: DecodeState,
 
 
 @torch.no_grad()
-def migrate_slot(state: DecodeState, src: int, dst: int) -> None:
+def migrate_slot(state: DecodeState, src, dst) -> None:
     """Move slot `src`'s whole decode state into slot `dst` (which must be
     free): KV rows (and int8 scales), the sampling rows including `seen`,
     the counters, and the token and latent buffers; then clear `src`'s
-    `active`, `done` and `n_generated`. Device-local copies, no host sync.
-    The runner migrates drain stragglers down so the slot bound can narrow.
-    A packed status read before the move indexes stale slots. In place."""
+    `active`, `done` and `n_generated`. Device-local copies, no host sync;
+    `src` and `dst` are ints or 0-d integer tensors on the device (a
+    captured migration's staged inputs). The runner migrates drain
+    stragglers down so the slot bound can narrow. A packed status read
+    before the move indexes stale slots. In place."""
+    dev = state.seq_lens.device
+    src = device_scalar(src, torch.int64, dev).reshape(1)
+    dst = device_scalar(dst, torch.int64, dev).reshape(1)
+    src_hot = torch.arange(state.seq_lens.shape[0], device=dev) == src
     cache = state.cache
     for t in (cache.k, cache.v, cache.k_scale, cache.v_scale):
         if t is not None:
-            t[:, dst].copy_(t[:, src])
+            t[:, dst] = t[:, src]
     for t in (*state.sampling.tensors(), state.seq_lens, state.audio_pos, state.last_token,
               state.active, state.done, state.tokens_buf, state.latents_buf,
               state.n_generated):
-        t[dst].copy_(t[src])
-    state.active[src] = False
-    state.done[src] = False
-    state.n_generated[src] = 0
+        t[dst] = t[src]
+    for field in (state.active, state.done, state.n_generated):
+        _set_rows(field, src_hot, 0)
 
 
 def pack_status(state: DecodeState) -> torch.Tensor:

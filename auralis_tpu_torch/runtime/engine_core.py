@@ -41,8 +41,13 @@ decode block is one captured CUDA graph per (n_steps, len_bound,
 slot_bound) (runtime/graphs.py; the config follows from the two bounds),
 the counterpart of the JAX runner's jitted `decode_steps_status`: a key's
 first block runs eagerly and is captured after it, and `precompile()`
-captures the whole key set before serving. The inserts and the status copy
-are issued eagerly; on the CPU everything is. The decode
+captures the whole key set before serving. So are the JAX runner's other
+jitted programs: the single insert per prefill bucket ("insert", bucket),
+the burst insert per (bucket, K) ("burst", bucket, K) and `migrate_slot`
+("migrate",), whose per-call values (slots, id counts, sampling options)
+are staged into static device tensors under each program's lock;
+`precompile_inserts()` captures them before serving. The status copy is
+issued eagerly; on the CPU everything is. The decode
 state is updated in place, so every latent row handed out (snapshot, hook
 row, harvested row) is an independent device copy taken under
 `_state_lock` on the one CUDA stream every thread issues to: it is ordered
@@ -68,6 +73,7 @@ from ..common.logger import setup_logger
 from ..common.tracing import record
 from ..models.xttsv2.config import XTTSGPTConfig
 from .decode_loop import (
+    PREFILL_BUCKETS,
     DecodeState,
     decode_steps_status,
     harvest_latents_device,
@@ -79,7 +85,7 @@ from .decode_loop import (
     release_slots,
     unpack_status,
 )
-from .graphs import ProgramCache
+from .graphs import Program, ProgramCache, upload
 
 logger = setup_logger("engine")
 
@@ -327,10 +333,8 @@ class DecodeEngine:
         self._queue.clear()
 
     def _release(self, slots: list[int]) -> None:
-        mask = torch.zeros((self.num_slots,), dtype=torch.bool)
-        mask[slots] = True
         with self._state_lock:
-            release_slots(self.state, mask.to(self.device))
+            self._release_state(slots)
         for s in slots:
             self._slot_owner.pop(s, None)
             self._slot_meta.pop(s, None)
@@ -393,7 +397,7 @@ class DecodeEngine:
                 dst = next(i for i in range(self.num_slots) if i not in self._slot_owner)
                 if dst >= worst:
                     break
-                migrate_slot(self.state, worst, dst)
+                self._migrate(worst, dst)
                 self._slot_owner[dst] = self._slot_owner.pop(worst)
                 self._slot_meta[dst] = self._slot_meta.pop(worst)
                 self.stats["migrations"] += 1
@@ -475,12 +479,68 @@ class DecodeEngine:
         if not self._programs.captures:
             host.copy_(block(), non_blocking=True)
             return
-        if self._programs_state is not state:
-            self._programs = ProgramCache(self.device, (state.generator,))
-            self._programs_state = state
-        prog = self._programs.get((n_steps, len_bound, slot_bound), lambda: (block, {}))
+        prog = self._program((n_steps, len_bound, slot_bound), lambda: (block, {}))
         with prog.lock:
             host.copy_(prog(), non_blocking=True)
+
+    def _program(self, key, build) -> Program:
+        """The captured program of `key` on the current decode state (a new
+        state gets a new cache: the programs' static inputs are its
+        tensors)."""
+        if self._programs_state is not self.state:
+            self._programs = ProgramCache(self.device, (self.state.generator,))
+            self._programs_state = self.state
+        return self._programs.get(key, build)
+
+    def precompile_inserts(self, cond_len: int) -> None:
+        """Capture every insert program and `migrate_slot` before serving,
+        the JAX `precompile_inserts`: per prefill bucket that holds
+        `cond_len` latents and the start token, the single insert (into
+        slot 0) and each burst of `_INSERT_K_BUCKETS` (into slots 0..K-1; a
+        burst wider than the slot count is never formed and is skipped),
+        each slot released after; then the migration (slot 0 onto itself). Each key's
+        first call runs eagerly on zero prompts and is captured after it;
+        the generator's state is restored, so sampled trajectories do not
+        shift. Before serving only: it fills and releases slots. On the CPU
+        nothing is captured."""
+        if self._slot_owner or self._queue:
+            raise RuntimeError("precompile_inserts must run before serving: it fills slots")
+        if not self._programs.captures:
+            return
+        t0 = time.perf_counter()
+        buckets = [b for b in PREFILL_BUCKETS if b <= self.cfg.max_seq_len] or [
+            self.cfg.max_seq_len]
+        cond = torch.zeros((cond_len, self.cfg.hidden_size), dtype=torch.float32,
+                           device=self.device)
+        greedy = SamplingOptions(temperature=1.0, top_p=1.0, top_k=1, repetition_penalty=1.0,
+                                 do_sample=False)
+        n = 0
+        with self._state_lock:
+            rng = self.state.generator.get_state()
+            for b in buckets:
+                tb = b - cond_len
+                if tb < 1:
+                    continue  # the bucket cannot hold the cond and the start token
+                n_ids = min(1, tb - 1)
+                for k in (1, *self._INSERT_K_BUCKETS):
+                    if k > self.num_slots:
+                        continue
+                    self._insert_tokens([cond] * k, np.zeros((k, tb), np.int64), [n_ids] * k,
+                                        list(range(k)), [greedy] * k)
+                    self._release_state(list(range(k)))
+                    n += 1
+            self._migrate(0, 0)
+            self.state.generator.set_state(rng)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        logger.info("insert and migrate programs captured: %d in %.1f s", n + 1,
+                    time.perf_counter() - t0)
+
+    def _release_state(self, slots: list[int]) -> None:
+        """Free `slots` in the decode state (the caller holds _state_lock)."""
+        mask = torch.zeros((self.num_slots,), dtype=torch.bool)
+        mask[slots] = True
+        release_slots(self.state, mask.to(self.device))
 
     def _own(self, pending: _Pending, slot: int) -> None:
         self._slot_owner[slot] = pending
@@ -497,52 +557,106 @@ class DecodeEngine:
 
     def _insert(self, pending: _Pending, slot: int) -> None:
         """Prefill one prompt into `slot` (worker thread)."""
-        opts, tp = pending.options, pending.prompt
-        t_up = time.perf_counter()
-        ids, n_ids = self._token_args(tp)
-        ids_dev = torch.from_numpy(ids).to(self.device)
-        t_disp = time.perf_counter()
-        insert_sequence_tokens(
-            self.params, self.cfg, self.state, tp.cond, ids_dev, n_ids, slot, opts.temperature,
-            opts.top_p, opts.top_k, opts.repetition_penalty, opts.do_sample,
-            opts.max_new_tokens)
-        self.stats["insert_upload_s"] += t_disp - t_up
-        self.stats["insert_dispatch_s"] += time.perf_counter() - t_disp
+        ids, n_ids = self._token_args(pending.prompt)
+        self._insert_tokens([pending.prompt.cond], ids[None], [n_ids], [slot], [pending.options])
         self.stats["inserts"] += 1
 
     def _insert_batch(self, pairs: list[tuple[_Pending, int]]) -> None:
         """Burst insert (worker thread): one batched prefill for all `pairs`
-        (one prefill bucket and cond width), so the GPT weights stream once
-        for the burst. The ids go up as one [K, Tb] upload and the per-lane
-        options as one float and one int upload; lanes pad to a K bucket
-        with slot = num_slots, which writes nothing."""
-        kb = next(b for b in self._INSERT_K_BUCKETS if b >= len(pairs))
-        pad = kb - len(pairs)
-        t_up = time.perf_counter()
+        (one prefill bucket and cond width, K in _INSERT_K_BUCKETS: every
+        lane real), so the GPT weights stream once for the burst."""
         args = [self._token_args(p.prompt) for p, _ in pairs]
-        ids = np.stack([a[0] for a in args] + [np.zeros_like(args[0][0])] * pad)
-        opts = [p.options for p, _ in pairs]
-        floats = np.asarray([[o.temperature for o in opts] + [1.0] * pad,
-                             [o.top_p for o in opts] + [1.0] * pad,
-                             [o.repetition_penalty for o in opts] + [1.0] * pad], np.float32)
-        ints = np.asarray([[a[1] for a in args] + [0] * pad,
-                           [o.top_k for o in opts] + [1] * pad,
-                           [o.do_sample for o in opts] + [0] * pad,
-                           [o.max_new_tokens for o in opts] + [0] * pad], np.int64)
-        ids_dev = torch.from_numpy(ids).to(self.device)
-        floats_dev = torch.from_numpy(floats).to(self.device)
-        ints_dev = torch.from_numpy(ints).to(self.device)
-        cond = torch.stack([p.prompt.cond for p, _ in pairs]
-                           + [pairs[0][0].prompt.cond] * pad)
-        slots = [s for _, s in pairs] + [self.num_slots] * pad
-        t_disp = time.perf_counter()
-        insert_sequences_tokens(
-            self.params, self.cfg, self.state, cond, ids_dev, ints_dev[0], slots, floats_dev[0],
-            floats_dev[1], ints_dev[1], floats_dev[2], ints_dev[2].bool(), ints_dev[3])
-        self.stats["insert_upload_s"] += t_disp - t_up
-        self.stats["insert_dispatch_s"] += time.perf_counter() - t_disp
+        self._insert_tokens([p.prompt.cond for p, _ in pairs],
+                            np.stack([a[0] for a in args]), [a[1] for a in args],
+                            [s for _, s in pairs], [p.options for p, _ in pairs])
         self.stats["inserts"] += len(pairs)
         self.stats["insert_batches"] += 1
+
+    def _insert_tokens(self, conds: list, ids: np.ndarray, n_ids: list, slots: list,
+                       opts: list) -> None:
+        """K prompts (conds [C, D] each, padded ids [K, Tb]) into K distinct
+        slots: one prompt is a single insert (kernel K1), more a burst (one
+        batched prefill). On the card the program ("insert", bucket) or
+        ("burst", bucket, K), its inputs staged under its lock (the ids and
+        one int64 and one f32 block of the per-call values through pinned
+        memory, each cond by a device copy); on the CPU the module
+        function."""
+        t_up = time.perf_counter()
+        kb, c = len(slots), int(conds[0].shape[0])
+        ints = np.asarray([slots, n_ids, [o.top_k for o in opts], [o.do_sample for o in opts],
+                           [o.max_new_tokens for o in opts]], np.int64)
+        floats = np.asarray([[o.temperature for o in opts], [o.top_p for o in opts],
+                             [o.repetition_penalty for o in opts]], np.float32)
+        if not self._programs.captures:
+            ids_dev = torch.from_numpy(ids).to(self.device)
+            t_disp = time.perf_counter()
+            if kb == 1:
+                o = opts[0]
+                insert_sequence_tokens(self.params, self.cfg, self.state, conds[0], ids_dev[0],
+                                       n_ids[0], slots[0], o.temperature, o.top_p, o.top_k,
+                                       o.repetition_penalty, o.do_sample, o.max_new_tokens)
+            else:
+                ints_dev = torch.from_numpy(ints).to(self.device)
+                floats_dev = torch.from_numpy(floats).to(self.device)
+                insert_sequences_tokens(
+                    self.params, self.cfg, self.state, torch.stack(conds), ids_dev, ints_dev[1],
+                    slots, floats_dev[0], floats_dev[1], ints_dev[2], floats_dev[2],
+                    ints_dev[3].bool(), ints_dev[4])
+        else:
+            # the cond width joins the key only where it is not the config's
+            # latent count (the JAX runner's programs are keyed by bucket)
+            width = () if c == self.cfg.num_cond_latents else (c,)
+            bucket = c + ids.shape[1]
+            key = ("insert", bucket, *width) if kb == 1 else ("burst", bucket, kb, *width)
+            prog = self._program(key, lambda: self._insert_fn(c, ids.shape[1], kb))
+            with prog.lock:
+                inp = prog.inputs
+                for lane, cond in zip(inp["cond"].view(kb, c, -1), conds):
+                    lane.copy_(cond)
+                for name, values in (("ids", ids), ("ints", ints), ("floats", floats)):
+                    upload(inp[name], values.reshape(inp[name].shape))
+                t_disp = time.perf_counter()
+                prog()
+        self.stats["insert_upload_s"] += t_disp - t_up
+        self.stats["insert_dispatch_s"] += time.perf_counter() - t_disp
+
+    def _insert_fn(self, c: int, tb: int, kb: int) -> tuple:
+        """(function, static inputs) of an insert program: the single insert
+        (kb 1) or the burst of kb real lanes. Inputs: cond [(K,) C, D] f32,
+        ids [(K,) Tb] int64, ints [5(, K)] (slot(s), n_ids, top_k,
+        do_sample, max_new) int64, floats [3(, K)] (temperature, top_p,
+        repetition_penalty) f32."""
+        dev, lead = self.device, (() if kb == 1 else (kb,))
+        inp = {"cond": torch.zeros((*lead, c, self.cfg.hidden_size), dtype=torch.float32,
+                                   device=dev),
+               "ids": torch.zeros((*lead, tb), dtype=torch.int64, device=dev),
+               "ints": torch.zeros((5, *lead), dtype=torch.int64, device=dev),
+               "floats": torch.ones((3, *lead), dtype=torch.float32, device=dev)}
+        insert = insert_sequence_tokens if kb == 1 else insert_sequences_tokens
+        state, i, f = self.state, inp["ints"], inp["floats"]
+
+        def fn():
+            insert(self.params, self.cfg, state, inp["cond"], inp["ids"], i[1], i[0], f[0], f[1],
+                   i[2], f[2], i[3], i[4])
+
+        return fn, inp
+
+    def _migrate(self, src: int, dst: int) -> None:
+        """migrate_slot(src -> dst): on the card the program ("migrate",),
+        src/dst staged under its lock; on the CPU the function itself."""
+        if not self._programs.captures:
+            migrate_slot(self.state, src, dst)
+            return
+
+        def build():
+            inp = {"pair": torch.zeros((2,), dtype=torch.int64, device=self.device)}
+            state, pair = self.state, inp["pair"]
+            return (lambda: migrate_slot(state, pair[0], pair[1])), inp
+
+        prog = self._program(("migrate",), build)
+        with prog.lock:
+            upload(prog.inputs["pair"], np.asarray([src, dst], np.int64))
+            prog()
 
     def _group_inserts(self, to_insert: list[tuple[_Pending, int]]) -> list[list]:
         """The pass's inserts grouped by (prefill bucket, cond width) and cut
@@ -645,9 +759,7 @@ class DecodeEngine:
             if self.device.type == "cuda":
                 status.event = torch.cuda.Event()
                 status.event.record(torch.cuda.current_stream(self.device))
-            mask = torch.zeros((self.num_slots,), dtype=torch.bool)
-            mask[slots] = True
-            release_slots(self.state, mask.to(self.device))
+            self._release_state(slots)
         ns = [int(n_generated[s]) for s in slots]
         task = asyncio.get_running_loop().create_task(
             self._resolve_harvest(owners, status, rows, ns))

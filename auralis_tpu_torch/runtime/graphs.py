@@ -1,40 +1,47 @@
 """Captured programs: the port's counterpart of `jax.jit` with static arguments.
 
 The JAX package compiles one XLA program per static key (a decode block per
-(cfg, n_steps, len_bound, slot_bound), a vocoder per row bucket and batch),
-and each call runs it as one dispatch. Issued eagerly, the same work is
-hundreds to thousands of small launches, each paid on the host. Here a
-`ProgramCache` holds one `Program` per key: on the card, a
+(cfg, n_steps, len_bound, slot_bound), a vocoder per row bucket and batch,
+an insert per prefill bucket and burst size, conditioning per reference
+length), and each call runs it as one dispatch. Issued eagerly, the same
+work is hundreds to thousands of small launches, each paid on the host.
+Here a `ProgramCache` holds one `Program` per key: on the card, a
 `torch.cuda.CUDAGraph` replayed as one launch; on the CPU, the eager
 function itself (as the kernels' plain versions run there).
 
 A program's inputs are static tensors: the caller writes into them (the
-decode state is updated in place anyway; the vocoder stages its host-built
-inputs) and reads the outputs, which live in the cache's memory pool and are
-overwritten by the next replay. So a caller holds `program.lock` from
-staging through the call to the point where it has issued the copy of the
-outputs.
+decode state is updated in place anyway; the vocoder, the inserts and
+conditioning stage their host-built inputs with `upload`) and reads the
+outputs, which live in the cache's memory pool and are overwritten by the
+next replay. So a caller holds `program.lock` from staging through the call
+to the point where it has issued the copy of the outputs.
 
 The first call of a key runs the function eagerly, and that run is the real
 one; only then is the key captured. A capture issues no work, so it moves no
-state, and whatever the eager run allocates once (the decode kernels' split
-workspaces) is allocated outside the graph's pool. A capture that fails
-raises: nothing falls back to eager on the card.
+state, and whatever the eager run allocates or plans once (the decode
+kernels' split workspaces, the mel tables, cuFFT's plans) is made outside
+the graph. A capture that fails raises: nothing falls back to eager on the
+card.
 
 Captures run in `capture_error_mode="thread_local"` (other threads keep
 issuing, syncing and querying events on their own streams meanwhile), one
-at a time in the process (`_CAPTURE_LOCK`). The kernel wrappers count the
-launches issued during a capture in a tally (`_build.tally_launches`), and
-every replay adds that tally to their counts, so a replayed kernel counts as
-launched. A generator that the function draws from is registered with the
-graph, so each replay advances it as the eager run does.
+at a time in the process (`_CAPTURE_LOCK`), with Python's cyclic collector
+paused (a graph freed during a capture invalidates it). The kernel wrappers
+count the launches issued during a capture in a tally
+(`_build.tally_launches`), and every replay adds that tally to their counts,
+so a replayed kernel counts as launched. A generator that the function
+draws from is registered with the graph, so each replay advances it as the
+eager run does.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import threading
 import time
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..ops import _build
@@ -44,13 +51,47 @@ from ..ops import _build
 _CAPTURE_LOCK = threading.Lock()
 
 # process-wide counts, like the kernel wrappers' `launches`: programs
-# captured, their capture and instantiation seconds, and replays
+# captured, their capture and instantiation seconds, and replays; and per
+# program kind ("<kind>.captures", "<kind>.capture_s", "<kind>.replays"),
+# the kind being a key's leading name ("insert", "burst", "migrate", "row",
+# "cond", ...) or "decode" for the decode blocks' (n_steps, ...) keys
 counts = {"captures": 0, "capture_s": 0.0, "instantiate_s": 0.0, "replays": 0}
 
 
 def reset_counts() -> None:
-    for k in counts:
+    for k in list(counts):
         counts[k] = 0 if isinstance(counts[k], int) else 0.0
+
+
+def kind_of(key) -> str:
+    return key[0] if isinstance(key, tuple) and isinstance(key[0], str) else "decode"
+
+
+def _tally(kind: str, what: str, n=1) -> None:
+    name = f"{kind}.{what}"
+    counts[name] = counts.get(name, 0) + n
+
+
+def upload(dst: torch.Tensor, values: np.ndarray) -> None:
+    """Stage host values into a program's static tensor: into a device
+    tensor without a host sync, through pinned memory that the copy keeps
+    alive until it has run."""
+    src = torch.from_numpy(values)
+    dst.copy_(src.pin_memory() if dst.is_cuda else src, non_blocking=True)
+
+
+@contextlib.contextmanager
+def _gc_paused():
+    """Python's cyclic collector paused: a collection during a capture could
+    free a graph of unreachable cycle garbage, and destroying a graph while
+    a stream captures invalidates the capture."""
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_enabled:
+            gc.enable()
 
 
 def captures_on(device) -> bool:
@@ -96,12 +137,16 @@ class Program:
     result is fn's output (a tensor or a tuple of them); after a replay it
     is the graph's static output, valid until the next call."""
 
-    def __init__(self, fn: Callable, inputs: dict, cache: "ProgramCache"):
+    def __init__(self, fn: Callable, inputs: dict, pool, generators: tuple,
+                 kind: str = "decode"):
         self.fn = fn
+        self.kind = kind
         self.inputs = inputs  # static input tensors, staged by the caller
         self.lock = threading.Lock()
         self.launches: dict = {}  # kernel wrapper -> launches per replay
-        self._cache = cache
+        # the cache's pool and generators, not the cache: no reference
+        # cycle, so a dropped cache frees its graphs at once
+        self._pool, self._generators = pool, generators
         self._graph: CudaGraph | None = None
 
     @property
@@ -116,15 +161,19 @@ class Program:
         for wrapper, n in self.launches.items():
             wrapper.launches += n
         counts["replays"] += 1
+        _tally(self.kind, "replays")
         return self._graph.replay()
 
     def _capture(self) -> None:
-        graph = CudaGraph(self._cache.pool, self._cache.generators)
-        with _CAPTURE_LOCK, _build.tally_launches() as tally:
+        graph = CudaGraph(self._pool, self._generators)
+        with _CAPTURE_LOCK, _build.tally_launches() as tally, _gc_paused():
+            t0 = time.perf_counter()
             graph.capture(self.fn)
+            _tally(self.kind, "capture_s", time.perf_counter() - t0)
         self.launches = tally
         self._graph = graph
         counts["captures"] += 1
+        _tally(self.kind, "captures")
 
 
 class ProgramCache:
@@ -148,7 +197,8 @@ class ProgramCache:
             prog = self._programs.get(key)
             if prog is None:
                 fn, inputs = build()
-                prog = self._programs[key] = Program(fn, inputs, self)
+                prog = self._programs[key] = Program(fn, inputs, self.pool, self.generators,
+                                                     kind_of(key))
             return prog
 
     def keys(self) -> list:

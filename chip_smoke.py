@@ -15,6 +15,9 @@ Phases:
     bound (bytes over the memory rate or operations over the peak rate,
     from the call's shapes) and, for K1 and K3, one PyTorch call computing
     the same function; K1's and K3's f32 instantiations (phase 5's) too.
+    K1 takes its prompt length from device memory: it is checked with the
+    length as an int32 on the card (what a captured insert passes; `ms`) and
+    as an int (the wrapper writes it there; `ms_int_length`), bit-equal.
     K2 and K4 run at every write-position set of decode_bench.py (the
     ragged mix, split edges, all slots at 0, 127 and 1046), each launched
     twice (bit-equal ctx), and are timed cold (call i on layer i % 30, as
@@ -58,7 +61,7 @@ Phases:
     then the int8 configuration's bounds and runner, and the dense int8
     body under the per-program W8A8 policy (its choice at every bound);
     K2 and K3 (bf16) and K4 (int8) must launch in the runner drives,
-    and graphs replay there;
+    and graphs replay there, insert programs among them;
  4f. streaming on the bf16 configuration with 16 slots: one solo
     streaming request, then 8 concurrent ones with bench.py's TTFA text
     (SENTENCE x 4, two chunks each, 120 tokens a chunk): time to first
@@ -69,9 +72,10 @@ Phases:
     row in a batch of 4 must equal the row alone. The 8-stream burst runs
     twice: first capturing its programs lazily while other threads issue,
     then after TTS.warmup() (whose precompile hooks capture every decode
-    block and vocoder program; its time and memory are printed). K1, K2,
-    K3 must launch and graphs replay. (Its int8 stream runs in 4b.) Phase
-    3 checks K3 at the streaming windows' shapes (STREAM_WINDOWS);
+    block, insert program and vocoder program; its time and memory are
+    printed), where insert programs must replay too. K1, K2, K3 must
+    launch and graphs replay. (Its int8 stream runs in 4b.) Phase 3
+    checks K3 at the streaming windows' shapes (STREAM_WINDOWS);
  4g. captured programs on fresh bf16 and int8 engines: the precompile
     hooks' time, captures, capture and instantiation seconds and memory
     reserved before and after; a 16-step and a 13-step block, greedy and
@@ -80,7 +84,20 @@ Phases:
     state tensor (tokens, latents, KV rows and int8 scales, sampling rows,
     counters), the packed status and the generator's state bit-equal; on
     bf16 the vocoder programs (seg_first at B = 1, 8; seg at B = 1, 4; rows
-    in every bucket at B = 1, 4) 0 PCM steps from the eager functions;
+    in every bucket at B = 1, 4) 0 PCM steps from the eager functions.
+    precompile_decode_programs must capture every decode block, the 16
+    insert programs (single and K = 2, 4, 8 per prefill bucket) and
+    migrate_slot, its decode and insert parts timed apart;
+ 4h. the insert programs on 4g's engines: from one cloned full-width state
+    per side, `precompile_inserts` captures on the graph side, then a
+    single insert at each prefill bucket into slot 5 (sampled and greedy),
+    bursts of K = 2, 4, 8 at buckets 128 and 512 into non-contiguous slots
+    and migrate_slot 6 -> 1 replay with other values than the capture's,
+    against the module functions with the same values: every state tensor
+    and the generator bit-equal; ms per chunk, eager and graph, of the
+    single insert and each burst at bucket 128. On bf16, the conditioning
+    programs (perceiver latents and speaker embedding of a 6 s and a 3 s
+    reference) bit-equal to the eager functions, ms side by side;
  5. reference check: the same full-width engine in f32 answers one short
     greedy request on the card (through the kernels) and on the CPU
     (through their plain versions); tokens must be equal and waveforms
@@ -110,11 +127,20 @@ Phases:
 
 Each phase's header gives the seconds since the start. Any failure exits
 non-zero. The kernels' launch counts include the launches of replayed
-graphs (each replay adds the launches its capture recorded). The eager
+graphs (each replay adds the launches its capture recorded); every phase
+that serves prints the captures and replays by program kind (decode,
+insert, burst, migrate, the vocoder's, cond, speaker). The eager
 reference on the card is the module functions (`decode_steps_status`,
-`_vocode_seg_first`, ...), which capture nothing. Before the last line come the kernels JSON
-object and the nvidia-smi line; the last is {"ok": true, "device": {...}}. There is no CPU path: the
-script exits non-zero when no CUDA device is visible. JAX is never imported.
+`insert_sequence_tokens`, `insert_sequences_tokens`, `migrate_slot`,
+`_vocode_seg_first`, `_cond_latents`, ...), which capture nothing. To
+hold the script's time on slower hosts, every engine is built from one
+cached set of seed-0 weights, and some earlier paths run at reduced
+depth: the eager decode profiles of 4, 4b and 4e time one run, and 4c's
+requests (32 tokens) and the W8A8 policy drive's chunks (12-32 tokens)
+are short. Before the last line
+come the kernels JSON object and the nvidia-smi line; the last is
+{"ok": true, "device": {...}}. There is no CPU path: the script exits
+non-zero when no CUDA device is visible. JAX is never imported.
 """
 from __future__ import annotations
 
@@ -122,6 +148,7 @@ import asyncio
 import base64
 import ctypes
 import dataclasses
+import functools
 import itertools
 import json
 import math
@@ -167,6 +194,7 @@ from auralis_tpu_torch.models.xttsv2.gpt import (
 )
 from auralis_tpu_torch.runtime import graphs
 from auralis_tpu_torch.runtime.decode_loop import (
+    PREFILL_BUCKETS,
     DecodeState,
     _assemble_prompt,
     decode_steps,
@@ -399,25 +427,33 @@ def check_prefill(dev, results) -> None:
                           (1047, 1047, torch.bfloat16), (128, 100, torch.float32)):
         qkv = torch.randn((t, 3 * h * d), generator=gen, device=dev).to(dt)
         q, k, v = (x.view(t, h, d) for x in qkv.split(h * d, dim=-1))
-        got = prefill_flash_attention(q, k, v, length)
+        # the length as the captured inserts pass it (an int32 on the card,
+        # read by the kernel) and as an int (the wrapper writes it there)
+        dev_len = torch.tensor(length, dtype=torch.int32, device=dev)
+        got = prefill_flash_attention(q, k, v, dev_len)
+        got_int = prefill_flash_attention(q, k, v, length)
         torch.cuda.synchronize()
-        want = prefill_attention_plain(q, k, v, length)
-        err = (got - want).abs().max().item()
+        want = prefill_attention_plain(q, k, v, dev_len)
+        err = max((got - want).abs().max().item(), (got_int - want).abs().max().item())
         tag = "bf16" if dt == torch.bfloat16 else "f32"
-        if not err <= tol:
-            raise AssertionError(f"K1 prefill {tag} T={t}: error {err} > {tol}")
-        ms = time_ms(lambda: prefill_flash_attention(q, k, v, length), 20)
-        plain_ms = time_ms(lambda: prefill_attention_plain(q, k, v, length), 20)
+        if not (err <= tol and torch.equal(got, got_int)):
+            raise AssertionError(f"K1 prefill {tag} T={t}: error {err} > {tol}, or the int "
+                                 f"and device lengths differ")
+        ms = time_ms(lambda: prefill_flash_attention(q, k, v, dev_len), 20)
+        ms_int = time_ms(lambda: prefill_flash_attention(q, k, v, length), 20)
+        plain_ms = time_ms(lambda: prefill_attention_plain(q, k, v, dev_len), 20)
         # bytes: q, k, v read once, f32 ctx written once; operations: QK^T
         # and PV over the (query, key) pairs the mask keeps
         pairs = sum(min(i + 1, length) for i in range(t))
         bound_ms, bound_by = bound(t * h * d * (3 * q.element_size() + 4), 4 * d * h * pairs,
                                    tag)
-        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by}
+        row = {"max_abs_err": err, "ms": ms, "ms_int_length": ms_int, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by}
         line = (f"  K1 prefill {tag} T={t} len={length}: max_abs_err={err:.3e} (bound "
-                f"{tol:.0e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                f"{bound_ms:.5f} ms ({bound_by}, {bound_ms / ms:.1%} of it)")
+                f"{tol:.0e}; int and device length bit-equal); kernel {ms:.4f} ms (device "
+                f"length; {ms_int:.4f} with an int, the wrapper's fill included), plain "
+                f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, {bound_ms / ms:.1%} "
+                f"of it)")
         if dt == torch.bfloat16:
             mask = k1_mask(t, length, dev)
             lib = sdpa_yardstick(q, k, v, mask)
@@ -915,14 +951,25 @@ def build_tokenizer(vocab: int):
 
 
 # -------------------------------------------------------------------- slice
+@functools.lru_cache(maxsize=1)
+def seed0_weights() -> tuple[dict, dict]:
+    """The full-width model's seed-0 numpy weights (random_init), made once:
+    the flags of a configuration do not change its weights, and making them
+    takes ~5-12 s of host time per engine."""
+    return random_init(XTTSConfig(), seed=0)
+
+
 def build_engine(dev, tokenizer, gpt_flags: dict, engine_flags: dict, **kw) -> XTTSv2Engine:
-    """The full-width engine with seeded random bf16 weights."""
+    """The full-width engine with seeded random bf16 weights (what
+    XTTSv2Engine.random_init builds, from the cached seed-0 weights)."""
     cfg = XTTSConfig()
     cfg.gpt = dataclasses.replace(cfg.gpt, **gpt_flags)
     t0 = time.perf_counter()
-    engine = XTTSv2Engine.random_init(
-        cfg, tokenizer=tokenizer, dtype=torch.bfloat16, seed=0, device=dev,
-        decode_slots=kw.pop("decode_slots", 8), max_concurrency=4, **engine_flags, **kw)
+    params, core = params_from_numpy(*seed0_weights(), device=dev, dtype=torch.bfloat16)
+    engine = XTTSv2Engine(
+        cfg, cfg.gpt, params=params, core=core, tokenizer=tokenizer, device=dev, seed=0,
+        cache_dtype=torch.bfloat16, decode_slots=kw.pop("decode_slots", 8), max_concurrency=4,
+        **engine_flags, **kw)
     torch.cuda.synchronize()
     cache = engine.decode_engine.state.cache
     say(f"  engine: GPT {cfg.gpt.num_hidden_layers} layers x {cfg.gpt.hidden_size}, "
@@ -949,9 +996,20 @@ def busy_ms(dev_events) -> float:
     return (busy + hi - lo) / 1e3
 
 
+# program kinds as graphs.counts tallies them ("<kind>.captures", ...)
+PROGRAM_KINDS = ("decode", "insert", "burst", "migrate", "seg_first", "seg", "row", "cond",
+                 "speaker")
+
+
 def graphs_text(counts: dict) -> str:
+    """Captures (with their seconds) and replays, then per program kind
+    captured / replayed: the insert programs' numbers are `insert` (single)
+    and `burst`."""
+    kinds = [f"{k} {counts.get(k + '.captures', 0)}/{counts.get(k + '.replays', 0)}"
+             for k in PROGRAM_KINDS if counts.get(k + ".captures") or counts.get(k + ".replays")]
     return (f"{counts['captures']} captured ({counts['capture_s']:.2f} s capture, "
-            f"{counts['instantiate_s']:.2f} s instantiate), {counts['replays']} replays")
+            f"{counts['instantiate_s']:.2f} s instantiate), {counts['replays']} replays"
+            + (f" [captured/replayed by kind: {', '.join(kinds)}]" if kinds else ""))
 
 
 def must_replay(what: str, counts: dict) -> None:
@@ -959,6 +1017,17 @@ def must_replay(what: str, counts: dict) -> None:
     graphs during `what`."""
     if counts["replays"] <= 0:
         raise AssertionError(f"no captured program was replayed during {what}: {counts}")
+
+
+def must_replay_inserts(what: str, counts: dict) -> None:
+    """The runner's single or burst insert programs replayed during `what`."""
+    if counts.get("insert.replays", 0) + counts.get("burst.replays", 0) <= 0:
+        raise AssertionError(f"no insert program was replayed during {what}: {counts}")
+
+
+def decode_keys(de) -> list:
+    """The decode blocks' keys among a runner's captured programs."""
+    return [k for k in de._programs.keys() if graphs.kind_of(k) == "decode"]
 
 
 def profile_run(fn, n_units: int, kernel: str | None = None, reps: int = 3) -> dict:
@@ -1039,8 +1108,10 @@ def profile_decode(engine, smi: str, kernel: str) -> None:
             de._decode_block(n, None, None, host)
             torch.cuda.synchronize()
 
-        for mode, fn in (("eager", eager), ("graph", graph)):
-            row = profile_run(fn, n, kernel)
+        # one timed eager run: the eager block is host-bound, and one run
+        # holds the script's time
+        for mode, fn, reps in (("eager", eager, 1), ("graph", graph, 3)):
+            row = profile_run(fn, n, kernel, reps=reps)
             say(f"  decode block, {mode}: {n} steps x {de.num_slots} live slots (write_pos "
                 f"{lens.tolist()}), {profile_text(row, 'step', kernel)} ({smi})")
 
@@ -1161,7 +1232,8 @@ def check_waveform(name: str, o) -> None:
 
 def run_dense_int8(dev, tokenizer) -> None:
     """The dense int8 decode body (no K4) with W8A8 decode matmuls: one
-    64-token request each with bf16 probabilities (decode_attn_fp) and with
+    32-token request (short, to hold the script's time) each with bf16
+    probabilities (decode_attn_fp) and with
     probabilities requantised to int8."""
     with tempfile.TemporaryDirectory() as tmp:
         wav_path = write_voice(tmp)
@@ -1170,14 +1242,16 @@ def run_dense_int8(dev, tokenizer) -> None:
                                                    "decode_attn_fp": attn_fp},
                                   {"kv_int8": True, "decode_w8a8": True}, decode_slots=2)
             tts = TTS(scheduler_max_concurrency=1).with_engine(engine)
+            graphs.reset_counts()
             t0 = time.perf_counter()
             out = tts.generate_speech(TTSRequest(
                 text="Hello world, this is a test of speech.", speaker_files=[wav_path],
-                language="en", max_new_tokens=64))
+                language="en", max_new_tokens=32))
             torch.cuda.synchronize()
             check_waveform(f"dense int8 decode_attn_fp={attn_fp}", out)
             say(f"  decode_attn_fp={attn_fp}: {out.array.size / out.sample_rate:.2f} s audio "
-                f"(64 tokens cap) in {time.perf_counter() - t0:.2f} s wall")
+                f"(32 tokens cap) in {time.perf_counter() - t0:.2f} s wall; graphs "
+                f"{graphs_text(graphs.counts)}")
             tts.loop.run_until_complete(tts.shutdown())
             del tts, engine
 
@@ -1239,9 +1313,11 @@ def run_reference_check(dev, tokenizer) -> None:
                                   device=device, cache_dtype=torch.float32,
                                   vocoder_dtype=torch.float32, decode_slots=2,
                                   max_concurrency=1)
+            graphs.reset_counts()
             out[device.type] = asyncio.run(_greedy_chunk(engine, wav_path, "Hello world.", 24))
             say(f"  {device.type}: {len(out[device.type][0])} tokens, "
-                f"{out[device.type][1].size} samples in {time.perf_counter() - t0:.1f} s")
+                f"{out[device.type][1].size} samples in {time.perf_counter() - t0:.1f} s; graphs "
+                f"{graphs_text(graphs.counts)}")
             del engine, params, core
     (tok_g, wav_g), (tok_c, wav_c) = out["cuda"], out["cpu"]
     if not np.array_equal(tok_g, tok_c):
@@ -1420,11 +1496,12 @@ def check_burst_inserts(engine, smi: str) -> None:
 def block_profile(p, g, st, n_steps: int, slot_bound, kernel: str) -> dict:
     """One `n_steps` block of decode_steps_status at `slot_bound` plus its
     status copy, continuing `st`, eagerly (the module function), through
-    profile_run."""
+    profile_run with one timed run (eager blocks are host-bound; one run
+    holds the script's time)."""
     def block():
         decode_steps_status(p, g, st, n_steps, slot_bound=slot_bound).cpu()
 
-    return profile_run(block, n_steps, kernel)
+    return profile_run(block, n_steps, kernel, reps=1)
 
 
 def check_slot_bounds(engine, smi: str, kernel: str) -> None:
@@ -1588,6 +1665,7 @@ def check_runner(engine, smi: str, must_launch: tuple, facade_wav: str | None) -
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by phase 4e's main path")
     must_replay("phase 4e's runner drive", runner_graphs)
+    must_replay_inserts("phase 4e's runner drive", runner_graphs)
     plain = DecodeEngine(engine.params, g, num_slots=CONC_SLOTS, cache_dtype=engine.cache_dtype,
                          steps_per_sync=de.steps_per_sync, device=dev)
     want, wall_u = asyncio.run(drive_runner(plain, prompts, options))
@@ -1605,7 +1683,7 @@ def check_runner(engine, smi: str, must_launch: tuple, facade_wav: str | None) -
 
 def check_policy(engine, smi: str) -> None:
     """The dense int8 body (kv_int8, no K4) run by a DecodeEngine given the
-    engine's w8a8_policy(): 6 greedy chunks of 24-64 tokens. Prints the
+    engine's w8a8_policy(): 6 greedy chunks of 12-32 tokens. Prints the
     program _cfg_for picks at every (length bound, slot bound) pair and the
     programs the blocks ran; at least two programs must appear."""
     g = dataclasses.replace(engine.gpt_config, ragged_decode=False, decode_w8a8=False)
@@ -1622,7 +1700,7 @@ def check_policy(engine, smi: str) -> None:
     ran = []
     pick = de._cfg_for
     de._cfg_for = lambda lb, sb: ran.append(name(pick(lb, sb))) or pick(lb, sb)
-    caps = [24, 32, 48, 40, 64, 56]
+    caps = [12, 16, 24, 20, 32, 28]  # short, to hold the script's time
     prompts = conc_prompts(g, engine.device, len(caps), seed=90)
 
     async def go():
@@ -1810,6 +1888,8 @@ def run_streaming(dev, smi: str, tokenizer) -> dict:
             if not all(o[1] >= 1 for o in outs) or outs[0][1] < 2:
                 raise AssertionError(f"streams: segments {[o[1] for o in outs]}")
             must_replay(f"the streaming burst ({tag})", graphs.counts)
+            if tag != "lazy captures":
+                must_replay_inserts(f"the streaming burst ({tag})", graphs.counts)
             tts.loop.run_until_complete(drained())
             say(f"  abandonment: {STREAM_CONCURRENCY - 1} streams closed after their first "
                 f"segment; num_active back to 0")
@@ -1822,12 +1902,15 @@ def run_streaming(dev, smi: str, tokenizer) -> dict:
                                 "jumps over the lazy dog.")
                 say(f"  TTS.warmup (precompile hooks, then two sentences of traffic) completed "
                     f"in {time.perf_counter() - t0:.1f} s: graphs {graphs_text(graphs.counts)}; "
-                    f"decode keys {len(de._programs.keys())} of {len(de.precompile_keys())}, "
+                    f"decode keys {len(decode_keys(de))} of {len(de.precompile_keys())}, "
+                    f"insert and migrate keys {len(de._programs.keys()) - len(decode_keys(de))}, "
                     f"vocoder keys {len(engine._vocoder_programs.keys())}; memory reserved "
                     f"{reserved / 2**30:.2f} -> {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
                     f"({smi})")
-                if len(de._programs.keys()) < len(de.precompile_keys()):
+                if len(decode_keys(de)) < len(de.precompile_keys()):
                     raise AssertionError("TTS.warmup() left decode keys uncaptured")
+                if len(de._programs.keys()) - len(decode_keys(de)) < INSERT_KEYS + 1:
+                    raise AssertionError("TTS.warmup() left insert keys uncaptured")
 
         segs, row, n, spk = tts.loop.run_until_complete(
             greedy_stream(engine, wav_path, "Hello world, this is a test of speech.", 200))
@@ -2020,13 +2103,37 @@ def check_graph_vocoders(engine) -> None:
         f"rows in buckets {buckets} at B = 1, 4), two batches each: PCM {worst} steps apart")
 
 
-def run_graphs(dev, smi: str, tokenizer) -> None:
+def timed_calls(obj, names: tuple) -> dict:
+    """Wrap the methods `names` of `obj` so each call records (seconds to
+    the card's completion, memory_reserved before, after) under its name in
+    the returned dict; `del obj.<name>` restores a method."""
+    out = {}
+    for name in names:
+        def wrapper(*args, _fn=getattr(obj, name), _name=name, **kwargs):
+            torch.cuda.synchronize()
+            before, t0 = torch.cuda.memory_reserved(), time.perf_counter()
+            _fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            out[_name] = (time.perf_counter() - t0, before, torch.cuda.memory_reserved())
+        setattr(obj, name, wrapper)
+    return out
+
+
+# the insert programs at full width: the single insert and bursts of K = 2,
+# 4, 8 in every prefill bucket (the JAX runner's precompile_inserts set)
+INSERT_KEYS = len(PREFILL_BUCKETS) * (1 + len(DecodeEngine._INSERT_K_BUCKETS))
+
+
+def run_graphs(dev, smi: str, tokenizer) -> dict:
     """Phase 4g: the captured programs on the full-width bf16 (K2) and int8
     (K4) engines of phases 4 and 4b. Per engine, `precompile_decode_programs`
     (and on bf16 `precompile_vocoder_buckets`) with its time, captures,
     capture and instantiation seconds and memory_reserved before and
-    after; then the decode blocks against eager (check_graph_blocks) and,
-    on bf16, the vocoder programs (check_graph_vocoders)."""
+    after, the decode blocks (`DecodeEngine.precompile`) and the insert and
+    migrate programs (`precompile_inserts`) apart; then the decode blocks
+    against eager (check_graph_blocks) and, on bf16, the vocoder programs
+    (check_graph_vocoders). Returns the engines, which phase 4h reuses."""
+    engines = {}
     for tag, gpt_flags, engine_flags in (
             ("bf16", {"flash_decode": True, "prefill_flash": True}, {}),
             ("int8", {"prefill_flash": True, "ragged_decode": True},
@@ -2039,22 +2146,202 @@ def run_graphs(dev, smi: str, tokenizer) -> None:
             hooks.append(("vocoder", engine.precompile_vocoder_buckets))
         for name, hook in hooks:
             graphs.reset_counts()
+            parts = timed_calls(de, ("precompile", "precompile_inserts"))
             torch.cuda.synchronize()
             reserved = torch.cuda.memory_reserved()
             t0 = time.perf_counter()
             hook()
             torch.cuda.synchronize()
+            del de.precompile, de.precompile_inserts
+            c = graphs.counts
             say(f"  {tag} precompile ({name}): {time.perf_counter() - t0:.1f} s, graphs "
-                f"{graphs_text(graphs.counts)}; memory reserved {reserved / 2**30:.2f} -> "
+                f"{graphs_text(c)}; memory reserved {reserved / 2**30:.2f} -> "
                 f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB ({smi})")
-        keys = de._programs.keys()
-        if len(keys) != len(de.precompile_keys()):
-            raise AssertionError(f"{tag}: precompile captured {len(keys)} of "
+            for part, kinds in (("precompile", ("decode",)),
+                                ("precompile_inserts", ("insert", "burst", "migrate"))):
+                if part in parts:
+                    secs, before, after = parts[part]
+                    say(f"    {part}: {secs:.1f} s, memory reserved {before / 2**30:.2f} -> "
+                        f"{after / 2**30:.2f} GiB; " + "; ".join(
+                            f"{k} {c.get(k + '.captures', 0)} captured in "
+                            f"{c.get(k + '.capture_s', 0.0):.2f} s (capture + instantiate)"
+                            for k in kinds))
+        if len(decode_keys(de)) != len(de.precompile_keys()):
+            raise AssertionError(f"{tag}: precompile captured {len(decode_keys(de))} of "
                                  f"{len(de.precompile_keys())} decode keys")
+        others = [k for k in de._programs.keys() if graphs.kind_of(k) != "decode"]
+        if (sum(k[0] in ("insert", "burst") for k in others) != INSERT_KEYS
+                or ("migrate",) not in others):
+            raise AssertionError(f"{tag}: precompile_decode_programs captured {others}, not "
+                                 f"the {INSERT_KEYS} insert programs and migrate_slot")
         check_graph_blocks(engine, tag, smi)
         if tag == "bf16":
             check_graph_vocoders(engine)
-        del engine, de
+        engines[tag] = engine
+    return engines
+
+
+# ------------------------------------------------- inserts and conditioning
+INSERT_SAMPLED = SamplingOptions(temperature=0.75, top_p=0.85, top_k=50, repetition_penalty=5.0,
+                                 do_sample=True, max_new_tokens=300)
+INSERT_GREEDY = dataclasses.replace(INSERT_SAMPLED, do_sample=False)
+# phase 4h's bursts: non-contiguous slots of the 8-slot state
+BURST_SLOTS = {2: [6, 1], 4: [7, 2, 5, 0], 8: [3, 7, 0, 5, 2, 6, 1, 4]}
+
+
+def opt_args(o: SamplingOptions) -> tuple:
+    return (o.temperature, o.top_p, o.top_k, o.repetition_penalty, o.do_sample,
+            o.max_new_tokens)
+
+
+def insert_prompt(g, dev, bucket: int, seed: int) -> tuple:
+    """(cond [C, D] f32 on the card, ids [bucket - C] int64, n_ids): a
+    prompt that fills most of prefill bucket `bucket`."""
+    rng = np.random.default_rng(seed)
+    tb = bucket - g.num_cond_latents
+    n = tb - 1 - int(rng.integers(0, min(16, tb - 2)))
+    ids = np.zeros((tb,), np.int64)
+    ids[:n] = rng.integers(5, g.number_text_tokens - 1, n)
+    cond = (0.3 * rng.standard_normal((g.num_cond_latents, g.hidden_size))).astype(np.float32)
+    return torch.from_numpy(cond).to(dev), ids, n
+
+
+def check_insert_programs(engine, tag: str, smi: str) -> None:
+    """Every insert program and migrate_slot of a fresh engine against the
+    module functions, from one cloned full-width state per side (every slot
+    live at the ragged write positions): `precompile_inserts` captures the
+    programs on the graph side's state (zero prompts, greedy, slots 0..K-1,
+    migrate 0 -> 0), then each case replays one with other values and the
+    eager side runs `insert_sequence_tokens` / `insert_sequences_tokens` /
+    `migrate_slot` with them: a single insert at every prefill bucket into
+    slot 5, sampled and greedy; bursts of K = 2, 4, 8 at buckets 128 and
+    512 into non-contiguous slots, lanes sampled and greedy in turn; one
+    migration 6 -> 1. Every state tensor (KV rows and int8 scales, sampling
+    and seen rows, counters, tokens, latents) and the generator's state
+    must be bit-equal, and every case must replay. Then ms per chunk of the
+    single insert at bucket 128 and of each burst at bucket 128, eager and
+    graph."""
+    g, p, dev, de = engine.gpt_config, engine.params, engine.device, engine.decode_engine
+    home = de.state
+    s0 = full_width_state(engine, True, seed=90)
+    graphed, eager = clone_state(s0), clone_state(s0)
+    de.state = graphed
+    de.precompile_inserts(g.num_cond_latents)
+    say(f"  {tag}: precompile_inserts on the graph side's state: "
+        f"{len(de._programs.keys())} programs captured")
+
+    def case(name: str, graph_fn, eager_fn) -> None:
+        restore_state(graphed, s0)
+        restore_state(eager, s0)
+        replays = graphs.counts["replays"]
+        graph_fn()
+        eager_fn()
+        torch.cuda.synchronize()
+        got_t, want_t = state_tensors(graphed), state_tensors(eager)
+        differ = [n for n in got_t if not torch.equal(got_t[n], want_t[n])]
+        if not torch.equal(graphed.generator.get_state(), eager.generator.get_state()):
+            differ.append("generator state")
+        if graphs.counts["replays"] != replays + 1:
+            differ.append("no replay")
+        say(f"  {tag} {name}: graph vs eager over {len(got_t)} state tensors and the "
+            f"generator: {'bit-equal' if not differ else 'DIFFER in ' + ', '.join(differ)}")
+        if differ:
+            raise AssertionError(f"{tag} {name}: the program differs from eager: {differ}")
+
+    for i, bucket in enumerate(PREFILL_BUCKETS):
+        for opts in (INSERT_SAMPLED, INSERT_GREEDY):
+            cond, ids, n = insert_prompt(g, dev, bucket, seed=100 + i)
+            ids_dev = torch.from_numpy(ids).to(dev)
+            case(f"single insert, bucket {bucket} ({n} ids), slot 5, "
+                 f"{'sampled' if opts.do_sample else 'greedy'}",
+                 lambda: de._insert_tokens([cond], ids[None], [n], [5], [opts]),
+                 lambda: insert_sequence_tokens(p, g, eager, cond, ids_dev, n, 5,
+                                                *opt_args(opts)))
+    for bucket in (128, 512):
+        for k, slots in BURST_SLOTS.items():
+            prompts = [insert_prompt(g, dev, bucket, seed=200 + 10 * k + j) for j in range(k)]
+            conds, ns = [c for c, _, _ in prompts], [n for _, _, n in prompts]
+            ids = np.stack([x for _, x, _ in prompts])
+            ids_dev = torch.from_numpy(ids).to(dev)
+            opts = [dataclasses.replace(INSERT_SAMPLED, temperature=0.6 + 0.1 * j,
+                                        top_k=50 - j, do_sample=j % 2 == 0,
+                                        max_new_tokens=100 + j) for j in range(k)]
+            lanes = list(zip(*(opt_args(o) for o in opts)))
+            case(f"burst K={k}, bucket {bucket}, slots {slots}",
+                 lambda: de._insert_tokens(conds, ids, ns, slots, opts),
+                 lambda: insert_sequences_tokens(p, g, eager, torch.stack(conds), ids_dev, ns,
+                                                 slots, *lanes))
+    case("migrate_slot 6 -> 1", lambda: de._migrate(6, 1), lambda: migrate_slot(eager, 6, 1))
+
+    cond, ids, n = insert_prompt(g, dev, 128, seed=300)
+    ids_dev = torch.from_numpy(ids).to(dev)
+    times = [("single insert", 1, wall_ms(lambda: insert_sequence_tokens(
+        p, g, eager, cond, ids_dev, n, 5, *opt_args(INSERT_SAMPLED))),
+        wall_ms(lambda: de._insert_tokens([cond], ids[None], [n], [5], [INSERT_SAMPLED])))]
+    for k, slots in BURST_SLOTS.items():
+        prompts = [insert_prompt(g, dev, 128, seed=400 + j) for j in range(k)]
+        conds, ns = [c for c, _, _ in prompts], [x for _, _, x in prompts]
+        ids_k = np.stack([x for _, x, _ in prompts])
+        ids_k_dev = torch.from_numpy(ids_k).to(dev)
+        lanes = list(zip(*(opt_args(INSERT_SAMPLED) for _ in range(k))))
+        times.append((f"burst K={k}", k, wall_ms(lambda: insert_sequences_tokens(
+            p, g, eager, torch.stack(conds), ids_k_dev, ns, slots, *lanes)),
+            wall_ms(lambda: de._insert_tokens(conds, ids_k, ns, slots, [INSERT_SAMPLED] * k))))
+    for name, k, eager_ms, graph_ms in times:
+        say(f"  {tag} {name} at bucket 128: eager {eager_ms / k:.2f} ms per chunk, graph "
+            f"{graph_ms / k:.2f} ms per chunk (host wall to the card's completion, median of "
+            f"3) ({smi})")
+    de.state = home
+    del s0, graphed, eager
+
+
+def check_cond_programs(engine, smi: str) -> None:
+    """The conditioning programs against the eager functions on the card:
+    get_gpt_cond_latents (one 22.05 kHz chunk) and the speaker embedding
+    (16 kHz) of a 6 s and a 3 s reference, each called twice through the
+    programs (the first call runs eagerly and captures, the second
+    replays) and once through `_cond_latents` / `_speaker_dvector`: bit-equal
+    on the host; ms per call, eager and graph (host wall, median of 3)."""
+    dev = engine.device
+    rng = np.random.default_rng(95)
+    for seconds in (6, 3):
+        wav22 = (0.3 * rng.standard_normal((1, 22050 * seconds))).astype(np.float32)
+        wav16 = (0.3 * rng.standard_normal((1, 16000 * seconds))).astype(np.float32)
+
+        def eager_c():
+            return engine._cond_latents(torch.from_numpy(wav22).to(dev)).float().cpu().numpy()
+
+        def eager_s():
+            return engine._speaker_dvector(torch.from_numpy(wav16).to(dev)).float().cpu().numpy()
+
+        replays = graphs.counts["replays"]
+        got = [(engine.get_gpt_cond_latents(wav22), engine._speaker_embedding(wav16))
+               for _ in range(2)]
+        want = (eager_c(), eager_s())
+        same = all(np.array_equal(gc, want[0]) and np.array_equal(gs, want[1]) for gc, gs in got)
+        replayed = graphs.counts["replays"] - replays
+        ms = [wall_ms(eager_c), wall_ms(lambda: engine.get_gpt_cond_latents(wav22)),
+              wall_ms(eager_s), wall_ms(lambda: engine._speaker_embedding(wav16))]
+        say(f"  conditioning, {seconds} s reference: cond latents {want[0].shape} and d-vector "
+            f"{want[1].shape}, programs vs eager {'bit-equal' if same else 'DIFFER'} "
+            f"({replayed} replays in the second calls); cond latents eager {ms[0]:.2f} ms, "
+            f"graph {ms[1]:.2f} ms; speaker embedding eager {ms[2]:.2f} ms, graph "
+            f"{ms[3]:.2f} ms ({smi})")
+        if not same or replayed != 2:
+            raise AssertionError(f"conditioning {seconds} s: bit-equal {same}, replays {replayed}")
+    say(f"  conditioning programs: {sorted(engine._cond_programs.keys())}")
+
+
+def run_insert_programs(engines: dict, smi: str) -> None:
+    """Phase 4h: the insert, burst, migrate and conditioning programs on
+    phase 4g's engines against the module functions (check_insert_programs
+    per engine, check_cond_programs on bf16)."""
+    for tag, engine in engines.items():
+        graphs.reset_counts()
+        check_insert_programs(engine, tag, smi)
+        if tag == "bf16":
+            check_cond_programs(engine, smi)
+        say(f"  {tag}: graphs {graphs_text(graphs.counts)}")
 
 
 # ------------------------------------------------------ checkpoint and server
@@ -2451,7 +2738,7 @@ def run_checkpoint_server(smi: str, tokenizer) -> dict:
     cfg = XTTSConfig()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        gpt_np, core_np = random_init(cfg, seed=0)
+        gpt_np, core_np = seed0_weights()
         state = export_coqui_state(gpt_np, core_np)
         pth = os.path.join(tmp, "model.pth")
         torch.save({"model": {k: torch.from_numpy(v) for k, v in state.items()}}, pth)
@@ -2603,7 +2890,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("[4g] captured programs: decode blocks and vocoder programs as CUDA graphs against "
           "eager, precompile")
-    run_graphs(dev, smi, tokenizer)
+    engines = run_graphs(dev, smi, tokenizer)
+    torch.cuda.empty_cache()
+    phase("[4h] captured programs: inserts, bursts, migrate_slot and conditioning against "
+          "eager")
+    run_insert_programs(engines, smi)
+    del engines
     torch.cuda.empty_cache()
     phase("[5] reference check: card vs CPU, f32, greedy")
     run_reference_check(dev, tokenizer)

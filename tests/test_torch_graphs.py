@@ -265,7 +265,7 @@ def test_runner_through_graphs_equals_eager_and_jax(sampled, monkeypatch):
     tokens and n everywhere; latents bit-equal between the port's two runs
     and within 1e-4 of JAX's (f32). Sampled, both packages draw the same
     injected Gumbel noise. The graph run captured each key once and
-    replayed the later blocks of each."""
+    replayed the later blocks of each; its inserts ran as programs too."""
     jc, tc = _cfgs()
     jp, tp = _both(_params_run_to_cap(9))
     rng = np.random.default_rng(3)
@@ -301,9 +301,15 @@ def test_runner_through_graphs_equals_eager_and_jax(sampled, monkeypatch):
         graphed, engine = _drive_port(tp, tc, prompts, options, noise)
         counts = dict(graphs.counts)
         keys = engine._programs.keys()
-    assert counts["captures"] == len(keys) > 0
-    assert counts["replays"] > 0 and counts["replays"] + len(keys) == engine.stats["blocks"]
-    assert any(sb is not None for _, _, sb in keys), "no block ran at a slot bound"
+    # the decode blocks' keys are (n_steps, len_bound, slot_bound); the
+    # inserts and migrations have their own programs ("insert", "burst",
+    # "migrate") in the same cache
+    decode = [k for k in keys if graphs.kind_of(k) == "decode"]
+    assert counts["captures"] == len(keys) > len(decode) > 0
+    assert counts["decode.replays"] > 0
+    assert counts["decode.replays"] + len(decode) == engine.stats["blocks"]
+    assert any(k[0] == "burst" for k in keys), "the inserts did not run as programs"
+    assert any(sb is not None for _, _, sb in decode), "no block ran at a slot bound"
     for (te, le, ne), (tg, lg, ng), (tj, lj), cap in zip(eager, graphed, want, caps):
         assert ne == ng == cap
         np.testing.assert_array_equal(tg, te)

@@ -50,6 +50,23 @@ def test_prefill_plain_matches_pallas(t, length):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("t,length", [(128, 1), (128, 65), (256, 256)])
+def test_prefill_takes_a_device_length(t, length, dtype):
+    """K1's length as a 0-d integer tensor (what a captured insert stages on
+    the card): the plain version, through the wrapper, equals its result
+    with the int length bit for bit and the Pallas kernel in interpret mode
+    within the f32 summation-order bound above."""
+    rng = np.random.default_rng(t + 7 * length)
+    q, k, v = (torch.from_numpy(rng.standard_normal((t, 4, 64)).astype(np.float32))
+               for _ in range(3))
+    got = prefill_flash_attention(q, k, v, torch.tensor(length, dtype=dtype))
+    torch.testing.assert_close(got, prefill_attention_plain(q, k, v, length), rtol=0, atol=0)
+    want = jax_prefill(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()), jnp.asarray(v.numpy()),
+                       jnp.int32(length), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
 def test_prefill_padding_rows_do_not_affect_real_rows():
     """Garbage K/V past `length` must not reach any real row (bucket padding)."""
     rng = np.random.default_rng(2)
