@@ -25,10 +25,13 @@ bucketing by default only on a TPU; on any other backend they are off
 unless passed, and so they are here until an H100 measurement sets them.
 `slot_bucketing=True` turns bucketing on; the policy the JAX engine would
 arm is `w8a8_policy()`, which a caller hands to `DecodeEngine`. The slot
-count is fitted to the card's free memory after the weights
-(`_fit_slots_to_hbm`). Options the port lacks are dropped with a warning,
-except `tensor_parallel_size > 1`, which raises (ROADMAP.md, queue 1 item
-10). `from_pretrained` loads the dual-safetensors layout that
+count is fitted to the card's free memory after the weights, less what the
+captured programs of `TTS.warmup()` will reserve (`_fit_slots_to_hbm`,
+`_program_pool_bytes`). Options the port lacks are dropped with a warning.
+`tensor_parallel_size > 1` shards the GPT over a (1, tp) mesh
+(parallel/mesh.py) of the visible GPUs, or of tp CPU shards for a CPU
+engine; conditioning and the vocoder run on the mesh's first device.
+`from_pretrained` loads the dual-safetensors layout that
 `weights.convert_coqui_checkpoint` writes.
 
 On the card every vocoder batch of the batcher replays a captured CUDA
@@ -60,6 +63,7 @@ import json
 import math
 import os
 import time
+import weakref
 from pathlib import Path
 from typing import Any, AsyncGenerator, List, Optional, Tuple, Union
 
@@ -73,16 +77,23 @@ from ...common.logger import setup_logger
 from ...common.output import TTSOutput
 from ...common.requests import TTSRequest
 from ...common.tracing import record as trace_record, span
-from ...ops.experimental.attention import CHUNK
+from ...ops.experimental.attention import CHUNK, DECODE_SPLIT, PARTIAL_FLOATS
 from ...ops.mel import wav_to_mel_cloning
 from ...ops.mrf import pack_hifigan_mrf
 from ...ops.resample import resample_np
+from ...runtime.decode_loop import PREFILL_BUCKETS
 from ...runtime.engine_core import DecodeEngine, SamplingOptions, TokenPrompt
 from ...runtime.graphs import Program, ProgramCache, upload
 from ..base import BaseAsyncTTSEngine, ConditioningConfig
 from .config import XTTSConfig, XTTSGPTConfig, tiny_test_config
 from .gpt import quantize_decode_weights
-from .hifigan import RESBLOCK_KERNELS, hifigan_generator, interp_latents
+from .hifigan import (
+    RESBLOCK_KERNELS,
+    UPSAMPLE_RATES,
+    _gemm_tile_rows,
+    hifigan_generator,
+    interp_latents,
+)
 from .modules import conditioning_encoder, perceiver_resampler, speaker_encoder
 from .weights import (
     find_artifact,
@@ -108,6 +119,9 @@ W8A8_KV_TO_WEIGHT_CROSSOVER_TPU = 3
 # headroom the slot fit leaves on the card for activations and the
 # allocator, as a share of its memory (the JAX engine's 8%)
 HBM_HEADROOM = 0.08
+# the live engines per CUDA device, whose pending program pools a later
+# engine's slot fit counts (replicas on one card)
+_ENGINES_ON: dict = {}
 
 # Intra-chunk streaming, in post-interp frames (one frame = 256 output
 # samples). The generator's receptive field is ~14 frames (conv_pre k7 and
@@ -298,11 +312,28 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         seed: int = 0,
         **kwargs,
     ):
+        # tensor parallelism: a (1, tp) mesh over the visible GPUs (or tp
+        # CPU shards for a CPU engine) shards attention heads and MLP
+        # columns (parallel/mesh.py), as the JAX engine's mesh does
+        self.mesh = None
         if tensor_parallel_size > 1:
-            raise NotImplementedError(
-                f"tensor_parallel_size={tensor_parallel_size}: tensor parallelism is not "
-                "ported yet (ROADMAP.md, queue 1 item 10: 'Parallel'); the port serves on "
-                "one GPU")
+            from ...parallel.mesh import make_mesh
+
+            if gpt_config.num_attention_heads % tensor_parallel_size:
+                raise ValueError(
+                    f"tensor_parallel_size={tensor_parallel_size} must divide "
+                    f"num_attention_heads={gpt_config.num_attention_heads}")
+            on_card = torch.device(device).type == "cuda"
+            devices = (None if on_card else [torch.device("cpu")] * tensor_parallel_size)
+            self.mesh = make_mesh(devices, data=1, model=tensor_parallel_size)
+            device = self.mesh.first_device
+            for name, flag in (("decode_w8a8", decode_w8a8), ("prefill_w8a8", prefill_w8a8)):
+                if flag or (flag is None and getattr(gpt_config, name)):
+                    logger.warning(
+                        "%s is unsupported under tensor parallelism (int8 weights would "
+                        "replicate per device and activation quantization forces per-layer "
+                        "collectives); disabling.", name)
+            decode_w8a8 = prefill_w8a8 = False
         # the JAX engine's non-TPU defaults: kv_int8 off unless passed (it
         # keeps the config's value only under flash_decode), the W8A8 flags
         # as the config has them unless passed
@@ -326,14 +357,26 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         self.mel_bos_token_id = gpt_config.start_audio_token
         self.mel_eos_token_id = gpt_config.stop_audio_token
         self.params = params
+        if self.mesh is not None:
+            params = {k: v for k, v in params.items() if k != "blocks_q8"}
+            self.params = params
         if (gpt_config.decode_w8a8 or gpt_config.prefill_w8a8) and "blocks_q8" not in params:
             self.params = {**params, "blocks_q8": quantize_decode_weights(params["blocks"])}
         self.core = dict(core)
+        if self.mesh is not None:
+            # conditioning and the vocoder run on the mesh's first device
+            from ...parallel.mesh import replicate
+
+            self.core = replicate(self.core, self.mesh)
         if vocoder_dtype is not None:
             # the generator computes in its params' dtype; the MRF stages
             # accumulate in f32 (kernel K3's precision contract)
-            self.core["hifigan"] = _cast_floats(core["hifigan"], vocoder_dtype)
+            self.core["hifigan"] = _cast_floats(self.core["hifigan"], vocoder_dtype)
         self.cache_dtype = cache_dtype
+        # the pools this engine's captures will reserve, until its warmup
+        # has captured them: the slot fit of a later engine on the same card
+        # counts them
+        self._pools_pending = 0
         self.decode_slots = self._fit_slots_to_hbm(
             decode_slots or max(2, 2 * max_concurrency), slots_explicit=decode_slots is not None)
         # the young block: the fewest steps after which the first segment can
@@ -347,7 +390,7 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         self.decode_engine = DecodeEngine(
             self.params, gpt_config, num_slots=self.decode_slots, cache_dtype=cache_dtype,
             steps_per_sync=steps_per_sync, seed=seed, slot_bucketing=bool(slot_bucketing),
-            stream_block_steps=stream_block_steps, device=self.device)
+            stream_block_steps=stream_block_steps, device=self.device, mesh=self.mesh)
         hifigan = self.core["hifigan"]
         self._packed_stages = pack_hifigan_mrf(
             hifigan["resblocks"], RESBLOCK_KERNELS, hifigan["conv_pre_w"].dtype, self.device)
@@ -361,6 +404,9 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         # the conditioning programs, keyed by reference length, in a third
         self._cond_programs = ProgramCache(self.device)
         self.get_memory_usage_curve()
+        if self.device.type == "cuda":
+            self._pools_pending = self.pool_bytes
+            _ENGINES_ON.setdefault(_card(self.device), weakref.WeakSet()).add(self)
 
     # ----------------------------------------------------------- properties
     @property
@@ -381,25 +427,158 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         slot = cfg.num_hidden_layers * t_pad * per_row + cfg.max_audio_tokens * cfg.hidden_size * 4
         return weights, slot
 
+    # ------------------------------------------------ captured-program pools
+    def _vocoder_peak_bytes(self, kind: str, b: int, bucket: Optional[int] = None) -> int:
+        """Peak temporaries of the vocoder program (kind, b lanes, row
+        bucket), from its shapes. The generator peaks at its last conv
+        (conv_post as an im2col GEMM over the last stage's C channels): per
+        output sample the leaky ReLU's output, its padded copy, the im2col
+        row (K x C) and the product, all in the vocoder dtype; beside them
+        the fixed-row GEMM's zero-padded last tile, the interp's frames and
+        the masked latents (f32, D each) and the largest upsample GEMM
+        operand, which each call builds (four copies on the way)."""
+        g, hg = self.gpt_config, self.core["hifigan"]
+        dt = hg["conv_pre_w"].element_size()
+        if kind == "row":
+            latents, window = bucket, self._total_pf(bucket)
+            frames = window
+        elif kind == "seg":
+            latents, frames = self._seg_bucket, self._bucket_pf
+            window = PAD_PF + SEG_PF + PAD_PF
+        else:
+            latents = min(64, g.max_audio_tokens)
+            frames, window = self._total_pf(latents), FIRST_SEG_PF + PAD_PF
+        k_post, c_last = hg["conv_post_w"].shape[:2]
+        samples = b * window * math.prod(UPSAMPLE_RATES)
+        per_sample = dt * (c_last * (2 + k_post) + 1)
+        tile = _gemm_tile_rows(k_post * c_last) * k_post * c_last * dt
+        operand = max(3 * up["w"].shape[1] * rate * up["w"].shape[2] * dt
+                      for up, rate in zip(hg["ups"], UPSAMPLE_RATES))
+        kept = b * (frames + latents) * g.hidden_size * 4
+        return samples * per_sample + tile + 4 * operand + kept
+
+    def _vocoder_static_bytes(self, kind: str, b: int, bucket: Optional[int] = None) -> int:
+        """Static inputs and output of a vocoder program (`_vocoder_program`):
+        rows [B, width, D] f32, n and starts int64, d-vectors f32, and the
+        16-bit PCM output."""
+        g = self.gpt_config
+        t_max = g.max_audio_tokens
+        width = {"row": min(bucket or t_max, t_max), "seg": t_max,
+                 "seg_first": min(64, t_max)}[kind]
+        window = {"row": self._total_pf(bucket or t_max), "seg": PAD_PF + SEG_PF + PAD_PF,
+                  "seg_first": FIRST_SEG_PF + PAD_PF}[kind]
+        return b * (width * g.hidden_size * 4 + 16 + self.hifi_config.d_vector_dim * 4
+                    + window * math.prod(UPSAMPLE_RATES) * 2)
+
+    def vocoder_keys(self) -> list[tuple]:
+        """(kind, batch size, row bucket) of every vocoder program the batcher
+        can run, largest peak first (the order `precompile_vocoder_buckets`
+        captures them in: later, smaller programs reuse the blocks the
+        earlier ones freed in the shared pool)."""
+        t_max = self.gpt_config.max_audio_tokens
+        buckets = sorted({self.row_bucket(n) for n in range(1, t_max + 1)})
+        keys = ([("seg_first", b, None) for b in range(1, _VocodeBatcher.SEG_FIRST_MAX_BATCH + 1)]
+                + [("seg", b, None) for b in range(1, _VocodeBatcher.MAX_BATCH + 1)]
+                + [("row", b, bucket) for bucket in buckets
+                   for b in range(1, _VocodeBatcher.MAX_BATCH + 1)])
+        return sorted(keys, key=lambda k: -self._vocoder_peak_bytes(*k))
+
+    def _insert_peak_bytes(self, bucket: int, k: int) -> int:
+        """Peak temporaries of the insert program at a prefill bucket: a
+        burst of k lanes (and a single insert without K1) holds the dense
+        attention's [k, H, T, T] scores in f32 three times (the previous
+        layer's, the product and its scaled copy) and its probabilities in
+        the activation dtype and in f32 (18 bytes an entry); K1's single
+        insert holds one layer's activations (qkv, the MLP's f32 gelu)."""
+        g = self.gpt_config
+        if k > 1 or not g.prefill_flash:
+            return k * g.num_attention_heads * bucket * bucket * 18
+        return bucket * (3 * g.hidden_size * 4 + 2 * 4 * g.hidden_size * 4)
+
+    def _program_pool_bytes(self) -> tuple[int, int]:
+        """(fixed bytes, bytes per slot) that the captured programs of
+        `TTS.warmup()` reserve on the engine's device, from the shapes the
+        programs hold; 0 on the CPU, where nothing is captured.
+
+        - The vocoder programs share one pool and are captured largest
+          first. A program's last conv takes its im2col matrix from a new
+          segment, as no block freed before it is large enough, so the pool
+          holds twice the largest program's peak temporaries
+          (`_vocoder_peak_bytes`), plus every program's static inputs and
+          output.
+        - The insert programs share the decode state's pool, also largest
+          first: the largest burst's peak (`_insert_peak_bytes`), per
+          prefill bucket and K = 2, 4, 8 as `precompile_inserts` forms them.
+        - Each key's first run is eager: the largest program's temporaries
+          are needed once more, in the allocator's own cache.
+        - Per slot, the decode blocks' share: K2/K4's split workspace, or
+          for the dense bodies the f32 copies of a slot's K and V rows."""
+        if self.device.type != "cuda":
+            return 0, 0
+        g = self.gpt_config
+        keys = self.vocoder_keys()
+        vocoder = 2 * self._vocoder_peak_bytes(*keys[0]) + sum(
+            self._vocoder_static_bytes(*k) for k in keys)
+        buckets = [b for b in PREFILL_BUCKETS if b <= g.max_seq_len] or [g.max_seq_len]
+        inserts = max(self._insert_peak_bytes(b, k) for b in buckets
+                      for k in (1, *DecodeEngine._INSERT_K_BUCKETS))
+        eager = max(self._vocoder_peak_bytes(*keys[0]), inserts)
+        t_pad = -(-g.max_seq_len // CHUNK) * CHUNK
+        lanes = g.hidden_size // max(1, self._tp)
+        if g.flash_decode or g.ragged_decode:
+            per_slot = g.num_attention_heads * (t_pad // DECODE_SPLIT) * PARTIAL_FLOATS * 4
+        else:
+            per_slot = 2 * t_pad * lanes * 4
+        return vocoder + inserts + eager, per_slot
+
+    def _slot_share_bytes(self) -> int:
+        """Bytes of one slot on the mesh's most loaded device (the first: its
+        KV lanes, its int8 scales and the latent row), or the whole slot
+        without a mesh."""
+        _, slot = self._hbm_plan_bytes()
+        if self._tp == 1:
+            return slot
+        g = self.gpt_config
+        t_pad = -(-g.max_seq_len // CHUNK) * CHUNK
+        kv = g.num_hidden_layers * t_pad * 2 * g.hidden_size * (
+            1 if g.kv_int8 else self.cache_dtype.itemsize)
+        return slot - kv + kv // self._tp
+
+    @property
+    def _tp(self) -> int:
+        return 1 if self.mesh is None else self.mesh.shape["model"]
+
     def _fit_slots_to_hbm(self, num_slots: int, *, slots_explicit: bool) -> int:
         """The slot count that fits the card: what `torch.cuda.mem_get_info`
         leaves free after the weights (already resident; memory the
         allocator holds but has not handed out counts as free), less
-        HBM_HEADROOM of the card, divided by the bytes per slot. A default
-        count above that is clamped; an explicit one raises, as does a card
-        that cannot hold 2 slots. On the CPU nothing is enforced."""
+        HBM_HEADROOM of the card, less the pools that the captured programs
+        of this engine and of the other unwarmed engines on the card will
+        reserve (`_program_pool_bytes`), divided by the bytes per slot and
+        its share of the decode blocks' pool. Under a mesh the first
+        device's share counts, with the model shards' weight copies still
+        to come. A default count above that is clamped; an explicit one
+        raises, as does a card that cannot hold 2 slots. On the CPU nothing
+        is enforced."""
         if self.device.type != "cuda":
             return num_slots
-        _, slot_bytes = self._hbm_plan_bytes()
+        slot_bytes = self._slot_share_bytes()
+        pools, pool_slot = self._program_pool_bytes()
+        others = sum(e._pools_pending for e in list(_ENGINES_ON.get(_card(self.device), ()))
+                     if e is not self) if _ENGINES_ON else 0
         free, total = torch.cuda.mem_get_info(self.device)
         free += torch.cuda.memory_reserved(self.device) - torch.cuda.memory_allocated(self.device)
-        budget = free - int(total * HBM_HEADROOM)
-        fit = max(0, budget) // slot_bytes
+        budget = free - int(total * HBM_HEADROOM) - pools - others
+        if self.mesh is not None:
+            budget -= _nbytes(self.params["blocks"]) // self._tp
+        fit = max(0, budget) // (slot_bytes + pool_slot)
         if fit < 2 or (slots_explicit and fit < num_slots):
             raise ValueError(
                 f"decode_slots={num_slots} needs {num_slots * slot_bytes / 1024**3:.2f} GiB of KV "
                 f"and latent rows, but {max(0, budget) / 1024**3:.2f} GiB of the card's "
-                f"{total / 1024**3:.2f} GiB are left after the weights ({fit} slots fit)")
+                f"{total / 1024**3:.2f} GiB are left after the weights and "
+                f"{(pools + others) / 1024**3:.2f} GiB of captured-program pools ({fit} slots "
+                "fit)")
         if fit < num_slots:
             logger.warning("decode_slots=%d does not fit the card's free memory; clamping to %d",
                            num_slots, fit)
@@ -409,12 +588,16 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
     def get_memory_usage_curve(self) -> float:
         """Device-memory plan in GiB: weights (blocks_q8 included) + per slot
         its KV rows as allocated (int8 rows and f32 scale rows under kv_int8)
-        and its latent row."""
+        and its latent row + the pools of the captured programs (0 on the
+        CPU), logged apart."""
         weights, slot = self._hbm_plan_bytes()
-        self.max_gb_for_model = (weights + slot * self.decode_slots) / 1024**3
-        logger.info("memory plan: %.2f GiB (weights %.2f GiB + %d slots x %.1f MiB)",
-                    self.max_gb_for_model, weights / 1024**3, self.decode_slots,
-                    slot / 1024**2)
+        pools, pool_slot = self._program_pool_bytes()
+        pools += pool_slot * self.decode_slots
+        self.pool_bytes = pools
+        self.max_gb_for_model = (weights + slot * self.decode_slots + pools) / 1024**3
+        logger.info("memory plan: %.2f GiB (weights %.2f GiB + %d slots x %.1f MiB + "
+                    "captured-program pools %.2f GiB)", self.max_gb_for_model,
+                    weights / 1024**3, self.decode_slots, slot / 1024**2, pools / 1024**3)
         return self.max_gb_for_model
 
     def w8a8_policy(self):
@@ -936,18 +1119,14 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         (the JAX engine's precompile of its row buckets and streaming
         programs): the first segment at B = 1..SEG_FIRST_MAX_BATCH, the
         segment window at B = 1..MAX_BATCH, and the row vocoder in every
-        bucket `row_bucket` can return at B = 1..MAX_BATCH. Each key's
+        bucket `row_bucket` can return at B = 1..MAX_BATCH, largest first
+        (`vocoder_keys`). Each key's
         first call runs once on zero rows and is captured; the call drains
         its work before it returns. On the CPU nothing is captured."""
         if not self._vocoder_programs.captures:
             return
         t0 = time.perf_counter()
-        t_max = self.gpt_config.max_audio_tokens
-        buckets = sorted({self.row_bucket(n) for n in range(1, t_max + 1)})
-        keys = ([("seg_first", b, None) for b in range(1, _VocodeBatcher.SEG_FIRST_MAX_BATCH + 1)]
-                + [("seg", b, None) for b in range(1, _VocodeBatcher.MAX_BATCH + 1)]
-                + [("row", b, bucket) for bucket in buckets
-                   for b in range(1, _VocodeBatcher.MAX_BATCH + 1)])
+        keys = self.vocoder_keys()
         for kind, b, bucket in keys:
             prog = self._vocoder_program(kind, b, bucket)
             with prog.lock:
@@ -963,6 +1142,7 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         JAX engine does here."""
         self.decode_engine.precompile()
         self.decode_engine.precompile_inserts(int(self.gpt_config.num_cond_latents))
+        self._pools_pending = 0  # reserved now: the card's free memory shows them
 
     def _seg_slice_start(self, emit_start_pf: int) -> int:
         slice_len = PAD_PF + SEG_PF + PAD_PF
@@ -1088,6 +1268,13 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
 
     async def shutdown(self) -> None:
         await self.decode_engine.shutdown()
+
+
+def _card(device: torch.device) -> torch.device:
+    """A CUDA device with its index (`cuda` names the current one)."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _unpack_handle(handle) -> tuple:

@@ -31,10 +31,16 @@ Differences from the JAX module:
   lanes (slot >= num_slots) are skipped on the host instead of by a dropping
   scatter, or as a device tensor of distinct real slots (no padding lane:
   torch's index writes neither drop out-of-range indices nor define
-  duplicates).
+  duplicates);
+- under a mesh (`ShardedParams`, `ShardedKVCache`: parallel/mesh.py) the
+  layers run model-sharded, each shard over its heads and MLP columns, with
+  the row-parallel products summed in shard order on every shard's device
+  (the all-reduce GSPMD emits for the JAX package's sharded params); the
+  head count comes from the weights a call receives.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 
@@ -75,6 +81,14 @@ class KVCache:
     @property
     def quantized(self) -> bool:
         return self.k_scale is not None
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.k.dtype
+
+    def tensors(self) -> list[torch.Tensor]:
+        """Every tensor of the cache: rows, and scales under kv_int8."""
+        return [t for t in (self.k, self.v, self.k_scale, self.v_scale) if t is not None]
 
 
 def make_kv_cache(cfg: XTTSGPTConfig, num_slots: int, dtype=torch.bfloat16,
@@ -208,6 +222,50 @@ def _mlp(params: dict, layer: int, x: torch.Tensor, w8: bool) -> torch.Tensor:
     return x + _mm(params, layer, "fc_proj_w", y, w8)
 
 
+# --------------------------------------------------------- attention bodies
+
+
+def _prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """Dense masked prompt attention: q/k/v [T, H, Dh], mask [T, T] ->
+    ctx [T, H, Dh] f32 (probabilities rounded to `dtype`)."""
+    scores = torch.einsum("qhd,khd->hqk", q.float(), k.float()) * (1.0 / math.sqrt(q.shape[-1]))
+    scores = scores.masked_fill(~mask[None], torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    return torch.einsum("hqk,khd->qhd", probs.float(), v.float())
+
+
+def _prefill_attention_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`_prefill_attention` per lane: q/k/v [K, T, H, Dh], mask [K, T, T]
+    -> ctx [K, T, H, Dh] f32."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(q.shape[-1]))
+    scores = scores.masked_fill(~mask[:, None], torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
+
+
+def _dense_attention(cache: KVCache, layer: int, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, slot_idx: torch.Tensor, lens: torch.Tensor,
+                     live: torch.Tensor, onehot: torch.Tensor, scale: float) -> torch.Tensor:
+    """The dense body of the JAX decode step (gpt.py:574-605): scatter the
+    new rows q/k/v [S, HD] at `lens`, then masked softmax over the flat
+    [T, H*Dh] cache's first `live.shape[1]` rows; onehot [HD, H] maps lanes
+    to heads. Returns ctx [S, HD] f32."""
+    s, bound = live.shape
+    cache.k[layer, slot_idx, lens] = k.to(cache.k.dtype)
+    cache.v[layer, slot_idx, lens] = v.to(cache.v.dtype)
+    k_all = cache.k[layer, :s, :bound].float()  # [S, bound, HD]
+    v_all = cache.v[layer, :s, :bound].float()
+    qmat = (q.float() * scale)[:, :, None] * onehot[None]  # [S, HD, H]
+    qmat = qmat.to(cache.k.dtype).float()
+    scores = torch.einsum("stc,sch->sht", k_all, qmat)
+    scores = scores.masked_fill(~live[:, None, :], torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1).to(cache.v.dtype).float()
+    ctx_full = torch.einsum("sht,stc->shc", probs, v_all)  # [S, H, HD]
+    return (ctx_full * onehot.T[None]).sum(dim=1)
+
+
 # ----------------------------------------------------------------- prefill
 
 
@@ -221,9 +279,12 @@ def gpt_prefill(params: dict, cfg: XTTSGPTConfig, embeds: torch.Tensor,
     hidden state (pre-ln_f) [D]. `length` and `slot` are ints or 0-d integer
     tensors on the device (read there only). With cfg.prefill_w8a8 and
     `blocks_q8` in params the four matmuls run W8A8."""
+    if isinstance(params, ShardedParams):
+        return _gpt_prefill_tp(params, cfg, embeds, length, slot, cache)
     t_pad, d = embeds.shape
-    nh, hd = cfg.num_attention_heads, cfg.head_dim
+    hd = cfg.head_dim
     bp = params["blocks"]
+    nh = bp["attn_w"].shape[-1] // (3 * hd)
     w8 = cfg.prefill_w8a8 and "blocks_q8" in params
     x = embeds
     length = device_scalar(length, torch.int64, x.device)
@@ -240,10 +301,7 @@ def gpt_prefill(params: dict, cfg: XTTSGPTConfig, embeds: torch.Tensor,
         if cfg.prefill_flash:
             ctx = prefill_flash_attention(q, k, v, length32)  # [T, H, Dh] f32
         else:
-            scores = torch.einsum("qhd,khd->hqk", q.float(), k.float()) * (1.0 / math.sqrt(hd))
-            scores = scores.masked_fill(~mask[None], torch.finfo(torch.float32).min)
-            probs = torch.softmax(scores, dim=-1).to(x.dtype)
-            ctx = torch.einsum("hqk,khd->qhd", probs.float(), v.float())
+            ctx = _prefill_attention(q, k, v, mask, x.dtype)
         ctx = ctx.reshape(t_pad, d).to(x.dtype)
         x = x + _mm(params, layer, "attn_proj_w", ctx, w8)
         x = _mlp(params, layer, x, w8)
@@ -275,9 +333,12 @@ def gpt_prefill_batched(params: dict, cfg: XTTSGPTConfig, embeds: torch.Tensor,
     JAX function: probabilities rounded to the activation dtype, f32
     accumulation. With cfg.prefill_w8a8 and `blocks_q8` the four matmuls run
     W8A8 over the [K * T_pad] flattened rows."""
+    if isinstance(params, ShardedParams):
+        return _gpt_prefill_batched_tp(params, cfg, embeds, lengths, slots, cache)
     kb, t_pad, d = embeds.shape
-    nh, hd = cfg.num_attention_heads, cfg.head_dim
+    hd = cfg.head_dim
     bp = params["blocks"]
+    nh = bp["attn_w"].shape[-1] // (3 * hd)
     dev = embeds.device
     w8 = cfg.prefill_w8a8 and "blocks_q8" in params
     lengths = device_values(lengths, torch.long, dev)
@@ -293,16 +354,12 @@ def gpt_prefill_batched(params: dict, cfg: XTTSGPTConfig, embeds: torch.Tensor,
     # [K, T, T]: causal and key within each prompt's real length
     mask = ((pos[None, None, :] <= pos[None, :, None])
             & (pos[None, None, :] < lengths[:, None, None]))
-    neg = torch.finfo(torch.float32).min
     x = embeds
     for layer in range(cfg.num_hidden_layers):
         xn = layer_norm(x, bp["ln1_scale"][layer], bp["ln1_bias"][layer])
         qkv = _mm(params, layer, "attn_w", xn, w8)  # [K, T, 3D]
         q, k, v = (t.reshape(kb, t_pad, nh, hd) for t in qkv.split(d, dim=-1))
-        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(hd))
-        scores = scores.masked_fill(~mask[:, None], neg)
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        ctx = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
+        ctx = _prefill_attention_batched(q, k, v, mask, x.dtype)
         x = x + _mm(params, layer, "attn_proj_w", ctx.reshape(kb, t_pad, d).to(x.dtype), w8)
         x = _mlp(params, layer, x, w8)
         if not any_lane:
@@ -324,18 +381,24 @@ def gpt_prefill_batched(params: dict, cfg: XTTSGPTConfig, embeds: torch.Tensor,
 
 def _int8_attention(cfg: XTTSGPTConfig, cache: KVCache, layer: int, q: torch.Tensor,
                     k: torch.Tensor, v: torch.Tensor, lens: torch.Tensor,
-                    live: torch.Tensor) -> torch.Tensor:
+                    live: torch.Tensor, new_rows: tuple | None = None) -> torch.Tensor:
     """The dense int8 body of the JAX decode step (gpt.py:505-573): scatter
     this step's quantised rows and scales, int8 scores x k-scale x q-scale,
     masked f32 softmax over the first `live.shape[1]` rows (the length
     bound), and the context either from bf16 probabilities
     (cfg.decode_attn_fp) or from probabilities requantised per (slot, head).
-    Returns ctx [S, H, Dh] f32."""
+    `new_rows` ((k int8, k scale), (v int8, v scale)) gives the new rows
+    already quantised (a model shard's lanes at the whole row's scale).
+    Returns ctx [S, H, Dh] f32 over the heads of q [S, H*Dh]."""
     s, t = live.shape
-    nh, hd = cfg.num_attention_heads, cfg.head_dim
+    hd = cfg.head_dim
+    nh = q.shape[-1] // hd
     slot_idx = torch.arange(s, device=q.device)
-    for rows, scales, new in ((cache.k, cache.k_scale, k), (cache.v, cache.v_scale, v)):
-        rows[layer, slot_idx, lens], scales[layer, slot_idx, lens] = _quantize_rows(new)
+    if new_rows is None:
+        new_rows = (_quantize_rows(k), _quantize_rows(v))
+    for rows, scales, (q8, sc) in ((cache.k, cache.k_scale, new_rows[0]),
+                                   (cache.v, cache.v_scale, new_rows[1])):
+        rows[layer, slot_idx, lens], scales[layer, slot_idx, lens] = q8, sc
     k_all = cache.k[layer, :s, :t].reshape(s, t, nh, hd)
     v_all = cache.v[layer, :s, :t].reshape(s, t, nh, hd)
     k_sc, v_sc = cache.k_scale[layer, :s, :t], cache.v_scale[layer, :s, :t]  # [S, T]
@@ -379,11 +442,15 @@ def gpt_decode_step(params: dict, cfg: XTTSGPTConfig, tokens: torch.Tensor,
     full-width one at greedy near-ties. The matmuls stream their weights
     once at any row count, so the padding costs little on the device; it
     adds two ops per layer to a bounded step (none at full width)."""
+    if isinstance(params, ShardedParams):
+        return _gpt_decode_step_tp(params, cfg, tokens, audio_pos, seq_lens, cache, len_bound)
     s = tokens.shape[0]
     rows = cache.num_slots
-    d, nh, hd = cfg.hidden_size, cfg.num_attention_heads, cfg.head_dim
-    scale = 1.0 / math.sqrt(hd)
     bp = params["blocks"]
+    hd = cfg.head_dim
+    d = bp["attn_w"].shape[-1] // 3
+    nh = d // hd
+    scale = 1.0 / math.sqrt(hd)
     w8 = cfg.decode_w8a8 and "blocks_q8" in params
     pos = torch.clamp(audio_pos.long(), 0, cfg.audio_position_table - 1)
     x = pad_rows((params["wte"][tokens.long()] + params["wpe"][pos]).to(
@@ -409,23 +476,317 @@ def gpt_decode_step(params: dict, cfg: XTTSGPTConfig, tokens: torch.Tensor,
         elif cfg.kv_int8:
             ctx = _int8_attention(cfg, cache, layer, q, k, v, lens, live)
         else:
-            # the dense body of the JAX decode step (gpt.py:574-605): scatter
-            # the new rows, then masked softmax over the flat [T, H*Dh] cache
-            cache.k[layer, slot_idx, lens] = k.to(cache.k.dtype)
-            cache.v[layer, slot_idx, lens] = v.to(cache.v.dtype)
-            k_all = cache.k[layer, :s, :bound].float()  # [S, bound, HD]
-            v_all = cache.v[layer, :s, :bound].float()
-            qmat = (q.float() * scale)[:, :, None] * onehot[None]  # [S, HD, H]
-            qmat = qmat.to(cache.k.dtype).float()
-            scores = torch.einsum("stc,sch->sht", k_all, qmat)
-            scores = scores.masked_fill(~live[:, None, :], torch.finfo(torch.float32).min)
-            probs = torch.softmax(scores, dim=-1).to(cache.v.dtype).float()
-            ctx_full = torch.einsum("sht,stc->shc", probs, v_all)  # [S, H, HD]
-            ctx = (ctx_full * onehot.T[None]).sum(dim=1)
+            ctx = _dense_attention(cache, layer, q, k, v, slot_idx, lens, live, onehot, scale)
         ctx = pad_rows(ctx.reshape(s, d).to(x.dtype), rows)
         x = x + _mm(params, layer, "attn_proj_w", ctx, w8)
         x = _mlp(params, layer, x, w8)
     return x[:s]
+
+
+# ---------------------------------------------- tensor parallelism (model axis)
+#
+# Under a mesh the GPT runs Megatron-style over its model shards, driven by
+# this one process as JAX's single-controller GSPMD drives its mesh. Shard r
+# holds the q/k/v columns and the KV lanes of heads [r H/tp, (r+1) H/tp), the
+# matching rows of attn_proj, and I/tp columns of fc with the matching rows of
+# fc_proj. Per block each shard computes its column-parallel half (ln -> its
+# heads' qkv -> attention over its heads -> its rows of the projection) to an
+# f32 partial. The partials are summed in shard order on every shard's
+# device, and the replicated bias is added once after the sum: the all-reduce
+# GSPMD emits. The residual stream stays replicated, one copy per device, and
+# the copies are bit-equal, each being the same sum of the same values in the
+# same order. One sum of copied partials serves the CPU, one card holding
+# several shards and several cards alike; it is no kernel (an NCCL all-reduce
+# across cards is later work, ROADMAP.md).
+
+RAGGED_TP_ERROR = (
+    "ragged_decode (kernel K4) does not serve a model-sharded int8 cache: K4 quantises each "
+    "new row with a scale over the lanes it holds, and a shard holds H/tp heads of the row, "
+    "so its scales would differ from the unsharded ones (ROADMAP.md: K4 taking a precomputed "
+    "row scale). Use the dense int8 body (kv_int8 without ragged_decode) or flash_decode")
+
+
+class ShardedParams(dict):
+    """The GPT parameters on a mesh's model axis (parallel/mesh.py
+    `shard_gpt_params`). The dict holds the replicated leaves (embeddings,
+    ln_f, final_norm, the mel head) on the mesh's first device, which the
+    prompt assembly and `heads` read; `shards[r]` is shard r's whole
+    parameter dict on `devices[r]`, its block matmuls split per head and
+    per MLP column. `blocks` is only in the shards."""
+
+    def __init__(self, shards: list[dict]):
+        super().__init__({k: v for k, v in shards[0].items() if k != "blocks"})
+        self.shards = shards
+        self.devices = [p["blocks"]["attn_w"].device for p in shards]
+        # the first shard on each distinct device: its replicated leaves
+        # serve that device's copy of the residual stream
+        self.lead: dict = {}
+        for r, dev in enumerate(self.devices):
+            self.lead.setdefault(dev, r)
+        self.multi_device = len(self.lead) > 1
+
+    def on(self, r: int):
+        """Shard r's device made current across cards (a kernel launches on
+        the current device's stream); a no-op when one device holds every
+        shard."""
+        dev = self.devices[r]
+        if self.multi_device and dev.type == "cuda":
+            return torch.cuda.device(dev)
+        return contextlib.nullcontext()
+
+
+@dataclass
+class ShardedKVCache:
+    """A KV cache split on its lane axis over a mesh's model shards
+    (parallel/mesh.py `shard_decode_state`): shard r's `KVCache` holds its
+    heads' lanes of every row and, under kv_int8, a whole copy of the
+    per-token scales (each shard quantises at the scale over all lanes)."""
+
+    shards: list
+
+    @property
+    def num_slots(self) -> int:
+        return self.shards[0].num_slots
+
+    @property
+    def max_len(self) -> int:
+        return self.shards[0].max_len
+
+    @property
+    def quantized(self) -> bool:
+        return self.shards[0].quantized
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    def tensors(self) -> list[torch.Tensor]:
+        return [t for c in self.shards for t in c.tensors()]
+
+
+def _tp_copies(params: ShardedParams, x: torch.Tensor) -> dict:
+    """x on every device of the mesh (one copy per device)."""
+    return {dev: x.to(dev) for dev in params.lead}
+
+
+def _tp_partial(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [.., Din] @ w [Din, Dout] in the promoted dtype of x and w, as f32:
+    one shard's term of a row-parallel product."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    y = torch.mm(x.reshape(-1, x.shape[-1]).to(dt), w.to(dt))
+    return y.reshape(*x.shape[:-1], w.shape[-1]).float()
+
+
+def _tp_reduce(params: ShardedParams, xs: dict, partials: list, layer: int,
+               bias: str) -> dict:
+    """x + (sum of the shards' partials in shard order + bias) on every
+    device: the row-parallel products' all-reduce."""
+    out = {}
+    for dev, x in xs.items():
+        acc = partials[0].to(dev)
+        for p in partials[1:]:
+            acc = acc + p.to(dev)
+        b = params.shards[params.lead[dev]]["blocks"][bias][layer]
+        out[dev] = x + (acc + b.float()).to(x.dtype)
+    return out
+
+
+def _tp_quantize(params: ShardedParams, rows: list) -> list:
+    """`_quantize_rows` of rows split by lanes over the shards (rows[r] on
+    shard r's device): every shard takes the scale over all lanes, the max
+    of the shards' row maxima (exact in any order), so its int8 lanes and
+    the scales equal those of the unsharded row ("every head shard needs
+    every token scale", auralis_tpu/parallel/mesh.py)."""
+    maxes = [torch.linalg.vector_norm(r, math.inf, dim=-1, dtype=torch.float32) for r in rows]
+    top = {}
+    for dev in params.lead:
+        m = maxes[0].to(dev)
+        for other in maxes[1:]:
+            m = torch.maximum(m, other.to(dev))
+        top[dev] = m
+    return [_quantize_rows(r, row_max=top[dev]) for r, dev in zip(rows, params.devices)]
+
+
+def _tp_write_rows(params: ShardedParams, cfg: XTTSGPTConfig, cache: ShardedKVCache,
+                   layer: int, slot_idx: dict, ks: list, vs: list, t_pad: int) -> None:
+    """Each shard's K/V rows [..., T, D_r] into its cache at (layer,
+    slot_idx[device], :t_pad); int8 at the whole row's scale under
+    cfg.kv_int8. In place."""
+    for name, rows in (("k", ks), ("v", vs)):
+        quantized = _tp_quantize(params, rows) if cfg.kv_int8 else None
+        for r, c in enumerate(cache.shards):
+            idx = slot_idx[params.devices[r]]
+            if quantized is None:
+                getattr(c, name)[layer, idx, :t_pad] = rows[r].to(c.dtype)
+            else:
+                getattr(c, name)[layer, idx, :t_pad] = quantized[r][0]
+                getattr(c, name + "_scale")[layer, idx, :t_pad] = quantized[r][1]
+
+
+def _tp_block(params: ShardedParams, layer: int, xs: dict, attend) -> dict:
+    """One transformer block over the model shards. xs: the residual stream
+    per device; attend(qkv) takes each shard's (q, k, v) [..., D_r] and
+    returns its context [..., D_r] in the activation dtype (writing its
+    cache rows)."""
+    devs = params.devices
+
+    def ln(dev, name):
+        bp = params.shards[params.lead[dev]]["blocks"]
+        return layer_norm(xs[dev], bp[name + "_scale"][layer], bp[name + "_bias"][layer])
+
+    xn = {dev: ln(dev, "ln1") for dev in xs}
+    qkv = []
+    for r, p in enumerate(params.shards):
+        bp = p["blocks"]
+        with params.on(r):
+            y = _dot(xn[devs[r]], bp["attn_w"][layer], bp["attn_b"][layer])
+        qkv.append(y.split(y.shape[-1] // 3, dim=-1))
+    ctxs = attend(qkv)
+    partials = []
+    for r, p in enumerate(params.shards):
+        with params.on(r):
+            partials.append(_tp_partial(ctxs[r], p["blocks"]["attn_proj_w"][layer]))
+    xs = _tp_reduce(params, xs, partials, layer, "attn_proj_b")
+    xn = {dev: ln(dev, "ln2") for dev in xs}
+    partials = []
+    for r, p in enumerate(params.shards):
+        bp = p["blocks"]
+        with params.on(r):
+            h = _gelu(_dot(xn[devs[r]], bp["fc_w"][layer], bp["fc_b"][layer]))
+            partials.append(_tp_partial(h, bp["fc_proj_w"][layer]))
+    return _tp_reduce(params, xs, partials, layer, "fc_proj_b")
+
+
+def _gpt_prefill_tp(params: ShardedParams, cfg: XTTSGPTConfig, embeds: torch.Tensor,
+                    length, slot, cache: ShardedKVCache) -> torch.Tensor:
+    """`gpt_prefill` over the model shards; returns the last real position's
+    hidden state on the mesh's first device."""
+    t_pad, hd = embeds.shape[0], cfg.head_dim
+    xs = _tp_copies(params, embeds)
+    lengths = {dev: device_scalar(length, torch.int64, dev) for dev in params.lead}
+    slot_idx = {dev: device_scalar(slot, torch.int64, dev).reshape(1) for dev in params.lead}
+    masks = {}
+    for dev, n in lengths.items():
+        if cfg.prefill_flash:
+            masks[dev] = n.to(torch.int32)  # K1 reads it on the device
+        else:
+            pos = torch.arange(t_pad, device=dev)
+            masks[dev] = (pos[None, :] <= pos[:, None]) & (pos[None, :] < n)
+
+    for layer in range(cfg.num_hidden_layers):
+        def attend(qkv):
+            ctxs = []
+            for r, (q, k, v) in enumerate(qkv):
+                dev, nh = params.devices[r], q.shape[-1] // hd
+                qh, kh, vh = (t.view(t_pad, nh, hd) for t in (q, k, v))
+                with params.on(r):
+                    if cfg.prefill_flash:
+                        ctx = prefill_flash_attention(qh, kh, vh, masks[dev])
+                    else:
+                        ctx = _prefill_attention(qh, kh, vh, masks[dev], embeds.dtype)
+                ctxs.append(ctx.reshape(t_pad, -1).to(embeds.dtype))
+            _tp_write_rows(params, cfg, cache, layer, slot_idx, [t[1] for t in qkv],
+                           [t[2] for t in qkv], t_pad)
+            return ctxs
+
+        xs = _tp_block(params, layer, xs, attend)
+    first = params.devices[0]
+    return xs[first].index_select(0, (lengths[first] - 1).reshape(1))[0]
+
+
+def _gpt_prefill_batched_tp(params: ShardedParams, cfg: XTTSGPTConfig, embeds: torch.Tensor,
+                            lengths, slots, cache: ShardedKVCache) -> torch.Tensor:
+    """`gpt_prefill_batched` over the model shards; returns [K, D] on the
+    mesh's first device."""
+    kb, t_pad, _ = embeds.shape
+    hd = cfg.head_dim
+    xs = _tp_copies(params, embeds)
+    lens = {dev: device_values(lengths, torch.long, dev) for dev in params.lead}
+    if torch.is_tensor(slots):  # every lane real
+        lanes, real = None, slots
+    else:
+        slots = [int(s) for s in slots]
+        lanes = [i for i, s in enumerate(slots) if s < cache.num_slots]
+        real = [slots[i] for i in lanes]
+    lane_idx = {dev: None if lanes is None else torch.tensor(lanes, dtype=torch.long, device=dev)
+                for dev in params.lead}
+    slot_idx = {dev: device_values(real, torch.long, dev) for dev in params.lead}
+    pos = {dev: torch.arange(t_pad, device=dev) for dev in params.lead}
+    masks = {dev: ((p[None, None, :] <= p[None, :, None])
+                   & (p[None, None, :] < lens[dev][:, None, None])) for dev, p in pos.items()}
+
+    for layer in range(cfg.num_hidden_layers):
+        def attend(qkv):
+            ctxs, ks, vs = [], [], []
+            for r, (q, k, v) in enumerate(qkv):
+                dev, nh = params.devices[r], q.shape[-1] // hd
+                q4, k4, v4 = (t.reshape(kb, t_pad, nh, hd) for t in (q, k, v))
+                ctx = _prefill_attention_batched(q4, k4, v4, masks[dev], embeds.dtype)
+                ctxs.append(ctx.reshape(kb, t_pad, -1).to(embeds.dtype))
+                idx = lane_idx[dev]
+                ks.append(k if idx is None else k[idx])
+                vs.append(v if idx is None else v[idx])
+            if lanes is None or lanes:
+                _tp_write_rows(params, cfg, cache, layer, slot_idx, ks, vs, t_pad)
+            return ctxs
+
+        xs = _tp_block(params, layer, xs, attend)
+    first = params.devices[0]
+    last = torch.clamp(lens[first] - 1, min=0)
+    return xs[first][torch.arange(kb, device=first), last]
+
+
+def _gpt_decode_step_tp(params: ShardedParams, cfg: XTTSGPTConfig, tokens: torch.Tensor,
+                        audio_pos: torch.Tensor, seq_lens: torch.Tensor,
+                        cache: ShardedKVCache, len_bound: int | None) -> torch.Tensor:
+    """`gpt_decode_step` over the model shards: K2 per shard under
+    cfg.flash_decode, else the dense bf16 or int8 body per shard (new int8
+    rows at the whole row's scale). K4 is refused (RAGGED_TP_ERROR).
+    Returns [S, D] on the mesh's first device."""
+    if cfg.kv_int8 and cfg.ragged_decode:
+        raise ValueError(RAGGED_TP_ERROR)
+    s, rows, hd = tokens.shape[0], cache.num_slots, cfg.head_dim
+    scale = 1.0 / math.sqrt(hd)
+    pos = torch.clamp(audio_pos.long(), 0, cfg.audio_position_table - 1)
+    x = pad_rows((params["wte"][tokens.long()] + params["wpe"][pos]).to(
+        torch.bfloat16 if cfg.kv_int8 else cache.dtype), rows)
+    xs = _tp_copies(params, x)
+    wpos = {dev: seq_lens.to(dev) for dev in params.lead}
+    if not cfg.flash_decode:
+        bound = min(len_bound or cache.max_len, cache.max_len)
+        lens = {dev: w.long() for dev, w in wpos.items()}
+        live = {dev: torch.arange(bound, device=dev)[None, :] <= n[:, None]
+                for dev, n in lens.items()}
+        slot_idx = {dev: torch.arange(s, device=dev) for dev in params.lead}
+        d_r = params.shards[0]["blocks"]["attn_w"].shape[-1] // 3
+        onehot = {dev: (torch.arange(d_r, device=dev)[:, None] // hd
+                        == torch.arange(d_r // hd, device=dev)[None, :]).float()
+                  for dev in params.lead}
+
+    for layer in range(cfg.num_hidden_layers):
+        def attend(qkv):
+            qkv = [(q[:s], k[:s], v[:s]) for q, k, v in qkv]
+            if cfg.kv_int8:
+                new_k = _tp_quantize(params, [t[1] for t in qkv])
+                new_v = _tp_quantize(params, [t[2] for t in qkv])
+            ctxs = []
+            for r, (q, k, v) in enumerate(qkv):
+                dev, c = params.devices[r], cache.shards[r]
+                with params.on(r):
+                    if cfg.flash_decode:
+                        ctx = flash_decode_append_attention(
+                            q.reshape(s, -1, hd), k, v, c.k, c.v, layer, wpos[dev])
+                    elif cfg.kv_int8:
+                        ctx = _int8_attention(cfg, c, layer, q, k, v, lens[dev], live[dev],
+                                              new_rows=(new_k[r], new_v[r]))
+                    else:
+                        ctx = _dense_attention(c, layer, q, k, v, slot_idx[dev], lens[dev],
+                                               live[dev], onehot[dev], scale)
+                ctxs.append(pad_rows(ctx.reshape(s, -1).to(x.dtype), rows))
+            return ctxs
+
+        xs = _tp_block(params, layer, xs, attend)
+    return xs[params.devices[0]][:s]
 
 
 # --------------------------------------------------- reference-shape prompt

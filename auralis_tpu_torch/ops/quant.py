@@ -25,11 +25,16 @@ def pad_rows(a: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.cat([a, a.new_zeros((rows - a.shape[0], *a.shape[1:]))])
 
 
-def quantize_rows(x: torch.Tensor, eps: float = 1e-8) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows(x: torch.Tensor, eps: float = 1e-8,
+                  row_max: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """x [..., D] -> (int8 [..., D], f32 scale [...]) with x ~ int8 * scale.
     Written for few launches (decode is host-bound): max |x| as one
-    inf-norm reduction, and x / scale promotes bf16 x to f32 exactly."""
-    m = torch.linalg.vector_norm(x, math.inf, dim=-1, dtype=torch.float32)
+    inf-norm reduction, and x / scale promotes bf16 x to f32 exactly.
+    `row_max` [...] f32 replaces max |x| when x holds only some lanes of
+    each row (a model shard's heads): given the max over all lanes, the
+    scales and the int8 lanes equal those of the whole row."""
+    m = (torch.linalg.vector_norm(x, math.inf, dim=-1, dtype=torch.float32)
+         if row_max is None else row_max)
     s = torch.clamp(m, min=eps).mul_(1.0 / 127.0)
     return torch.div(x, s[..., None]).round_().to(torch.int8), s
 

@@ -24,6 +24,11 @@ paths reads the device on the host, uploads a host list or branches on a
 device value, so the runner replays each as a captured CUDA graph
 (runtime/graphs.py). Python numbers are accepted as before.
 
+Under a mesh (parallel/mesh.py) the params and the KV cache are the
+model-sharded `ShardedParams` and `ShardedKVCache`: the gpt functions run
+the shards, and every other field of the state lives on the mesh's first
+device, so the functions here are the same.
+
 A slot-bounded step needs no merge: `_slice_state` returns views of the
 first `sb` slots of every per-slot tensor (the cache stays whole, its rows
 addressed by slot), and every update below is in place, so it writes
@@ -280,7 +285,7 @@ def insert_sequences_tokens(params: dict, cfg: XTTSGPTConfig, state: DecodeState
     num_slots = state.seq_lens.shape[0]
     n_ids = device_values(n_ids, torch.long, dev)
     embeds = _assemble_prompts(params, cfg, cond, ids.to(dev), n_ids).to(
-        torch.bfloat16 if cfg.kv_int8 else state.cache.k.dtype)
+        torch.bfloat16 if cfg.kv_int8 else state.cache.dtype)
     lengths = cond.shape[1] + n_ids + 1
     if not torch.is_tensor(slots):
         real = torch.tensor([int(x) < num_slots for x in slots], device=dev)
@@ -299,7 +304,7 @@ def insert_sequence_tokens(params: dict, cfg: XTTSGPTConfig, state: DecodeState,
     The per-call values are Python numbers or 0-d tensors on the device, as
     `insert_sequence` takes them."""
     embeds = _assemble_prompt(params, cfg, cond, ids, n_ids).to(
-        torch.bfloat16 if cfg.kv_int8 else state.cache.k.dtype)
+        torch.bfloat16 if cfg.kv_int8 else state.cache.dtype)
     length = cond.shape[0] + n_ids + 1
     insert_sequence(params, cfg, state, embeds, length, slot, temperature, top_p, top_k,
                     repetition_penalty, do_sample, max_new, gumbel=gumbel)
@@ -378,10 +383,8 @@ def migrate_slot(state: DecodeState, src, dst) -> None:
     src = device_scalar(src, torch.int64, dev).reshape(1)
     dst = device_scalar(dst, torch.int64, dev).reshape(1)
     src_hot = torch.arange(state.seq_lens.shape[0], device=dev) == src
-    cache = state.cache
-    for t in (cache.k, cache.v, cache.k_scale, cache.v_scale):
-        if t is not None:
-            t[:, dst] = t[:, src]
+    for t in state.cache.tensors():  # every model shard's rows under a mesh
+        t[:, dst] = t[:, src]
     for t in (*state.sampling.tensors(), state.seq_lens, state.audio_pos, state.last_token,
               state.active, state.done, state.tokens_buf, state.latents_buf,
               state.n_generated):

@@ -55,6 +55,14 @@ after the block whose latents it reads and before any later release or
 refill of the slot. Prompts are TokenPrompts only: the JAX runner's legacy
 embeds-prompt branch (an uploaded [T, D] embedding matrix per chunk) is not
 on the port's path.
+
+With a `mesh` (parallel/mesh.py, the JAX runner's `mesh=`) the params and
+the KV cache are sharded once at construction over the model axis, and
+inserts, bursts, migrations, release and harvest act on every shard's cache
+through the same functions; the latents, status and generator stay on the
+mesh's first device, where the vocoder reads them. On a mesh whose shards
+share one card the programs capture and replay as above. Across cards they
+run eagerly: one CUDA graph captures one device's stream.
 """
 from __future__ import annotations
 
@@ -174,7 +182,16 @@ class DecodeEngine:
                  cache_dtype=torch.bfloat16, steps_per_sync: int = 16, seed: int = 0,
                  slot_bucketing: bool = False,
                  w8a8_policy: Optional[Callable[[int, int], bool]] = None,
-                 stream_block_steps: Optional[int] = None, device="cuda"):
+                 stream_block_steps: Optional[int] = None, device="cuda", mesh=None):
+        self.mesh = mesh
+        if mesh is not None:
+            from ..models.xttsv2.gpt import RAGGED_TP_ERROR
+            from ..parallel.mesh import shard_gpt_params
+
+            if cfg.kv_int8 and cfg.ragged_decode:
+                raise ValueError(RAGGED_TP_ERROR)
+            params = shard_gpt_params(params, mesh)
+            device = mesh.first_device
         self.params = params
         self.cfg = cfg
         # per-program int8 decode weights: the policy picks, from a block's
@@ -197,6 +214,17 @@ class DecodeEngine:
         self.device = torch.device(device)
         self.state: DecodeState = init_decode_state(
             cfg, num_slots, seed=seed, dtype=cache_dtype, device=self.device)
+        # a graph captures one device's stream: a mesh over several cards
+        # runs its programs eagerly
+        self._capture = mesh is None or not params.multi_device
+        if mesh is not None:
+            from ..parallel.mesh import shard_decode_state
+
+            self.state = shard_decode_state(self.state, mesh)
+            if not self._capture and self.device.type == "cuda":
+                logger.info("mesh over %d cards: decode and insert programs run eagerly "
+                            "(multi-device graph capture is later work, ROADMAP.md)",
+                            len(params.lead))
         # the worker thread mutates the state during a pass; the event-loop
         # side (release, harvest, compaction) takes this lock before touching it
         self._state_lock = threading.RLock()
@@ -220,7 +248,7 @@ class DecodeEngine:
         }
         # the captured decode blocks, whose static inputs are this state's
         # tensors (a new state gets a new cache)
-        self._programs = ProgramCache(self.device, (self.state.generator,))
+        self._programs = ProgramCache(self.device, (self.state.generator,), self._capture)
         self._programs_state = self.state
         self._runner: Optional[asyncio.Task] = None
         self._wake = asyncio.Event()
@@ -488,14 +516,15 @@ class DecodeEngine:
         state gets a new cache: the programs' static inputs are its
         tensors)."""
         if self._programs_state is not self.state:
-            self._programs = ProgramCache(self.device, (self.state.generator,))
+            self._programs = ProgramCache(self.device, (self.state.generator,), self._capture)
             self._programs_state = self.state
         return self._programs.get(key, build)
 
     def precompile_inserts(self, cond_len: int) -> None:
         """Capture every insert program and `migrate_slot` before serving,
         the JAX `precompile_inserts`: per prefill bucket that holds
-        `cond_len` latents and the start token, the single insert (into
+        `cond_len` latents and the start token, largest bucket and burst
+        first, the single insert (into
         slot 0) and each burst of `_INSERT_K_BUCKETS` (into slots 0..K-1; a
         burst wider than the slot count is never formed and is skipped),
         each slot released after; then the migration (slot 0 onto itself). Each key's
@@ -517,12 +546,14 @@ class DecodeEngine:
         n = 0
         with self._state_lock:
             rng = self.state.generator.get_state()
-            for b in buckets:
+            # largest first: later, smaller programs reuse the blocks that
+            # the earlier ones freed in the shared pool
+            for b in reversed(buckets):
                 tb = b - cond_len
                 if tb < 1:
                     continue  # the bucket cannot hold the cond and the start token
                 n_ids = min(1, tb - 1)
-                for k in (1, *self._INSERT_K_BUCKETS):
+                for k in reversed((1, *self._INSERT_K_BUCKETS)):
                     if k > self.num_slots:
                         continue
                     self._insert_tokens([cond] * k, np.zeros((k, tb), np.int64), [n_ids] * k,

@@ -144,6 +144,7 @@ class Program:
         self.inputs = inputs  # static input tensors, staged by the caller
         self.lock = threading.Lock()
         self.launches: dict = {}  # kernel wrapper -> launches per replay
+        self.replays = 0
         # the cache's pool and generators, not the cache: no reference
         # cycle, so a dropped cache frees its graphs at once
         self._pool, self._generators = pool, generators
@@ -160,6 +161,7 @@ class Program:
             return out
         for wrapper, n in self.launches.items():
             wrapper.launches += n
+        self.replays += 1
         counts["replays"] += 1
         _tally(self.kind, "replays")
         return self._graph.replay()
@@ -183,8 +185,10 @@ class ProgramCache:
     to, so their temporaries may share the pool. On the CPU `captures` is
     False and callers run the eager functions instead."""
 
-    def __init__(self, device, generators=()):
-        self.captures = captures_on(device)
+    def __init__(self, device, generators=(), capture: bool = True):
+        # `capture=False` runs a card's programs eagerly too (a mesh over
+        # several cards: one CUDA graph captures one device's stream)
+        self.captures = captures_on(device) and capture
         self.generators = tuple(generators)
         self.pool = CudaGraph.new_pool() if self.captures else None
         self._programs: dict = {}
@@ -204,3 +208,9 @@ class ProgramCache:
     def keys(self) -> list:
         with self._lock:
             return [k for k, p in self._programs.items() if p.captured]
+
+    def replays(self) -> int:
+        """Replays of this cache's programs (the process-wide tally is
+        `counts`)."""
+        with self._lock:
+            return sum(p.replays for p in self._programs.values())

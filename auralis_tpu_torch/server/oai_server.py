@@ -443,13 +443,6 @@ def build_app(tts: TTS, voices: Optional[dict] = None) -> web.Application:
 
 
 def start_tts_engine(args) -> TTS:
-    # parallel serving is not ported (ROADMAP.md, queue 1 item 10): without
-    # this the facade would fail importing the missing parallel package
-    for flag in ("tensor_parallel_size", "data_parallel_replicas"):
-        if getattr(args, flag, 1) > 1:
-            raise NotImplementedError(
-                f"--{flag} {getattr(args, flag)}: parallel serving is not ported yet "
-                "(ROADMAP.md, queue 1 item 10: 'Parallel'); the port serves on one GPU")
     tts = TTS(
         scheduler_max_concurrency=args.max_concurrency,
         vllm_logging_level=args.vllm_logging_level,
@@ -503,11 +496,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--tensor_parallel_size", type=int, default=1,
-        help="shard attention heads/MLP over N GPUs: not ported yet, above 1 raises",
+        help="shard attention heads/MLP over N GPUs (latency knob)",
     )
     parser.add_argument(
         "--data_parallel_replicas", type=int, default=1,
-        help="independent engine replicas across local GPUs: not ported yet, above 1 raises",
+        help="independent engine replicas across local GPUs (throughput knob)",
     )
     parser.add_argument(
         "--slot_bucketing", action=argparse.BooleanOptionalAction, default=None,

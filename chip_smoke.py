@@ -27,7 +27,8 @@ Phases:
     K5 the same over 30 layers' MLP weights in the serving layout, beside
     the serving chain's cold time (`serving_chain_ms`), with two launches
     bit-equal and its fc -> proj overlap kept in a CUDA graph (the
-    captured graph's programmatic edge);
+    captured graph's programmatic edge); K1 and K2 also at one model
+    shard's shapes under tensor parallelism of 2 (8 heads);
  4. the bf16 slice: an XTTSv2Engine at the full XTTSConfig() width with
     seeded random bf16 weights and a bf16 KV cache behind the TTS facade
     answers three requests (one sync, two concurrent), each capped at 300
@@ -73,7 +74,8 @@ Phases:
     twice: first capturing its programs lazily while other threads issue,
     then after TTS.warmup() (whose precompile hooks capture every decode
     block, insert program and vocoder program; its time and memory are
-    printed), where insert programs must replay too. K1, K2, K3 must
+    printed beside the slot fit's pool estimate, which must not be below
+    the growth), where insert programs must replay too. K1, K2, K3 must
     launch and graphs replay. (Its int8 stream runs in 4b.) Phase 3
     checks K3 at the streaming windows' shapes (STREAM_WINDOWS);
  4g. captured programs on fresh bf16 and int8 engines: the precompile
@@ -87,7 +89,9 @@ Phases:
     in every bucket at B = 1, 4) 0 PCM steps from the eager functions.
     precompile_decode_programs must capture every decode block, the 16
     insert programs (single and K = 2, 4, 8 per prefill bucket) and
-    migrate_slot, its decode and insert parts timed apart;
+    migrate_slot, its decode and insert parts timed apart; on bf16 the
+    growth of both hooks on the fresh engine must not exceed the slot
+    fit's pool estimate (accepted: at most 1.5x above it);
  4h. the insert programs on 4g's engines: from one cloned full-width state
     per side, `precompile_inserts` captures on the graph side, then a
     single insert at each prefill bucket into slot 5 (sampled and greedy),
@@ -123,7 +127,24 @@ Phases:
     (python -m auralis_tpu_torch.entrypoints.oai_server --kv_int8) boots
     in a subprocess on a sibling model directory whose config sets the
     int8 path (kv_int8, ragged_decode, prefill_flash, W8A8), answers one
-    short request and must exit 0 on SIGINT.
+    short request and must exit 0 on SIGINT;
+ 7a. data-parallel replicas: two full-width bf16 engines on this card
+    (ReplicatedTTSEngine.from_engine with devices [cuda:0, cuda:0]) behind
+    the facade: 4 concurrent requests (100 tokens) capture both replicas'
+    programs lazily at once and must route to both; TTS.warmup() on both
+    (time, memory reserved beside the replicas' pool estimates, which must
+    not be below the growth); the burst again, each replica's programs
+    replaying in its own pools; a greedy request on replica 1 against the
+    donor (tokens equal, waveform within 1 PCM step); from_engine with
+    n_replicas=2 on the default devices gives one replica and logs it;
+ 7b. tensor parallelism on one card: a DecodeEngine on a mesh of two model
+    shards on cuda:0 beside the unsharded one, full width, bf16 KV, K1 and
+    K2: 4 single inserts, 64 teacher-forced steps, hidden states and
+    logits within TP_SNR_FLOOR_DB; K1 and K2 at 8 heads; a 16-step block
+    on the mesh replayed as a graph; the dense int8 body's layer-0 rows and
+    scales of a prompt bit-equal to the unsharded engine's;
+ 7c. the refusals on this card: tensor_parallel_size=2 on one GPU and
+    ragged_decode (K4) under a model mesh raise ValueError.
 
 Each phase's header gives the seconds since the start. Any failure exits
 non-zero. The kernels' launch counts include the launches of replayed
@@ -183,6 +204,7 @@ from auralis_tpu_torch.models.xttsv2.hifigan import (
     RESBLOCK_KERNELS,
     UPSAMPLE_RATES,
 )
+from auralis_tpu_torch.models.xttsv2 import gpt as gpt_module
 from auralis_tpu_torch.models.xttsv2.gpt import (
     KVCache,
     gpt_decode_step,
@@ -192,6 +214,9 @@ from auralis_tpu_torch.models.xttsv2.gpt import (
     layer_norm,
     quantize_decode_weights,
 )
+from auralis_tpu_torch.parallel.mesh import make_mesh
+from auralis_tpu_torch.parallel.replica import ReplicatedTTSEngine
+from auralis_tpu_torch.parallel.replica import logger as replica_logger
 from auralis_tpu_torch.runtime import graphs
 from auralis_tpu_torch.runtime.decode_loop import (
     PREFILL_BUCKETS,
@@ -471,6 +496,65 @@ def check_prefill(dev, results) -> None:
         **main, "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "shape": "T=128 (len 100),H=16,D=64 bf16",
         "by_shape": {f"{tag} T={t}": r for (tag, t), r in rows.items()}}
+
+
+def check_shard_shapes(dev, results) -> None:
+    """K1 and K2 at one model shard's shapes under tensor parallelism of 2
+    (phase 7b): 8 heads, K1's q/k/v strided views of a [T, 3 x 512] row at
+    T = 128, K2 on a [30, 8, 1280, 512] cache at the ragged write
+    positions; against the plain versions with phase 3's bounds, timed the
+    same way, in each kernel's `by_shape`."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    h, d, t, length = HEADS // 2, HEAD_DIM, 128, 100
+    qkv = torch.randn((t, 3 * h * d), generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v = (x.view(t, h, d) for x in qkv.split(h * d, dim=-1))
+    dev_len = torch.tensor(length, dtype=torch.int32, device=dev)
+    got = prefill_flash_attention(q, k, v, dev_len)
+    want = prefill_attention_plain(q, k, v, dev_len)
+    err = (got - want).abs().max().item()
+    if not err <= 1e-3:
+        raise AssertionError(f"K1 at 8 heads: error {err} > 1e-3")
+    ms = time_ms(lambda: prefill_flash_attention(q, k, v, dev_len), 20)
+    plain_ms = time_ms(lambda: prefill_attention_plain(q, k, v, dev_len), 20)
+    pairs = sum(min(i + 1, length) for i in range(t))
+    bound_ms, bound_by = bound(t * h * d * (3 * 2 + 4), 4 * d * h * pairs, "bf16")
+    results["prefill_attention"]["by_shape"]["bf16 T=128 H=8 (one of 2 model shards)"] = {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by}
+    say(f"  K1 prefill bf16 T={t} len={length} H=8 (one of 2 model shards): max_abs_err="
+        f"{err:.3e} (bound 1e-3); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.5f} ms ({bound_by}, {bound_ms / ms:.1%} of it)")
+    shape = (LAYERS, 8, T_MAX, h * d)
+    kc = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    vc = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    kc2, vc2 = kc.clone(), vc.clone()
+    q = torch.randn((8, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    kn = torch.randn((8, h * d), generator=gen, device=dev).to(torch.bfloat16)
+    vn = torch.randn((8, h * d), generator=gen, device=dev).to(torch.bfloat16)
+    wp = torch.tensor(WRITE_POS_SETS["ragged"], dtype=torch.int32, device=dev)
+    got = flash_decode_append_attention(q, kn, vn, kc, vc, HOT_LAYER, wp)
+    torch.cuda.synchronize()
+    want = flash_decode_plain(q, kn, vn, kc2, vc2, HOT_LAYER, wp)
+    ratio, mismatch = elementwise(got, want, 2.0 ** -7, 1e-5)
+    if not (torch.equal(kc, kc2) and torch.equal(vc, vc2) and ratio <= 1.0
+            and mismatch <= 0.01):
+        raise AssertionError(f"K2 at 8 heads: caches equal {torch.equal(kc, kc2)}, worst "
+                             f"error/bound {ratio}, mismatch {mismatch}")
+    err = (got.float() - want.float()).abs().max().item()
+    ms, ms_hot = cold_hot_ms(
+        lambda layer: flash_decode_append_attention(q, kn, vn, kc, vc, layer, wp))
+    rot = itertools.count()
+    plain_ms = time_ms(
+        lambda: flash_decode_plain(q, kn, vn, kc2, vc2, next(rot) % LAYERS, wp), LAYERS)
+    live, row_b = int((wp + 1).sum()), h * d * 2
+    bound_ms, bound_by = bound(2 * live * row_b + 8 * row_b * 4, 4 * live * h * d, "bf16")
+    results["flash_decode_append"]["by_shape"]["ragged H=8 (one of 2 model shards)"] = {
+        "write_pos": wp.tolist(), "max_abs_err": err, "ms": ms, "ms_hot": ms_hot,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    say(f"  K2 decode S=8 T={T_MAX} H=8 (one of 2 model shards) ragged: max_abs_err={err:.3e}, "
+        f"worst |err|/bound {ratio:.3f}, mismatch {mismatch:.4%}; kernel cold {ms:.4f} ms, hot "
+        f"{ms_hot:.4f} ms, plain cold {plain_ms:.4f} ms per layer, bound {bound_ms:.5f} ms "
+        f"({bound_by}; {bound_ms / ms:.1%} of cold)")
 
 
 def check_slot_slices(tag: str, kernel, plain, caches, ref_caches, rtol: float, atol: float,
@@ -1900,13 +1984,19 @@ def run_streaming(dev, smi: str, tokenizer) -> dict:
                 t0 = time.perf_counter()
                 tts.warmup(text="Hello world, this is a test of speech. The quick brown fox "
                                 "jumps over the lazy dog.")
+                torch.cuda.synchronize()
+                grown = torch.cuda.memory_reserved() - reserved
                 say(f"  TTS.warmup (precompile hooks, then two sentences of traffic) completed "
                     f"in {time.perf_counter() - t0:.1f} s: graphs {graphs_text(graphs.counts)}; "
                     f"decode keys {len(decode_keys(de))} of {len(de.precompile_keys())}, "
                     f"insert and migrate keys {len(de._programs.keys()) - len(decode_keys(de))}, "
                     f"vocoder keys {len(engine._vocoder_programs.keys())}; memory reserved "
                     f"{reserved / 2**30:.2f} -> {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
-                    f"({smi})")
+                    f"(+{grown / 2**30:.2f}; the pool estimate {engine.pool_bytes / 2**30:.2f} "
+                    f"GiB, the lazy burst captured part of it) ({smi})")
+                if engine.pool_bytes < grown:
+                    raise AssertionError(f"4f: pool estimate {engine.pool_bytes} below the "
+                                         f"warmup's growth {grown}")
                 if len(decode_keys(de)) < len(de.precompile_keys()):
                     raise AssertionError("TTS.warmup() left decode keys uncaptured")
                 if len(de._programs.keys()) - len(decode_keys(de)) < INSERT_KEYS + 1:
@@ -2124,6 +2214,13 @@ def timed_calls(obj, names: tuple) -> dict:
 INSERT_KEYS = len(PREFILL_BUCKETS) * (1 + len(DecodeEngine._INSERT_K_BUCKETS))
 
 
+def pool_gib(pool) -> float:
+    """GiB that the allocator holds for one graph memory pool (its
+    segments in `torch.cuda.memory_snapshot`)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool)) / 2**30
+
+
 def run_graphs(dev, smi: str, tokenizer) -> dict:
     """Phase 4g: the captured programs on the full-width bf16 (K2) and int8
     (K4) engines of phases 4 and 4b. Per engine, `precompile_decode_programs`
@@ -2141,6 +2238,8 @@ def run_graphs(dev, smi: str, tokenizer) -> dict:
         torch.cuda.empty_cache()
         engine = build_engine(dev, tokenizer, gpt_flags, engine_flags)
         de = engine.decode_engine
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_reserved()
         hooks = [("decode", engine.precompile_decode_programs)]
         if tag == "bf16":
             hooks.append(("vocoder", engine.precompile_vocoder_buckets))
@@ -2166,6 +2265,20 @@ def run_graphs(dev, smi: str, tokenizer) -> dict:
                             f"{k} {c.get(k + '.captures', 0)} captured in "
                             f"{c.get(k + '.capture_s', 0.0):.2f} s (capture + instantiate)"
                             for k in kinds))
+        if tag == "bf16":
+            # both hooks on a fresh engine: what TTS.warmup()'s captures
+            # reserve, against the slot fit's estimate (accepted: not below
+            # the growth, at most 1.5x it)
+            grown = torch.cuda.memory_reserved() - start
+            say(f"  {tag} both precompile hooks on a fresh engine: memory reserved +"
+                f"{grown / 2**30:.2f} GiB, of it the graph pools: decode state (blocks and "
+                f"inserts) {pool_gib(de._programs.pool):.2f} GiB, vocoder "
+                f"{pool_gib(engine._vocoder_programs.pool):.2f} GiB; the slot fit's pool estimate "
+                f"{engine.pool_bytes / 2**30:.2f} GiB ({engine.pool_bytes / grown:.2f}x; accepted "
+                f"1.0-1.5x) ({smi})")
+            if engine.pool_bytes < grown:
+                raise AssertionError(f"4g: pool estimate {engine.pool_bytes} below the "
+                                     f"precompile growth {grown}")
         if len(decode_keys(de)) != len(de.precompile_keys()):
             raise AssertionError(f"{tag}: precompile captured {len(decode_keys(de))} of "
                                  f"{len(de.precompile_keys())} decode keys")
@@ -2342,6 +2455,345 @@ def run_insert_programs(engines: dict, smi: str) -> None:
         if tag == "bf16":
             check_cond_programs(engine, smi)
         say(f"  {tag}: graphs {graphs_text(graphs.counts)}")
+
+
+# ------------------------------------------------------------- parallel
+REPLICA_TOKENS = 100  # tokens a chunk in phase 7a's requests
+TP_STEPS = 64  # phase 7b's teacher-forced decode steps
+# phase 7b: the model-sharded engine against the unsharded one on one card,
+# teacher-forced (both read the same tokens), bf16 throughout. The shards sum
+# their f32 partials of each row-parallel product where the unsharded
+# product accumulates in one GEMM, so the residual stream parts at bf16
+# rounding. Calibrated on an NVIDIA H100 80GB HBM3 (700 W): 35.0-36.1 dB on
+# inserts, hidden states and logits over the 64 steps, so the floor leaves
+# 5 dB; a shard that summed the wrong heads or lanes lands near 0 dB
+TP_SNR_FLOOR_DB = 30.0
+
+
+def snr_db_np(ref: np.ndarray, got: np.ndarray) -> float:
+    noise = float(np.sum((got.astype(np.float64) - ref.astype(np.float64)) ** 2))
+    return float("inf") if noise == 0 else 10 * math.log10(
+        float(np.sum(ref.astype(np.float64) ** 2)) / noise)
+
+
+class HeadsSeen:
+    """Wraps a kernel wrapper where gpt.py calls it and records the head
+    count of every call (the wrapped function still counts its launches)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.real = getattr(module, name)
+        self.heads: set = set()
+
+    def __enter__(self):
+        def call(q, *args, **kwargs):
+            self.heads.add(int(q.shape[1]))
+            return self.real(q, *args, **kwargs)
+
+        setattr(self.module, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def replica_replays(engine) -> list:
+    """Per replica: replays of its decode-state programs and of its vocoder
+    programs."""
+    return [(e.decode_engine._programs.replays(), e._vocoder_programs.replays())
+            for e in engine.engines]
+
+
+def run_replicas(dev, smi: str, tokenizer) -> dict:
+    """Phase 7a: two replicas of the full-width bf16 engine on one card
+    behind the facade (ReplicatedTTSEngine.from_engine with devices [cuda:0,
+    cuda:0]). A cold burst of 4 concurrent requests captures both replicas'
+    programs lazily at once; TTS.warmup(), forwarded to both, is timed with
+    memory_reserved beside the estimate; the burst again replays each
+    replica's programs in its own pools; a greedy request on replica 1
+    against the donor alone; the replica count on this card's default
+    devices. Returns the kernel launches of the drives."""
+    with tempfile.TemporaryDirectory() as tmp:
+        wav_path = write_voice(tmp)
+        torch.cuda.empty_cache()
+        donor = build_engine(dev, tokenizer, {"flash_decode": True, "prefill_flash": True}, {})
+        engine = ReplicatedTTSEngine.from_engine(donor, devices=[dev, dev])
+        rep = engine.engines[1]
+        say(f"  replicas: {len(engine.engines)} on {dev}; slots {[e.decode_slots for e in engine.engines]}, "
+            f"memory plans {[round(e.max_gb_for_model, 2) for e in engine.engines]} GiB (pools "
+            f"{[round(e.pool_bytes / 2**30, 2) for e in engine.engines]} GiB each); replica 1 "
+            f"shares the donor's weights: {rep.params['wte'] is donor.params['wte']}")
+        if rep.params["wte"] is not donor.params["wte"]:
+            raise AssertionError("replica 1 copied the donor's weights on the donor's device")
+        pools = {e.decode_engine._programs.pool for e in engine.engines} | {
+            e._vocoder_programs.pool for e in engine.engines}
+        if len(pools) != 4:
+            raise AssertionError("the replicas' program caches share a memory pool")
+        tts = TTS(scheduler_max_concurrency=4).with_engine(engine)
+        routes = []
+        route = engine._route
+        engine._route = lambda request: routes.append(route(request)) or routes[-1]
+
+        def request(**kw):
+            return TTSRequest(text=SENTENCE, speaker_files=[wav_path], language="en",
+                              max_new_tokens=REPLICA_TOKENS, **kw)
+
+        async def burst():
+            return await asyncio.gather(*(tts.generate_speech_async(request())
+                                          for _ in range(4)))
+
+        for w in KERNELS.values():
+            w["wrapper"].launches = 0
+        launches = {}
+        for tag in ("cold, lazy captures on both replicas at once", "after TTS.warmup()"):
+            del routes[:]
+            graphs.reset_counts()
+            before = replica_replays(engine)
+            t0 = time.perf_counter()
+            outs = tts.loop.run_until_complete(burst())
+            wall = time.perf_counter() - t0
+            for i, o in enumerate(outs):
+                check_waveform(f"7a {tag} request {i}", o)
+            after = replica_replays(engine)
+            audio = sum(o.array.size for o in outs) / 24000
+            say(f"  4 concurrent requests ({tag}): routes {routes}, {audio:.2f} s audio in "
+                f"{wall:.2f} s; graphs {graphs_text(graphs.counts)}; replays per replica "
+                f"(decode-state programs, vocoder programs) "
+                f"{[(a[0] - b[0], a[1] - b[1]) for a, b in zip(after, before)]} ({smi})")
+            if sorted(set(routes)) != [0, 1]:
+                raise AssertionError(f"7a {tag}: routes {routes} did not use both replicas")
+            if tag != "after TTS.warmup()":
+                torch.cuda.synchronize()
+                reserved = torch.cuda.memory_reserved()
+                estimate = sum(e.pool_bytes for e in engine.engines)
+                t0 = time.perf_counter()
+                tts.warmup(text="Hello world, this is a test of speech. The quick brown fox "
+                                "jumps over the lazy dog.")
+                torch.cuda.synchronize()
+                grown = torch.cuda.memory_reserved() - reserved
+                say(f"  TTS.warmup() on both replicas: {time.perf_counter() - t0:.1f} s; memory "
+                    f"reserved {reserved / 2**30:.2f} -> {torch.cuda.memory_reserved() / 2**30:.2f}"
+                    f" GiB (+{grown / 2**30:.2f}), the replicas' pool estimates "
+                    f"{estimate / 2**30:.2f} GiB ({estimate / max(grown, 1):.2f}x the growth; "
+                    f"the cold burst captured part of it) ({smi})")
+                if estimate < grown:
+                    raise AssertionError(f"7a: pool estimate {estimate} below the warmup's "
+                                         f"growth {grown}")
+            else:
+                for i, (a, b) in enumerate(zip(after, before)):
+                    if a[0] <= b[0] or a[1] <= b[1]:
+                        raise AssertionError(f"7a: replica {i}'s programs did not replay "
+                                             f"({b} -> {a})")
+        launches = {name: w["wrapper"].launches for name, w in KERNELS.items()}
+
+        # exactness: one greedy request on replica 1 against the donor alone
+        async def tokens_of(e):
+            handles, _, _, _ = await e.get_generation_context(request(do_sample=False))
+            return [np.asarray((await h)[0]) for h in handles]
+
+        got_tokens = tts.loop.run_until_complete(tokens_of(rep))
+        want_tokens = tts.loop.run_until_complete(tokens_of(donor))
+        engine._route = lambda r: 1
+        got = tts.generate_speech(request(do_sample=False))
+        engine._route = lambda r: 0
+        want = tts.generate_speech(request(do_sample=False))
+        steps, share = pcm_diff(got.array, want.array)
+        say(f"  greedy request on replica 1 against the donor: tokens "
+            f"{'equal' if all(np.array_equal(a, b) for a, b in zip(got_tokens, want_tokens)) else 'DIFFER'}"
+            f" ({[len(t) for t in got_tokens]} per chunk); waveform largest difference {steps} PCM "
+            f"steps, {share:.4%} of samples differ")
+        if len(got_tokens) != len(want_tokens) or not all(
+                np.array_equal(a, b) for a, b in zip(got_tokens, want_tokens)):
+            raise AssertionError("7a: replica 1's greedy tokens differ from the donor's")
+        if got.array.shape != want.array.shape or steps > 1:
+            raise AssertionError(f"7a: replica 1's waveform is {steps} PCM steps from the donor's")
+        warned = []
+        log_warning = replica_logger.warning
+        replica_logger.warning = lambda msg, *a: (warned.append(msg % a), log_warning(msg, *a))
+        try:
+            one = ReplicatedTTSEngine.from_engine(donor, n_replicas=2)
+        finally:
+            replica_logger.warning = log_warning
+        say(f"  from_engine(n_replicas=2) on this card's default devices "
+            f"({torch.cuda.device_count()} GPU): {len(one.engines)} replica; logged: {warned}")
+        if len(one.engines) != torch.cuda.device_count() or not warned:
+            raise AssertionError("7a: n_replicas above the device count was not truncated and logged")
+        tts.loop.run_until_complete(tts.shutdown())
+        del tts, engine, donor, rep, one
+    say(f"  launches during the replica drives: {launches}")
+    for name in BF16_PATH:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by phase 7a's replicas")
+    return launches
+
+
+def tp_prompts(cfg, dev, n: int) -> list:
+    """n (cond, ids) prompts from a seed: 32 conditioning latents of unit
+    scale and 40-70 text ids, one prefill bucket (128)."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    out = []
+    for i in range(n):
+        cond = 0.5 * torch.randn((cfg.num_cond_latents, cfg.hidden_size), generator=g)
+        ids = torch.randint(5, 200, (40 + 10 * i,), generator=g).numpy().astype(np.int32)
+        out.append(TokenPrompt(cond=cond.to(dev), ids=ids))
+    return out
+
+
+def run_tensor_parallel(dev, smi: str) -> dict:
+    """Phase 7b: DecodeEngine on a mesh of two model shards on one card
+    (make_mesh(devices=[cuda:0, cuda:0], model=2)) beside the unsharded
+    engine, full width, bf16 KV, prefill_flash + flash_decode: 4 single
+    inserts through each runner's insert programs, then TP_STEPS
+    teacher-forced steps (both fed the unsharded engine's greedy tokens),
+    hidden states and logits against the unsharded engine as an SNR; K1 and
+    K2 must launch at 8 heads; a 16-step block on the mesh must replay as a
+    graph. Then the dense int8 body on the same mesh: layer 0's int8 rows
+    and scales of a prompt bit-equal to the unsharded engine's. Then 7c:
+    the refusals. Returns the kernel launches."""
+    cfg = dataclasses.replace(XTTSConfig().gpt, flash_decode=True, prefill_flash=True)
+    params, _ = params_from_numpy(*seed0_weights(), device=dev, dtype=torch.bfloat16)
+    mesh = make_mesh([dev, dev], data=1, model=2)
+    for w in KERNELS.values():
+        w["wrapper"].launches = 0
+    torch.cuda.empty_cache()
+    with HeadsSeen(gpt_module, "prefill_flash_attention") as k1, \
+            HeadsSeen(gpt_module, "flash_decode_append_attention") as k2:
+        one = DecodeEngine(params, cfg, num_slots=8, cache_dtype=torch.bfloat16, device=dev)
+        tp = DecodeEngine(params, cfg, num_slots=8, cache_dtype=torch.bfloat16, device=dev,
+                          mesh=mesh)
+        shards = tp.state.cache.shards
+        say(f"  mesh {mesh}; shard caches {[tuple(c.k.shape) for c in shards]}; qkv per shard "
+            f"{tuple(tp.params.shards[0]['blocks']['attn_w'].shape)}")
+        greedy = SamplingOptions(temperature=1.0, top_p=1.0, top_k=1, repetition_penalty=1.0,
+                                 do_sample=False)
+        prompts = tp_prompts(cfg, dev, 4)
+        graphs.reset_counts()
+        for de in (one, tp):
+            with de._state_lock:
+                for slot, p in enumerate(prompts):
+                    de._insert(type("P", (), {"prompt": p, "options": greedy})(), slot)
+        torch.cuda.synchronize()
+        inserts = dict(graphs.counts)
+        s = 4
+        lat_one = one.state.latents_buf[:s, 0].float().cpu().numpy()
+        lat_tp = tp.state.latents_buf[:s, 0].float().cpu().numpy()
+        snr_insert = snr_db_np(lat_one, lat_tp)
+        # teacher forcing: both engines read the unsharded engine's greedy
+        # tokens, step by step
+        st1, st2 = one.state, tp.state
+        h_snr, l_snr = [], []
+        tokens = st1.last_token[:s].clone()
+        pos, lens = st1.audio_pos[:s].clone(), st1.seq_lens[:s].clone()
+        t0 = time.perf_counter()
+        for _ in range(TP_STEPS):
+            h1 = gpt_decode_step(one.params, cfg, tokens, pos, lens, st1.cache)
+            h2 = gpt_decode_step(tp.params, cfg, tokens, pos, lens, st2.cache)
+            lg1, _ = heads(one.params, h1)
+            lg2, _ = heads(tp.params, h2)
+            h_snr.append(snr_db_np(h1.float().cpu().numpy(), h2.float().cpu().numpy()))
+            l_snr.append(snr_db_np(lg1.cpu().numpy(), lg2.cpu().numpy()))
+            tokens = lg1.argmax(dim=-1).to(torch.int32)
+            pos, lens = pos + 1, lens + 1
+        torch.cuda.synchronize()
+        forced_s = time.perf_counter() - t0
+        # the same slots' state moved on by hand: a graph block on the mesh
+        for st in (st1, st2):
+            st.seq_lens[:s], st.audio_pos[:s], st.last_token[:s] = lens, pos, tokens
+        graphs.reset_counts()
+        for _ in range(2):
+            tp._decode_block(16, None, None, tp._status_bufs[0])
+        torch.cuda.synchronize()
+        block = dict(graphs.counts)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            tp._decode_block(16, None, None, tp._status_bufs[0])
+        torch.cuda.synchronize()
+        block_ms = (time.perf_counter() - t0) / 3 / 16 * 1e3
+        for _ in range(2):
+            one._decode_block(16, None, None, one._status_bufs[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            one._decode_block(16, None, None, one._status_bufs[0])
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t0) / 3 / 16 * 1e3
+    say(f"  4 single inserts per engine (insert programs: {graphs_text(inserts)}); first "
+        f"latents SNR {snr_insert:.1f} dB; {TP_STEPS} teacher-forced steps ({forced_s:.1f} s, "
+        f"both engines eager): hidden state SNR min {min(h_snr):.1f} / median "
+        f"{statistics.median(h_snr):.1f} dB, logits SNR min {min(l_snr):.1f} / median "
+        f"{statistics.median(l_snr):.1f} dB (floor {TP_SNR_FLOOR_DB} dB); K1 heads {sorted(k1.heads)}, "
+        f"K2 heads {sorted(k2.heads)} ({smi})")
+    say(f"  16-step blocks on the mesh as graphs: {graphs_text(block)}; {block_ms:.3f} ms a step "
+        f"(two shards on one card) against {one_ms:.3f} unsharded, wall with the status copy "
+        f"({smi})")
+    if min(min(h_snr), min(l_snr), snr_insert) < TP_SNR_FLOOR_DB:
+        raise AssertionError(f"7b: SNR below {TP_SNR_FLOOR_DB} dB")
+    half = cfg.num_attention_heads // 2
+    if half not in k1.heads or half not in k2.heads:
+        raise AssertionError(f"7b: K1 heads {k1.heads}, K2 heads {k2.heads}: no launch at "
+                             f"{half} heads")
+    if block.get("decode.replays", 0) < 1:
+        raise AssertionError("7b: the mesh's decode block did not replay as a graph")
+    launches = {name: w["wrapper"].launches for name, w in KERNELS.items()}
+    del one, tp, st1, st2
+    torch.cuda.empty_cache()
+
+    # the dense int8 body on the same mesh: layer 0's rows and scales
+    icfg = dataclasses.replace(XTTSConfig().gpt, prefill_flash=True, kv_int8=True)
+    sides = []
+    for m in (None, mesh):
+        de = DecodeEngine(params, icfg, num_slots=2, cache_dtype=torch.bfloat16, device=dev,
+                          mesh=m)
+        with de._state_lock:
+            de._insert(type("P", (), {"prompt": prompts[0], "options": greedy})(), 1)
+        torch.cuda.synchronize()
+        sides.append(de.state.cache)
+        del de
+    plain, sharded = sides
+    n = prompts[0].length
+    rows_k = torch.cat([c.k[0, 1, :n] for c in sharded.shards], dim=-1)
+    rows_v = torch.cat([c.v[0, 1, :n] for c in sharded.shards], dim=-1)
+    equal = (torch.equal(rows_k, plain.k[0, 1, :n]) and torch.equal(rows_v, plain.v[0, 1, :n])
+             and all(torch.equal(c.k_scale[0, 1, :n], plain.k_scale[0, 1, :n])
+                     and torch.equal(c.v_scale[0, 1, :n], plain.v_scale[0, 1, :n])
+                     for c in sharded.shards))
+    deep = float((sharded.shards[0].k_scale[1:, 1, :n] / plain.k_scale[1:, 1, :n] - 1)
+                 .abs().max())
+    say(f"  dense int8 body on the mesh, a {n}-row prompt: layer 0's int8 rows and scales "
+        f"(each shard's copy) {'bit-equal' if equal else 'DIFFER'} to the unsharded engine's; "
+        f"the deeper layers' scales within {deep:.2e} relative (their inputs are summed over the "
+        f"shards)")
+    if not equal:
+        raise AssertionError("7b: layer 0's int8 rows or scales differ under the mesh")
+    del sides, plain, sharded
+    torch.cuda.empty_cache()
+
+    phase("[7c] parallel refusals on this card")
+    gpu_count = torch.cuda.device_count()
+    try:
+        core = {}  # never reached: the mesh is made first
+        XTTSv2Engine(XTTSConfig(), cfg, params=params, core=core, device=dev,
+                     tensor_parallel_size=2)
+    except ValueError as e:
+        say(f"  XTTSv2Engine(tensor_parallel_size=2) with {gpu_count} GPU: ValueError: {e}")
+        if gpu_count >= 2 or "needs 2 devices" not in str(e):
+            raise
+    else:
+        if gpu_count < 2:
+            raise AssertionError("7c: tensor_parallel_size=2 did not raise on one GPU")
+    rcfg = dataclasses.replace(XTTSConfig().gpt, prefill_flash=True, ragged_decode=True,
+                               kv_int8=True)
+    try:
+        DecodeEngine(params, rcfg, num_slots=2, device=dev, mesh=mesh)
+    except ValueError as e:
+        say(f"  ragged_decode + kv_int8 on a model mesh: ValueError: {e}")
+        if "K4" not in str(e) or "ROADMAP" not in str(e):
+            raise
+    else:
+        raise AssertionError("7c: ragged_decode under a model mesh did not raise")
+    del params
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ------------------------------------------------------ checkpoint and server
@@ -2853,6 +3305,7 @@ def main() -> int:
     check_mrf(dev, results)
     check_ragged(dev, results)
     check_fused_mlp(dev, results)
+    check_shard_shapes(dev, results)
     torch.cuda.empty_cache()
 
     tokenizer = build_tokenizer(XTTSConfig().gpt.number_text_tokens)
@@ -2907,6 +3360,13 @@ def main() -> int:
     served = run_checkpoint_server(smi, tokenizer)
     for name in KERNELS:
         launches[name] += served[name]
+    torch.cuda.empty_cache()
+    phase("[7a] data-parallel replicas: two engines on one card behind the facade")
+    replicas = run_replicas(dev, smi, tokenizer)
+    phase("[7b] tensor parallelism: a mesh of two model shards on one card")
+    tensor = run_tensor_parallel(dev, smi)
+    for name in KERNELS:
+        launches[name] += replicas[name] + tensor[name]
 
     # launches per main-path unit: one K1 per GPT layer per prompt insert,
     # one K2/K4 (and K5 on its path) per layer per decode step, one K3 per

@@ -697,6 +697,10 @@ def test_slot_fit_matches_jax(monkeypatch):
     weights, slot = te._hbm_plan_bytes()
     assert (weights, slot) == je._hbm_plan_bytes()
     te.device = torch.device("cuda")  # only the fit's arithmetic runs below
+    # the JAX engine's 8% also covers its compiled programs; the port's
+    # captured-program pools are a term of their own (held by
+    # tests/test_torch_device_defaults.py), left out here
+    monkeypatch.setattr(te, "_program_pool_bytes", lambda: (0, 0))
     monkeypatch.setattr(torch.cuda, "memory_reserved", lambda dev: 0)
     monkeypatch.setattr(torch.cuda, "memory_allocated", lambda dev: 0)
     for limit in (weights * 3 + slot * 1000, (weights + 10.5 * slot) / 0.92,
@@ -722,15 +726,19 @@ def test_slot_fit_matches_jax(monkeypatch):
 
 # ------------------------------------------------------------- engine options
 def test_engine_refuses_tensor_parallel_and_takes_slot_bucketing():
-    """tensor_parallel_size > 1 raises (no silent single-GPU fallback);
-    slot_bucketing reaches the runner; options the port lacks are still
-    dropped with a warning, not raised."""
+    """tensor_parallel_size > 1 now builds a model mesh (a CPU engine's of
+    CPU shards; parallel/mesh.py), and a degree that does not divide the
+    head count raises; slot_bucketing reaches the runner; options the port
+    lacks are still dropped with a warning, not raised."""
     cfg = torch_tiny()
     gpt_np, core_np = tw.random_init(cfg, 0)
     params, core = tw.params_from_numpy(gpt_np, core_np, device="cpu")
-    with pytest.raises(NotImplementedError, match="tensor_parallel_size=2"):
+    tp = XTTSv2Engine(cfg, cfg.gpt, params=params, core=core, device="cpu",
+                      tensor_parallel_size=2, max_concurrency=2)
+    assert tp.mesh.shape == {"data": 1, "model": 2} and tp.decode_engine.mesh is tp.mesh
+    with pytest.raises(ValueError, match="tensor_parallel_size=3 must divide"):
         XTTSv2Engine(cfg, cfg.gpt, params=params, core=core, device="cpu",
-                     tensor_parallel_size=2)
+                     tensor_parallel_size=3)
     engine = XTTSv2Engine(cfg, cfg.gpt, params=params, core=core, device="cpu",
                           tensor_parallel_size=1, slot_bucketing=True, unroll_layers=True,
                           max_concurrency=2)

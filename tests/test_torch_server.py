@@ -32,7 +32,7 @@ from test_torch_checkpoint import PCM_TOL, convert_tiny
 
 from auralis_tpu import TTS as JaxTTS
 from auralis_tpu.server import oai_server as jax_server
-from auralis_tpu_torch import TTS
+from auralis_tpu_torch import TTS, TTSRequest
 from auralis_tpu_torch.common import audio_io, native_audio
 from auralis_tpu_torch.server import oai_server
 from auralis_tpu_torch.server.oai_server import build_app, build_parser, scan_voices_dir
@@ -403,12 +403,44 @@ def test_cli_options_are_the_jax_servers(monkeypatch):
 
 
 @pytest.mark.parametrize("flag", ["--tensor_parallel_size", "--data_parallel_replicas"])
-def test_cli_refuses_parallel_serving(ck, flag):
-    """Item 10 of ROADMAP.md's queue is not ported: the CLI says so before it
-    loads anything, instead of failing on the missing parallel package."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 10"):
-        oai_server.main(["--model", ck.port_dirs["core"], "--gpt_model", ck.port_dirs["gpt"],
-                         flag, "2", "--device", "cpu"])
+def test_cli_refuses_parallel_serving(ck, flag, monkeypatch, tmp_path):
+    """Parallel serving is ported (auralis_tpu_torch/parallel/): the CLI's
+    two flags build. --data_parallel_replicas 2 on a CPU drive, which has
+    one device, serves one replica and logs that it gave fewer;
+    --tensor_parallel_size 2 with --device cpu shards the GPT over a mesh
+    of two CPU shards. Each answers a short request."""
+    from auralis_tpu_torch.parallel import replica as treplica
+
+    import shutil
+
+    warned = []
+    monkeypatch.setattr(treplica.logger, "warning", lambda msg, *a: warned.append(msg % a))
+    core = ck.port_dirs["core"]
+    if flag == "--tensor_parallel_size":
+        # the converted tiny checkpoint infers one head at width 64 (D / 64);
+        # read the same weights as two heads of 32 so that tp = 2 divides
+        core = shutil.copytree(core, tmp_path / "core2")
+        config = json.loads((core / "config.json").read_text())
+        config["gpt_config"]["num_attention_heads"] = 2
+        (core / "config.json").write_text(json.dumps(config))
+    args = build_parser().parse_args([
+        "--model", str(core), "--gpt_model", ck.port_dirs["gpt"], "--device", "cpu",
+        "--max_concurrency", "2", flag, "2"])
+    tts = oai_server.start_tts_engine(args)
+    eng = tts.tts_engine
+    try:
+        if flag == "--data_parallel_replicas":
+            assert type(eng).__name__ == "ReplicatedTTSEngine" and len(eng.engines) == 1
+            assert any("data_parallel_replicas=2" in m and "1 replica" in m for m in warned)
+        else:
+            assert eng.mesh is not None and eng.mesh.shape["model"] == 2
+            assert len(eng.decode_engine.params.shards) == 2
+        out = tts.generate_speech(TTSRequest(text="one two three",
+                                             speaker_files=[sine_wav(tmp_path / "v.wav")],
+                                             language="en", max_new_tokens=16))
+        assert np.isfinite(out.array).all() and out.array.size > 0
+    finally:
+        tts.loop.run_until_complete(tts.shutdown())
 
 
 def test_start_tts_engine_forwards_options(ck):

@@ -30,8 +30,7 @@ PORT = ROOT / "auralis_tpu_torch"
 TRACING_PROFILER_LINES = set(range(6, 10)) | set(range(76, 92))  # torch.profiler, not jax
 OAI_SERVER_LINES = (
     {150}  # a docstring's TPU time to first audio
-    | {446, 447, 448}  # the persistent XLA compile cache (not ported) -> the
-    # NotImplementedError for tensor/data parallelism (ROADMAP queue 1 item 10)
+    | {446, 447, 448}  # the persistent XLA compile cache (not ported)
     | {465}  # start_tts_engine forwards --kv_int8 and --device
     | {469, 531}  # the parser moves into build_parser(), which chip_smoke boots from
     # help strings and log lines that state TPU compile behaviour or TPU
@@ -72,6 +71,7 @@ PORTED = {
     "models/xttsv2/modules.py", "models/xttsv2/hifigan.py", "models/xttsv2/weights.py",
     "models/xttsv2/engine.py", "runtime/__init__.py", "runtime/sampler.py",
     "runtime/decode_loop.py", "runtime/engine_core.py", "runtime/graphs.py",
+    "parallel/__init__.py", "parallel/mesh.py", "parallel/replica.py",
 }
 # numpy functions the port's ops modules carry verbatim
 COPIED_FUNCTIONS = {
@@ -152,6 +152,8 @@ def test_port_imports_without_jax_and_optional_packages():
         sys.path.insert(0, {str(ROOT)!r})
         import auralis_tpu_torch
         import auralis_tpu_torch.models.xttsv2.engine
+        import auralis_tpu_torch.parallel.mesh
+        import auralis_tpu_torch.parallel.replica
         import chip_smoke
         # the tokenizer needs `tokenizers`; the HTTP server aiohttp and pydantic
         NEEDS_BLOCKED = ("auralis_tpu_torch.frontend.tokenizer", "auralis_tpu_torch.server.",
