@@ -27,6 +27,13 @@
 //   then quantise their own head's 64 lanes. Scales are
 //   max(max|x|, 1e-8) x f32(1/127), int8 values rint(x / scale) with an IEEE
 //   division (__fdiv_rn): bit-equal to ops/quant.py quantize_rows.
+// - Given row scales (k_row_scale / v_row_scale, f32 [S], both or neither):
+//   a model shard holds H/tp heads of each row, whose scale is over all of
+//   the row's lanes, so the caller passes the scales (as the Pallas kernel
+//   takes its k/v scales as scalar-prefetch inputs) and those blocks skip
+//   the reduction of the new rows. Everything else is the same, so a
+//   shard's int8 lanes, scales and ctx are the unsharded launch's, bit for
+//   bit, for its heads.
 // - Append: such a block writes its head's 64 lanes of both int8 rows at
 //   write_pos[s]; head 0's also writes the slot's two scales. The block puts
 //   the quantised row into its own staged tile and uses the scales it holds:
@@ -55,7 +62,9 @@ __global__ void __launch_bounds__(kSplitThreads)
 ragged_decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
                            const bf16* __restrict__ v_new, int8_t* k_cache, int8_t* v_cache,
                            float* k_scale, float* v_scale, const int* __restrict__ write_pos,
-                           float* __restrict__ ctx, float* partials, int* tickets, int cache_slots,
+                           float* __restrict__ ctx, float* partials, int* tickets,
+                           const float* __restrict__ k_row_scale,
+                           const float* __restrict__ v_row_scale, int cache_slots,
                            int n_heads, int t_max, int layer, float attn_scale) {
   constexpr int CPR = kHeadDim / 16;         // 16-byte chunks per row's head slice
   constexpr int RPP = kSplitThreads / CPR;   // rows per QK pass
@@ -103,14 +112,15 @@ ragged_decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     vs_t = v_scale[row0 + t];
   }
 
-  // ---- q, and in the split holding row wp the slot's two new rows (full
-  // H*D lanes, 8 bf16 per 16-byte load): all loads issued before the first
-  // reduction waits on any of them
+  // ---- q, and in the split holding row wp without given scales the slot's
+  // two new rows (full H*D lanes, 8 bf16 per 16-byte load): all loads
+  // issued before the first reduction waits on any of them
   const bf16* kn = k_new + (size_t)s * width;
   const bf16* vn = v_new + (size_t)s * width;
   const float qv = tid < kHeadDim ? to_f32(q[(size_t)s * width + head + tid]) : 0.f;
+  const bool given = k_row_scale != nullptr;
   float mk = 0.f, mv = 0.f;
-  if (holds_wp) {
+  if (holds_wp && !given) {
     for (int i = tid * 8; i < width; i += kSplitThreads * 8) {
       const uint4 ku = *reinterpret_cast<const uint4*>(kn + i);
       const uint4 vu = *reinterpret_cast<const uint4*>(vn + i);
@@ -126,7 +136,8 @@ ragged_decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   }
 
   // ---- one reduction for the three maxima (|q| of this head, and the two
-  // new rows in the split holding row wp), then q quantised
+  // new rows in the split holding row wp when no scales are given), then q
+  // quantised
   const float wq = warp_max(fabsf(qv)), wk = warp_max(mk), wv = warp_max(mv);
   if (lane == 0) {
     sm_max[0][warp] = wq;
@@ -137,11 +148,12 @@ ragged_decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   const float q_s = __fmul_rn(fmaxf(max4(sm_max[0]), 1e-8f), kInv127);
   if (tid < kHeadDim) sm_qq[tid] = quantize(qv, q_s);
 
-  // ---- the split holding row wp: the slot's row scales, this head's lanes
-  // quantised, appended and staged; head 0 appends the scales
+  // ---- the split holding row wp: the slot's row scales (given, or from the
+  // maxima), this head's lanes quantised, appended and staged; head 0
+  // appends the scales
   if (holds_wp) {
-    const float k_s = __fmul_rn(fmaxf(max4(sm_max[1]), 1e-8f), kInv127);
-    const float v_s = __fmul_rn(fmaxf(max4(sm_max[2]), 1e-8f), kInv127);
+    const float k_s = given ? k_row_scale[s] : __fmul_rn(fmaxf(max4(sm_max[1]), 1e-8f), kInv127);
+    const float v_s = given ? v_row_scale[s] : __fmul_rn(fmaxf(max4(sm_max[2]), 1e-8f), kInv127);
     const int r = wp - base;
     if (tid < kHeadDim) {
       const int8_t kq = quantize(to_f32(kn[head + tid]), k_s);
@@ -223,13 +235,15 @@ ragged_decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 // (the step covers cache slots 0..S-1 and leaves the others untouched);
 // write_pos [S]; ctx [S, H*64] f32; partials [S, H, T / split,
 // kPartialFloats] f32 and tickets [S, H] int32 (zero) are the workspace;
-// split must be kSplitRows
+// k_row_scale / v_row_scale are the new rows' scales, f32 [S], or both NULL
+// (each row's scale is then over its H*64 lanes); split must be kSplitRows
 extern "C" int ragged_decode(const void* q, const void* k_new, const void* v_new, void* k_cache,
                              void* v_cache, void* k_scale, void* v_scale, const void* write_pos,
-                             void* ctx, void* partials, void* tickets, int n_slots,
-                             int cache_slots, int n_heads, int t_max, int layer, int split,
-                             float attn_scale, void* stream) {
-  if (split != kSplitRows || t_max % kSplitRows || n_slots > cache_slots)
+                             void* ctx, void* partials, void* tickets, const void* k_row_scale,
+                             const void* v_row_scale, int n_slots, int cache_slots, int n_heads,
+                             int t_max, int layer, int split, float attn_scale, void* stream) {
+  if (split != kSplitRows || t_max % kSplitRows || n_slots > cache_slots
+      || (k_row_scale == nullptr) != (v_row_scale == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(n_heads, n_slots, t_max / kSplitRows);
@@ -238,7 +252,8 @@ extern "C" int ragged_decode(const void* q, const void* k_new, const void* v_new
       static_cast<const bf16*>(v_new), static_cast<int8_t*>(k_cache),
       static_cast<int8_t*>(v_cache), static_cast<float*>(k_scale), static_cast<float*>(v_scale),
       static_cast<const int*>(write_pos), static_cast<float*>(ctx),
-      static_cast<float*>(partials), static_cast<int*>(tickets), cache_slots, n_heads, t_max,
-      layer, attn_scale);
+      static_cast<float*>(partials), static_cast<int*>(tickets),
+      static_cast<const float*>(k_row_scale), static_cast<const float*>(v_row_scale),
+      cache_slots, n_heads, t_max, layer, attn_scale);
   return (int)cudaGetLastError();
 }

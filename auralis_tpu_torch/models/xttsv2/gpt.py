@@ -55,6 +55,7 @@ from ...ops.experimental.attention import (
 from ...ops.prefill_attention import prefill_flash_attention
 from ...ops.quant import int8_mm, int8_weight, pad_rows
 from ...ops.quant import quantize_rows as _quantize_rows
+from ...ops.quant import row_scales as _row_scales
 from .config import XTTSGPTConfig
 
 
@@ -316,17 +317,21 @@ def gpt_prefill(params: dict, cfg: XTTSGPTConfig, embeds: torch.Tensor,
 
 @torch.no_grad()
 def gpt_prefill_batched(params: dict, cfg: XTTSGPTConfig, embeds: torch.Tensor,
-                        lengths, slots, cache: KVCache) -> torch.Tensor:
+                        lengths, slots, cache: KVCache,
+                        lanes: slice | None = None) -> torch.Tensor:
     """Burst prefill (the JAX `gpt_prefill_batched`): K prompts `embeds`
     [K, T_pad, D] through all layers together, so the weights stream once
     for the burst instead of once per prompt. `lengths` [K] are the true
     prompt lengths (0 on padding lanes), `slots` the target cache slots:
     [K] host ints (>= num_slots on padding lanes) or a [K] integer tensor
     on the device whose lanes are all real and distinct (a captured burst:
-    nothing is read on the host). Each real lane's K/V rows (int8 + scales
-    under cfg.kv_int8) are written into cache[:, slot, :T_pad] IN PLACE;
-    padding lanes write nothing. Returns the last real position's hidden
-    state (pre-ln_f) per lane, [K, D].
+    nothing is read on the host), or, with `lanes` (a slice of the K
+    lanes), the slots of those lanes only (a data shard's part of a burst
+    that spans shards: every lane is computed, the others write nothing).
+    Each real lane's K/V rows (int8 + scales under cfg.kv_int8) are written
+    into cache[:, slot, :T_pad] IN PLACE; padding lanes write nothing.
+    Returns the last real position's hidden state (pre-ln_f) per lane,
+    [K, D].
 
     Attention is a dense masked softmax in PyTorch matmuls (causal and key
     within the lane's length), whatever cfg.prefill_flash says, as in the
@@ -334,7 +339,7 @@ def gpt_prefill_batched(params: dict, cfg: XTTSGPTConfig, embeds: torch.Tensor,
     accumulation. With cfg.prefill_w8a8 and `blocks_q8` the four matmuls run
     W8A8 over the [K * T_pad] flattened rows."""
     if isinstance(params, ShardedParams):
-        return _gpt_prefill_batched_tp(params, cfg, embeds, lengths, slots, cache)
+        return _gpt_prefill_batched_tp(params, cfg, embeds, lengths, slots, cache, lanes)
     kb, t_pad, d = embeds.shape
     hd = cfg.head_dim
     bp = params["blocks"]
@@ -342,8 +347,8 @@ def gpt_prefill_batched(params: dict, cfg: XTTSGPTConfig, embeds: torch.Tensor,
     dev = embeds.device
     w8 = cfg.prefill_w8a8 and "blocks_q8" in params
     lengths = device_values(lengths, torch.long, dev)
-    if torch.is_tensor(slots):  # every lane real
-        lane_idx, slot_idx, any_lane = None, slots.to(device=dev, dtype=torch.long), True
+    if torch.is_tensor(slots):  # every lane real, or those of `lanes`
+        lane_idx, slot_idx, any_lane = lanes, slots.to(device=dev, dtype=torch.long), True
     else:
         slots = [int(s) for s in slots]
         lanes = [i for i, s in enumerate(slots) if s < cache.num_slots]
@@ -424,7 +429,8 @@ def _int8_attention(cfg: XTTSGPTConfig, cache: KVCache, layer: int, q: torch.Ten
 @torch.no_grad()
 def gpt_decode_step(params: dict, cfg: XTTSGPTConfig, tokens: torch.Tensor,
                     audio_pos: torch.Tensor, seq_lens: torch.Tensor,
-                    cache: KVCache, len_bound: int | None = None) -> torch.Tensor:
+                    cache: KVCache, len_bound: int | None = None,
+                    rows: int | None = None) -> torch.Tensor:
     """One decode step for slots 0..S-1 of the cache: tokens/audio_pos/
     seq_lens [S] int32, S at most the cache's slot count (a slot-bounded
     step covers the live low slots only). Appends this step's K/V at
@@ -441,11 +447,14 @@ def gpt_decode_step(params: dict, cfg: XTTSGPTConfig, tokens: torch.Tensor,
     many slots the step covers, and a slot-bounded step would part from the
     full-width one at greedy near-ties. The matmuls stream their weights
     once at any row count, so the padding costs little on the device; it
-    adds two ops per layer to a bounded step (none at full width)."""
+    adds two ops per layer to a bounded step (none at full width). `rows`
+    overrides that count: a data shard's step pads to the whole decode
+    state's slots, so its slots' results are those of the unsharded step."""
     if isinstance(params, ShardedParams):
-        return _gpt_decode_step_tp(params, cfg, tokens, audio_pos, seq_lens, cache, len_bound)
+        return _gpt_decode_step_tp(params, cfg, tokens, audio_pos, seq_lens, cache, len_bound,
+                                   rows)
     s = tokens.shape[0]
-    rows = cache.num_slots
+    rows = rows or cache.num_slots
     bp = params["blocks"]
     hd = cfg.head_dim
     d = bp["attn_w"].shape[-1] // 3
@@ -498,13 +507,6 @@ def gpt_decode_step(params: dict, cfg: XTTSGPTConfig, tokens: torch.Tensor,
 # same order. One sum of copied partials serves the CPU, one card holding
 # several shards and several cards alike; it is no kernel (an NCCL all-reduce
 # across cards is later work, ROADMAP.md).
-
-RAGGED_TP_ERROR = (
-    "ragged_decode (kernel K4) does not serve a model-sharded int8 cache: K4 quantises each "
-    "new row with a scale over the lanes it holds, and a shard holds H/tp heads of the row, "
-    "so its scales would differ from the unsharded ones (ROADMAP.md: K4 taking a precomputed "
-    "row scale). Use the dense int8 body (kv_int8 without ragged_decode) or flash_decode")
-
 
 class ShardedParams(dict):
     """The GPT parameters on a mesh's model axis (parallel/mesh.py
@@ -591,20 +593,30 @@ def _tp_reduce(params: ShardedParams, xs: dict, partials: list, layer: int,
     return out
 
 
-def _tp_quantize(params: ShardedParams, rows: list) -> list:
-    """`_quantize_rows` of rows split by lanes over the shards (rows[r] on
-    shard r's device): every shard takes the scale over all lanes, the max
-    of the shards' row maxima (exact in any order), so its int8 lanes and
+def _tp_row_scales(params: ShardedParams, rows: list) -> dict:
+    """The int8 scales of rows split by lanes over the shards (rows[r] on
+    shard r's device), one copy per device: `quantize_rows`'s scales of the
+    whole rows, from the max of the shards' row maxima (exact in any
+    order). Every shard quantises its lanes at them, so its int8 lanes and
     the scales equal those of the unsharded row ("every head shard needs
-    every token scale", auralis_tpu/parallel/mesh.py)."""
+    every token scale", auralis_tpu/parallel/mesh.py); the prefill's
+    writes, the dense int8 body and K4 all take them from here."""
     maxes = [torch.linalg.vector_norm(r, math.inf, dim=-1, dtype=torch.float32) for r in rows]
-    top = {}
+    out = {}
     for dev in params.lead:
         m = maxes[0].to(dev)
         for other in maxes[1:]:
             m = torch.maximum(m, other.to(dev))
-        top[dev] = m
-    return [_quantize_rows(r, row_max=top[dev]) for r, dev in zip(rows, params.devices)]
+        out[dev] = _row_scales(m)
+    return out
+
+
+def _tp_quantize(params: ShardedParams, rows: list) -> list:
+    """`_quantize_rows` of rows split by lanes over the shards, each shard's
+    lanes at the whole rows' scales (`_tp_row_scales`): (int8, scales) per
+    shard."""
+    scales = _tp_row_scales(params, rows)
+    return [_quantize_rows(r, scale=scales[dev]) for r, dev in zip(rows, params.devices)]
 
 
 def _tp_write_rows(params: ShardedParams, cfg: XTTSGPTConfig, cache: ShardedKVCache,
@@ -695,21 +707,23 @@ def _gpt_prefill_tp(params: ShardedParams, cfg: XTTSGPTConfig, embeds: torch.Ten
 
 
 def _gpt_prefill_batched_tp(params: ShardedParams, cfg: XTTSGPTConfig, embeds: torch.Tensor,
-                            lengths, slots, cache: ShardedKVCache) -> torch.Tensor:
+                            lengths, slots, cache: ShardedKVCache,
+                            lanes: slice | None = None) -> torch.Tensor:
     """`gpt_prefill_batched` over the model shards; returns [K, D] on the
     mesh's first device."""
     kb, t_pad, _ = embeds.shape
     hd = cfg.head_dim
     xs = _tp_copies(params, embeds)
     lens = {dev: device_values(lengths, torch.long, dev) for dev in params.lead}
-    if torch.is_tensor(slots):  # every lane real
-        lanes, real = None, slots
+    if torch.is_tensor(slots):  # every lane real, or those of `lanes`
+        real = slots
+        lane_idx = {dev: lanes for dev in params.lead}
     else:
         slots = [int(s) for s in slots]
         lanes = [i for i, s in enumerate(slots) if s < cache.num_slots]
         real = [slots[i] for i in lanes]
-    lane_idx = {dev: None if lanes is None else torch.tensor(lanes, dtype=torch.long, device=dev)
-                for dev in params.lead}
+        lane_idx = {dev: torch.tensor(lanes, dtype=torch.long, device=dev)
+                    for dev in params.lead}
     slot_idx = {dev: device_values(real, torch.long, dev) for dev in params.lead}
     pos = {dev: torch.arange(t_pad, device=dev) for dev in params.lead}
     masks = {dev: ((p[None, None, :] <= p[None, :, None])
@@ -726,7 +740,7 @@ def _gpt_prefill_batched_tp(params: ShardedParams, cfg: XTTSGPTConfig, embeds: t
                 idx = lane_idx[dev]
                 ks.append(k if idx is None else k[idx])
                 vs.append(v if idx is None else v[idx])
-            if lanes is None or lanes:
+            if torch.is_tensor(real) or real:
                 _tp_write_rows(params, cfg, cache, layer, slot_idx, ks, vs, t_pad)
             return ctxs
 
@@ -738,21 +752,22 @@ def _gpt_prefill_batched_tp(params: ShardedParams, cfg: XTTSGPTConfig, embeds: t
 
 def _gpt_decode_step_tp(params: ShardedParams, cfg: XTTSGPTConfig, tokens: torch.Tensor,
                         audio_pos: torch.Tensor, seq_lens: torch.Tensor,
-                        cache: ShardedKVCache, len_bound: int | None) -> torch.Tensor:
+                        cache: ShardedKVCache, len_bound: int | None,
+                        rows: int | None = None) -> torch.Tensor:
     """`gpt_decode_step` over the model shards: K2 per shard under
-    cfg.flash_decode, else the dense bf16 or int8 body per shard (new int8
-    rows at the whole row's scale). K4 is refused (RAGGED_TP_ERROR).
+    cfg.flash_decode, K4 per shard under cfg.kv_int8 + cfg.ragged_decode
+    (given the new rows' scales over all shards' lanes), else the dense
+    bf16 or int8 body per shard (new int8 rows at the whole row's scale).
     Returns [S, D] on the mesh's first device."""
-    if cfg.kv_int8 and cfg.ragged_decode:
-        raise ValueError(RAGGED_TP_ERROR)
-    s, rows, hd = tokens.shape[0], cache.num_slots, cfg.head_dim
+    ragged = cfg.kv_int8 and cfg.ragged_decode
+    s, rows, hd = tokens.shape[0], rows or cache.num_slots, cfg.head_dim
     scale = 1.0 / math.sqrt(hd)
     pos = torch.clamp(audio_pos.long(), 0, cfg.audio_position_table - 1)
     x = pad_rows((params["wte"][tokens.long()] + params["wpe"][pos]).to(
         torch.bfloat16 if cfg.kv_int8 else cache.dtype), rows)
     xs = _tp_copies(params, x)
     wpos = {dev: seq_lens.to(dev) for dev in params.lead}
-    if not cfg.flash_decode:
+    if not (cfg.flash_decode or ragged):
         bound = min(len_bound or cache.max_len, cache.max_len)
         lens = {dev: w.long() for dev, w in wpos.items()}
         live = {dev: torch.arange(bound, device=dev)[None, :] <= n[:, None]
@@ -766,7 +781,10 @@ def _gpt_decode_step_tp(params: ShardedParams, cfg: XTTSGPTConfig, tokens: torch
     for layer in range(cfg.num_hidden_layers):
         def attend(qkv):
             qkv = [(q[:s], k[:s], v[:s]) for q, k, v in qkv]
-            if cfg.kv_int8:
+            if ragged:
+                k_s = _tp_row_scales(params, [t[1] for t in qkv])
+                v_s = _tp_row_scales(params, [t[2] for t in qkv])
+            elif cfg.kv_int8:
                 new_k = _tp_quantize(params, [t[1] for t in qkv])
                 new_v = _tp_quantize(params, [t[2] for t in qkv])
             ctxs = []
@@ -776,6 +794,10 @@ def _gpt_decode_step_tp(params: ShardedParams, cfg: XTTSGPTConfig, tokens: torch
                     if cfg.flash_decode:
                         ctx = flash_decode_append_attention(
                             q.reshape(s, -1, hd), k, v, c.k, c.v, layer, wpos[dev])
+                    elif ragged:
+                        ctx = ragged_decode_attention(
+                            q.reshape(s, -1, hd), k, v, scale, layer, wpos[dev], c.k, c.v,
+                            c.k_scale, c.v_scale, row_scales=(k_s[dev], v_s[dev]))
                     elif cfg.kv_int8:
                         ctx = _int8_attention(cfg, c, layer, q, k, v, lens[dev], live[dev],
                                               new_rows=(new_k[r], new_v[r]))

@@ -43,10 +43,10 @@ SIGNATURES = {
     "flash_decode_append": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                             _I, _P],
     # q, k_new, v_new (bf16), k_cache, v_cache, k_scale, v_scale, write_pos, ctx,
-    # partials, tickets, S (the step's), S_cache, H, T, layer, split, attn_scale,
-    # stream
-    "ragged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                      _P],
+    # partials, tickets, k_row_scale, v_row_scale (f32 [S] or both NULL), S (the
+    # step's), S_cache, H, T, layer, split, attn_scale, stream
+    "ragged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _I, _F, _P],
     # x (bf16), fc_wq, fc_ws, fc_b, proj_wq, proj_ws, proj_b, g, gmax, part,
     # tickets, out (bf16), S, D, I, tile_i, stream
     "fused_mlp_w8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -9,7 +9,9 @@ then runs online-softmax attention (f32 m/l/acc) over that slot's
 
 K4 replaces `ragged_decode_attention` (:436, body `_ragged_kernel` :245):
 the same append and live-length attention on the int8 cache. The new rows
-are quantised per slot over all H*D lanes, q per (slot, head); scores are
+are quantised per slot over all H*D lanes, or at scales the caller gives
+(a model shard's lanes at the whole row's scale, as the JAX kernel takes
+its scales as inputs), q per (slot, head); scores are
 int8 x int8 dot products scaled by the key's and the query's scale; the
 context sums p x v_scale x v_int8 in f32 (csrc/ragged_decode.cu).
 
@@ -172,19 +174,22 @@ flash_decode_append_attention.launches = 0
 def ragged_decode_plain(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                         attn_scale: float, layer: int, write_pos: torch.Tensor,
                         k_cache: torch.Tensor, v_cache: torch.Tensor, k_scale: torch.Tensor,
-                        v_scale: torch.Tensor) -> torch.Tensor:
+                        v_scale: torch.Tensor, row_scales: tuple | None = None) -> torch.Tensor:
     """Plain PyTorch version of K4's math: quantise the new rows (per slot
-    over H*D lanes) and q (per slot and head), index-put the int8 rows and
-    their scales (in place), then f32 softmax over the `write_pos + 1` live
-    keys of int8 scores x k-scale x (q-scale x attn_scale), with the context
-    sum(p x v_scale x v_int8) / max(sum p, 1e-9). Returns ctx [S, H*D] f32.
-    A write position outside [0, T) raises, as the kernel traps."""
+    over H*D lanes, or at the given `row_scales`) and q (per slot and head),
+    index-put the int8 rows and their scales (in place), then f32 softmax
+    over the `write_pos + 1` live keys of int8 scores x k-scale x (q-scale x
+    attn_scale), with the context sum(p x v_scale x v_int8) / max(sum p,
+    1e-9). Returns ctx [S, H*D] f32. A write position outside [0, T)
+    raises, as the kernel traps."""
     s, h, d = q.shape
     t = k_cache.shape[2]
     slots = torch.arange(s, device=q.device)
     wp = torch.where(write_pos < 0, t, write_pos).long()  # see flash_decode_plain
-    for rows, scales, new in ((k_cache, k_scale, k_new), (v_cache, v_scale, v_new)):
-        rows[layer, slots, wp], scales[layer, slots, wp] = quantize_rows(new)
+    given = (None, None) if row_scales is None else row_scales
+    for rows, scales, new, sc in ((k_cache, k_scale, k_new, given[0]),
+                                  (v_cache, v_scale, v_new, given[1])):
+        rows[layer, slots, wp], scales[layer, slots, wp] = quantize_rows(new, scale=sc)
     q_i8, q_s = quantize_rows(q)  # [S, H, D], [S, H]
     kh = k_cache[layer, :s].float().reshape(s, t, h, d)
     vh = v_cache[layer, :s].float().reshape(s, t, h, d)
@@ -201,23 +206,30 @@ def ragged_decode_plain(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tenso
 def ragged_decode_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                             attn_scale: float, layer: int, write_pos: torch.Tensor,
                             k_cache: torch.Tensor, v_cache: torch.Tensor,
-                            k_scale: torch.Tensor, v_scale: torch.Tensor) -> torch.Tensor:
+                            k_scale: torch.Tensor, v_scale: torch.Tensor,
+                            row_scales: tuple | None = None) -> torch.Tensor:
     """q [S, H, D] and k_new/v_new [S, H*D] (before quantisation); int8
     caches [L, S_cache, T, H*D] and f32 scales [L, S_cache, T] (updated in
     place) with S <= S_cache: the step covers cache slots 0..S-1 only;
     write_pos [S] int32 (= keys already cached = append index), each in
-    [0, T). Returns ctx [S, H*D] f32.
+    [0, T). `row_scales` (k_s, v_s), each [S] f32, are the new rows' scales
+    when the caller has them: a model shard's H heads are some lanes of a
+    wider row, whose scale is over all its lanes (JAX's kernel takes them
+    as inputs too). Without them the rows' scales are over their H*D lanes.
+    Returns ctx [S, H*D] f32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise. The kernel takes bf16 q and rows (the int8 decode path's
     activation dtype) and quantises them itself, with results bit-equal to
-    `quantize_rows`. An out-of-range position traps the kernel
-    (no host sync here), and the next synchronising call raises. Unlike the
-    JAX function, the caches are mutated in place and not returned."""
+    `quantize_rows` (at the given scales, when given). An out-of-range
+    position traps the kernel (no host sync here), and the next
+    synchronising call raises. Unlike the JAX function, the caches are
+    mutated in place and not returned."""
     if not q.is_cuda:
         return ragged_decode_plain(q, k_new, v_new, attn_scale, layer, write_pos,
-                                   k_cache, v_cache, k_scale, v_scale)
-    _build.require_cuda(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, write_pos)
+                                   k_cache, v_cache, k_scale, v_scale, row_scales)
+    _build.require_cuda(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, write_pos,
+                        *(row_scales or ()))
     s, h, d = q.shape
     n_layers, n_slots, t, hd = k_cache.shape
     if d != 64 or hd != h * d:
@@ -237,6 +249,11 @@ def ragged_decode_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.T
         raise ValueError(f"K4 takes bf16 q and rows, got {q.dtype}, {k_new.dtype}, {v_new.dtype}")
     if write_pos.dtype != torch.int32 or write_pos.shape != (s,):
         raise ValueError("write_pos must be int32 [S]")
+    if row_scales is not None:
+        if len(row_scales) != 2 or any(
+                sc.dtype != torch.float32 or sc.shape != (s,) for sc in row_scales):
+            raise ValueError("row_scales must be two f32 [S] tensors (k_s, v_s)")
+        row_scales = tuple(sc.contiguous() for sc in row_scales)
     q = q.contiguous()
     k_new = k_new.contiguous()
     v_new = v_new.contiguous()
@@ -248,8 +265,10 @@ def ragged_decode_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.T
         lib.ragged_decode(
             q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), write_pos.data_ptr(),
-            ctx.data_ptr(), partials.data_ptr(), tickets.data_ptr(), s, n_slots, h, t, int(layer),
-            DECODE_SPLIT, float(attn_scale), _build.stream_ptr(q.device),
+            ctx.data_ptr(), partials.data_ptr(), tickets.data_ptr(),
+            *((None, None) if row_scales is None else (sc.data_ptr() for sc in row_scales)),
+            s, n_slots, h, t, int(layer), DECODE_SPLIT, float(attn_scale),
+            _build.stream_ptr(q.device),
         ),
         "ragged_decode",
     )

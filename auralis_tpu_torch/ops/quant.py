@@ -25,18 +25,25 @@ def pad_rows(a: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.cat([a, a.new_zeros((rows - a.shape[0], *a.shape[1:]))])
 
 
+def row_scales(row_max: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """The int8 scales of rows whose largest magnitudes are `row_max` (f32):
+    max(row_max, eps) x f32(1/127), as `quantize_rows` takes them."""
+    return torch.clamp(row_max, min=eps).mul_(1.0 / 127.0)
+
+
 def quantize_rows(x: torch.Tensor, eps: float = 1e-8,
-                  row_max: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                  scale: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """x [..., D] -> (int8 [..., D], f32 scale [...]) with x ~ int8 * scale.
     Written for few launches (decode is host-bound): max |x| as one
     inf-norm reduction, and x / scale promotes bf16 x to f32 exactly.
-    `row_max` [...] f32 replaces max |x| when x holds only some lanes of
-    each row (a model shard's heads): given the max over all lanes, the
-    scales and the int8 lanes equal those of the whole row."""
-    m = (torch.linalg.vector_norm(x, math.inf, dim=-1, dtype=torch.float32)
-         if row_max is None else row_max)
-    s = torch.clamp(m, min=eps).mul_(1.0 / 127.0)
-    return torch.div(x, s[..., None]).round_().to(torch.int8), s
+    `scale` [...] f32 replaces the rows' own scales when x holds only some
+    lanes of each row (a model shard's heads): given the scales of the
+    whole rows (`row_scales` of the max over all lanes), the int8 lanes
+    equal those of the whole rows."""
+    if scale is None:
+        scale = row_scales(torch.linalg.vector_norm(x, math.inf, dim=-1, dtype=torch.float32),
+                           eps)
+    return torch.div(x, scale[..., None]).round_().to(torch.int8), scale
 
 
 def int8_weight(wq: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Device mesh and sharding rules over the model axis.
+"""Device mesh and sharding rules over the data, dcn and model axes.
 
 Counterpart of auralis_tpu/parallel/mesh.py. The axes keep their names and
 meaning:
@@ -6,23 +6,30 @@ meaning:
   across data shards);
 - "model": Megatron-style tensor parallelism over attention heads and MLP
   columns, a latency knob (tp in the reference, XTTSv2.py:57);
-- "dcn": data parallelism across hosts.
+- "dcn": data parallelism across hosts; the slots split over ("dcn",
+  "data"), dcn-major.
 
 The JAX package places pytrees with NamedShardings and lets GSPMD emit the
 collectives. Here one process drives the mesh as JAX's single controller
-does: `shard_gpt_params` gives each model shard its slice of the weights on
-its device (`ShardedParams`), `shard_decode_state` splits the KV cache's
-lanes per head (`ShardedKVCache`), and the GPT's sharded forward
-(models/xttsv2/gpt.py) sums the row-parallel partials on every device. A
-mesh may repeat one device, which runs the sharded math on one card.
+does. Each data shard (one (dcn, data) cell of the mesh) holds a
+contiguous range of the slots, as `P(dp)` cuts the slot axis, and its own
+model devices:
+- `shard_gpt_params` gives each data shard its parameters: with model
+  shards, each model shard's slice of the weights on its device
+  (`ShardedParams`), else the whole dict on the shard's device; data shards
+  on the same devices share one set;
+- `shard_decode_state` gives each data shard its slots: their KV cache,
+  split on the lane axis per head over its model shards (`ShardedKVCache`),
+  and their per-slot fields on its first device. With more than one data
+  shard the result is a `DataShardedState` (runtime/decode_loop.py), whose
+  functions step every shard on its own devices and draw the sampling
+  noise once for all slots, as JAX's replicated key does;
+- the GPT's sharded forward (models/xttsv2/gpt.py) sums the row-parallel
+  partials on every device of a data shard.
+A mesh may repeat one device, which runs the sharded math on one card.
 
 The specs are plain data (a tuple of axis names per leaf, the JAX
 PartitionSpec's entries), so they compare with the JAX package's.
-
-Not ported yet: the data and dcn axes of a decode state (slots split across
-data shards), which only the JAX package's tests use; `shard_gpt_params`
-and `shard_decode_state` refuse a mesh with data or dcn shards
-(ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -35,10 +42,6 @@ import torch
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 DCN_AXIS = "dcn"  # inter-host data parallelism (multi-slice serving)
-
-_DATA_AXES_ERROR = (
-    "the data and dcn axes of a decode state (slots split across data shards) are not "
-    "ported yet (ROADMAP.md, queue 1); use a mesh with data=1 and dcn_data=1")
 
 
 def P(*axes) -> tuple:
@@ -107,21 +110,31 @@ class Mesh:
     def first_device(self) -> torch.device:
         return self.devices.flat[0]
 
-    def model_devices(self) -> list:
-        """The devices of the model axis, shard 0 first. A mesh with data or
-        dcn shards raises NotImplementedError (see the module docstring)."""
-        if self.devices.size != self.shape[MODEL_AXIS]:
-            raise NotImplementedError(_DATA_AXES_ERROR)
-        return list(self.devices.flat)
+    @property
+    def multi_device(self) -> bool:
+        """Whether the mesh spans more than one distinct device."""
+        return len(set(self.devices.flat)) > 1
+
+    def shard_devices(self) -> list:
+        """For each data shard, dcn-major then data (the order in which
+        JAX's (DCN_AXIS, DATA_AXIS) flattens the slot axis), the devices of
+        its model axis, model shard 0 first."""
+        m = self.shape[MODEL_AXIS]
+        flat = list(self.devices.flat)
+        return [flat[i:i + m] for i in range(0, len(flat), m)]
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, devices={[str(d) for d in self.devices.flat]})"
 
 
 def default_devices() -> list:
-    """Every visible GPU, in order, or the CPU when there is none."""
+    """Every visible GPU, in order. Raises RuntimeError when there is none:
+    a caller that wants CPU shards names CPU devices."""
     n = torch.cuda.device_count()
-    return [torch.device("cuda", i) for i in range(n)] if n else [torch.device("cpu")]
+    if not n:
+        raise RuntimeError("no CUDA device is visible: a mesh of CPU shards needs its "
+                           "devices named (make_mesh(devices=[torch.device('cpu')] * n, ...))")
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def make_mesh(
@@ -131,7 +144,8 @@ def make_mesh(
     """Device mesh of data x model devices, with a leading "dcn" axis when
     `dcn_data` > 1 (the JAX package's axes; one process drives it, so the
     hybrid placement of a multi-host JAX mesh is a plain reshape here).
-    `devices` defaults to every visible GPU and may repeat a device."""
+    `devices` defaults to every visible GPU (RuntimeError without one) and
+    may repeat a device."""
     devices = [torch.device(d) for d in (devices if devices is not None else default_devices())]
     n = dcn_data * data * model
     if n > len(devices):
@@ -234,22 +248,16 @@ def _model_slice(x: torch.Tensor, spec: tuple, r: int, tp: int, fused: int = 1) 
     return torch.cat([b.chunk(tp, dim=dim)[r] for b in blocks], dim=dim)
 
 
-def shard_gpt_params(params: dict, mesh: Mesh):
-    """The GPT parameters placed on the mesh's model shards per
-    `gpt_param_specs`: a `ShardedParams` whose `shards[r]` is shard r's
-    parameter dict on its device. The fused qkv weight and bias split per
-    head, so shard r holds [q_r | k_r | v_r] with q_r the columns of heads
-    [r H/tp, (r+1) H/tp) (JAX's contiguous cut of the 3D axis is repaired by
-    GSPMD's collectives; a literal copy would hand shard 0 all of q and half
-    of k). Leaves the specs do not name replicate. The W8A8 copy
-    (`blocks_q8`) is refused: the engine disables W8A8 under tensor
-    parallelism, as the JAX engine does."""
+def _model_params(params: dict, devices: list):
+    """One data shard's parameters: `ShardedParams` over its model devices
+    (more than one), else the dict on its one device."""
     from ..models.xttsv2.gpt import ShardedParams
 
-    if "blocks_q8" in params:
-        raise ValueError("W8A8 weights (blocks_q8) are not sharded: tensor parallelism runs "
-                         "the bf16/f32 block weights (decode_w8a8 and prefill_w8a8 off)")
-    devices = mesh.model_devices()
+    def put(tree, dev):
+        return {k: put(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+    if len(devices) == 1:
+        return put(params, devices[0])
     tp = len(devices)
     specs = gpt_param_specs()
     shards = []
@@ -268,34 +276,85 @@ def shard_gpt_params(params: dict, mesh: Mesh):
     return ShardedParams(shards)
 
 
+def shard_gpt_params(params: dict, mesh: Mesh):
+    """The GPT parameters placed on the mesh per `gpt_param_specs`. Each
+    data shard gets, with model shards, a `ShardedParams` whose `shards[r]`
+    is model shard r's parameter dict on its device, else the dict on its
+    one device; data shards on the same devices share one set (no second
+    copy). One data shard's set is returned as it is; several come as a
+    `DataShardedParams`. The fused qkv weight and bias split per head, so
+    model shard r holds [q_r | k_r | v_r] with q_r the columns of heads
+    [r H/tp, (r+1) H/tp) (JAX's contiguous cut of the 3D axis is repaired
+    by GSPMD's collectives; a literal copy would hand shard 0 all of q and
+    half of k). Leaves the specs do not name replicate. The W8A8 copy
+    (`blocks_q8`) is refused: the engine disables W8A8 under tensor
+    parallelism, as the JAX engine does."""
+    from ..runtime.decode_loop import DataShardedParams
+
+    if "blocks_q8" in params:
+        raise ValueError("W8A8 weights (blocks_q8) are not sharded: a mesh runs the bf16/f32 "
+                         "block weights (decode_w8a8 and prefill_w8a8 off)")
+    made: dict = {}
+    per_shard = []
+    for devices in mesh.shard_devices():
+        key = tuple(devices)
+        if key not in made:
+            made[key] = _model_params(params, devices)
+        per_shard.append(made[key])
+    return per_shard[0] if len(per_shard) == 1 else DataShardedParams(per_shard)
+
+
+def _copy(t: torch.Tensor, dev) -> torch.Tensor:
+    """A contiguous copy of t on dev that shares no memory with t."""
+    return t.to(dev).clone(memory_format=torch.contiguous_format)
+
+
 def shard_decode_state(state, mesh: Mesh):
-    """The decode state on the mesh: the KV cache split on its lane axis per
-    head (`ShardedKVCache`; under kv_int8 the int8 rows split the same way
-    and every shard holds the per-token scales, which the specs replicate
-    over the model axis). Every other field lives once, on the mesh's first
-    device, where sampling and the vocoder read it: the single-controller
-    form of the specs' replication. A mesh with data or dcn shards raises
-    NotImplementedError."""
+    """The decode state on the mesh. The slots split into one contiguous
+    equal range per data shard (dcn-major, then data: JAX's `P(dp)` cut of
+    the slot axis); `num_slots` must divide by dcn x data (ValueError).
+    Each data shard's KV cache is split on its lane axis per head over its
+    model shards (`ShardedKVCache`; under kv_int8 the int8 rows split the
+    same way and every model shard holds the per-token scales, which the
+    specs replicate over the model axis), or lives whole on its one device.
+    Its per-slot fields (sampling rows, counters, token and latent
+    buffers) live on its first device, so a decode step moves none of them
+    between data shards. One data shard's state is a `DecodeState`; several
+    make a `DataShardedState` that keeps the state's one generator (JAX's
+    replicated rng). The result shares no memory with `state`."""
     import dataclasses
 
     from ..models.xttsv2.gpt import KVCache, ShardedKVCache
+    from ..runtime.decode_loop import DataShardedState
 
-    devices = mesh.model_devices()
-    tp = len(devices)
+    groups = mesh.shard_devices()
+    n_slots = state.seq_lens.shape[0]
+    if n_slots % len(groups):
+        raise ValueError(f"num_slots={n_slots} must divide by the mesh's {len(groups)} data "
+                         f"shards (dcn x data)")
+    per = n_slots // len(groups)
     spec = decode_state_specs()["cache"]
-    cache = state.cache
     shards = []
-    for r, dev in enumerate(devices):
-        def put(name):
-            t = getattr(cache, name)
-            return None if t is None else _model_slice(t, spec[name], r, tp).to(dev).contiguous()
+    for i, devices in enumerate(groups):
+        lo, hi, tp = i * per, (i + 1) * per, len(devices)
 
-        shards.append(KVCache(put("k"), put("v"), put("k_scale"), put("v_scale")))
-    first = mesh.first_device
-    moved = {f.name: getattr(state, f.name).to(first) for f in dataclasses.fields(state)
-             if f.name not in ("cache", "sampling", "generator")}
-    sampling = type(state.sampling)(*(t.to(first) for t in state.sampling.tensors()))
-    return dataclasses.replace(state, cache=ShardedKVCache(shards), sampling=sampling, **moved)
+        def put(name, r):
+            t = getattr(state.cache, name)
+            return None if t is None else _copy(_model_slice(t[:, lo:hi], spec[name], r, tp),
+                                                devices[r])
+
+        caches = [KVCache(*(put(name, r) for name in ("k", "v", "k_scale", "v_scale")))
+                  for r in range(tp)]
+        first = devices[0]
+        moved = {f.name: _copy(getattr(state, f.name)[lo:hi], first)
+                 for f in dataclasses.fields(state)
+                 if f.name not in ("cache", "sampling", "generator")}
+        sampling = type(state.sampling)(*(_copy(t[lo:hi], first)
+                                          for t in state.sampling.tensors()))
+        shards.append(dataclasses.replace(
+            state, cache=caches[0] if tp == 1 else ShardedKVCache(caches), sampling=sampling,
+            **moved))
+    return shards[0] if len(shards) == 1 else DataShardedState(shards, state.generator)
 
 
 def replicate(tree, mesh: Mesh):

@@ -52,17 +52,22 @@ state is updated in place, so every latent row handed out (snapshot, hook
 row, harvested row) is an independent device copy taken under
 `_state_lock` on the one CUDA stream every thread issues to: it is ordered
 after the block whose latents it reads and before any later release or
-refill of the slot. Prompts are TokenPrompts only: the JAX runner's legacy
-embeds-prompt branch (an uploaded [T, D] embedding matrix per chunk) is not
-on the port's path.
+refill of the slot. A prompt is a TokenPrompt or, as the JAX runner takes
+it for parity with the reference's embeds-based prompt API, a [T, D]
+embeddings array: uploaded at insert, padded to its prefill bucket and
+inserted by the module functions, one by one or as a K-bucketed burst,
+eagerly (no captured program; JAX marks this path not latency-optimized).
 
 With a `mesh` (parallel/mesh.py, the JAX runner's `mesh=`) the params and
-the KV cache are sharded once at construction over the model axis, and
-inserts, bursts, migrations, release and harvest act on every shard's cache
-through the same functions; the latents, status and generator stay on the
-mesh's first device, where the vocoder reads them. On a mesh whose shards
-share one card the programs capture and replay as above. Across cards they
-run eagerly: one CUDA graph captures one device's stream.
+the decode state are sharded once at construction: the slots over the
+data (and dcn) shards, each shard's KV cache over its model shards.
+Inserts, bursts, decode blocks, migrations, release and harvest act on
+every shard through the same functions (a captured insert or migration
+is keyed by the data shards its slots fall in); the status, the harvested
+latents and the generator live on the mesh's first device, where the
+vocoder reads them. On a mesh whose shards share one card the programs
+capture and replay as above. Across cards they run eagerly: one CUDA graph
+captures one device's stream.
 """
 from __future__ import annotations
 
@@ -83,13 +88,18 @@ from ..models.xttsv2.config import XTTSGPTConfig
 from .decode_loop import (
     PREFILL_BUCKETS,
     DecodeState,
+    DataShardedState,
     decode_steps_status,
     harvest_latents_device,
+    harvest_tokens_device,
     init_decode_state,
+    insert_sequence,
     insert_sequence_tokens,
+    insert_sequences,
     insert_sequences_tokens,
     migrate_slot,
     prefill_bucket,
+    prompt_dtype,
     release_slots,
     unpack_status,
 )
@@ -112,6 +122,18 @@ class TokenPrompt:
 
 
 @dataclass
+class EmbedsPrompt:
+    """A whole prompt as host embeddings [T, D] (the start-audio row
+    included), uploaded at insert."""
+
+    embeds: np.ndarray
+
+    @property
+    def length(self) -> int:
+        return int(self.embeds.shape[0])
+
+
+@dataclass
 class SamplingOptions:
     temperature: float = 0.75
     top_p: float = 0.85
@@ -123,7 +145,7 @@ class SamplingOptions:
 
 @dataclass
 class _Pending:
-    prompt: TokenPrompt
+    prompt: TokenPrompt | EmbedsPrompt
     options: SamplingOptions
     future: asyncio.Future
     # streaming: (latent_row, n, final) snapshots go here while the chunk
@@ -185,11 +207,8 @@ class DecodeEngine:
                  stream_block_steps: Optional[int] = None, device="cuda", mesh=None):
         self.mesh = mesh
         if mesh is not None:
-            from ..models.xttsv2.gpt import RAGGED_TP_ERROR
             from ..parallel.mesh import shard_gpt_params
 
-            if cfg.kv_int8 and cfg.ragged_decode:
-                raise ValueError(RAGGED_TP_ERROR)
             params = shard_gpt_params(params, mesh)
             device = mesh.first_device
         self.params = params
@@ -216,7 +235,7 @@ class DecodeEngine:
             cfg, num_slots, seed=seed, dtype=cache_dtype, device=self.device)
         # a graph captures one device's stream: a mesh over several cards
         # runs its programs eagerly
-        self._capture = mesh is None or not params.multi_device
+        self._capture = mesh is None or not mesh.multi_device
         if mesh is not None:
             from ..parallel.mesh import shard_decode_state
 
@@ -224,7 +243,7 @@ class DecodeEngine:
             if not self._capture and self.device.type == "cuda":
                 logger.info("mesh over %d cards: decode and insert programs run eagerly "
                             "(multi-device graph capture is later work, ROADMAP.md)",
-                            len(params.lead))
+                            len(set(mesh.devices.flat)))
         # the worker thread mutates the state during a pass; the event-loop
         # side (release, harvest, compaction) takes this lock before touching it
         self._state_lock = threading.RLock()
@@ -256,23 +275,38 @@ class DecodeEngine:
         self._closed = False
 
     # ------------------------------------------------------------- public
-    async def generate(self, prompt: TokenPrompt, options: SamplingOptions | None = None,
+    async def generate(self, prompt: TokenPrompt | np.ndarray,
+                       options: SamplingOptions | None = None,
                        stream_queue: Optional[asyncio.Queue] = None,
                        on_young_block: Optional[Callable[[torch.Tensor, int], bool]] = None):
-        """Submit a prompt; resolves to (tokens, latent_row, n). With
-        `stream_queue`, (latent_row, n, final) snapshots are pushed there
-        while it decodes, the final one after the future resolves."""
+        """Submit a prompt, a TokenPrompt or a [T, D] embeddings array (the
+        whole prompt, start-audio row included); resolves to (tokens,
+        latent_row, n). With `stream_queue`, (latent_row, n, final)
+        snapshots are pushed there while it decodes, the final one after
+        the future resolves."""
         self._closed = False  # shutdown() quiesces; a later submit reopens
         loop = asyncio.get_running_loop()
         fut: asyncio.Future = loop.create_future()
         # validate here so a malformed prompt fails only its own request
-        if prompt.cond.ndim != 2 or prompt.cond.shape[1] != self.cfg.hidden_size:
-            raise ValueError(
-                f"TokenPrompt.cond must be [C, {self.cfg.hidden_size}], got "
-                f"{tuple(prompt.cond.shape)}")
-        if not 1 <= prompt.length <= self.cfg.max_seq_len:
-            raise ValueError(
-                f"prompt length {prompt.length} outside [1, {self.cfg.max_seq_len}]")
+        if isinstance(prompt, TokenPrompt):
+            if prompt.cond.ndim != 2 or prompt.cond.shape[1] != self.cfg.hidden_size:
+                raise ValueError(
+                    f"TokenPrompt.cond must be [C, {self.cfg.hidden_size}], got "
+                    f"{tuple(prompt.cond.shape)}")
+            if not 1 <= prompt.length <= self.cfg.max_seq_len:
+                raise ValueError(
+                    f"prompt length {prompt.length} outside [1, {self.cfg.max_seq_len}]")
+        else:
+            embeds = np.asarray(prompt)
+            if embeds.ndim != 2 or embeds.shape[1] != self.cfg.hidden_size:
+                raise ValueError(
+                    f"embeds must be [T, {self.cfg.hidden_size}], got {embeds.shape}")
+            max_prompt = self.cfg.max_seq_len - 1  # one position for start-audio
+            if not 1 <= embeds.shape[0] <= max_prompt:
+                raise ValueError(
+                    f"prompt length {embeds.shape[0]} outside [1, {max_prompt}] "
+                    f"(cfg.max_seq_len={self.cfg.max_seq_len})")
+            prompt = EmbedsPrompt(embeds)
         pending = _Pending(prompt, options or SamplingOptions(), fut, stream_queue,
                            on_young_block)
         self._queue.append(pending)
@@ -588,32 +622,68 @@ class DecodeEngine:
 
     def _insert(self, pending: _Pending, slot: int) -> None:
         """Prefill one prompt into `slot` (worker thread)."""
-        ids, n_ids = self._token_args(pending.prompt)
-        self._insert_tokens([pending.prompt.cond], ids[None], [n_ids], [slot], [pending.options])
+        if isinstance(pending.prompt, EmbedsPrompt):
+            self._insert_embeds([pending], [slot])
+        else:
+            ids, n_ids = self._token_args(pending.prompt)
+            self._insert_tokens([pending.prompt.cond], ids[None], [n_ids], [slot],
+                                [pending.options])
         self.stats["inserts"] += 1
 
     def _insert_batch(self, pairs: list[tuple[_Pending, int]]) -> None:
         """Burst insert (worker thread): one batched prefill for all `pairs`
-        (one prefill bucket and cond width, K in _INSERT_K_BUCKETS: every
-        lane real), so the GPT weights stream once for the burst."""
-        args = [self._token_args(p.prompt) for p, _ in pairs]
-        self._insert_tokens([p.prompt.cond for p, _ in pairs],
-                            np.stack([a[0] for a in args]), [a[1] for a in args],
-                            [s for _, s in pairs], [p.options for p, _ in pairs])
+        (one prefill bucket, one kind of prompt and cond width, K in
+        _INSERT_K_BUCKETS: every lane real), so the GPT weights stream once
+        for the burst."""
+        if isinstance(pairs[0][0].prompt, EmbedsPrompt):
+            self._insert_embeds([p for p, _ in pairs], [s for _, s in pairs])
+        else:
+            args = [self._token_args(p.prompt) for p, _ in pairs]
+            self._insert_tokens([p.prompt.cond for p, _ in pairs],
+                                np.stack([a[0] for a in args]), [a[1] for a in args],
+                                [s for _, s in pairs], [p.options for p, _ in pairs])
         self.stats["inserts"] += len(pairs)
         self.stats["insert_batches"] += 1
+
+    def _insert_embeds(self, pendings: list[_Pending], slots: list[int]) -> None:
+        """Embeds prompts (one bucket) into `slots`, eagerly through the
+        module functions: each padded to its prefill bucket and uploaded,
+        one `insert_sequence` or one `insert_sequences` burst."""
+        t_up = time.perf_counter()
+        bucket = prefill_bucket(pendings[0].prompt.length, self.cfg.max_seq_len)
+        rows = np.zeros((len(pendings), bucket, self.cfg.hidden_size), np.float32)
+        for row, p in zip(rows, pendings):
+            row[:p.prompt.length] = p.prompt.embeds
+        embeds = torch.from_numpy(rows).to(self.device).to(prompt_dtype(self.cfg, self.state))
+        lengths = [p.prompt.length for p in pendings]
+        opts = [p.options for p in pendings]
+        t_disp = time.perf_counter()
+        if len(pendings) == 1:
+            o = opts[0]
+            insert_sequence(self.params, self.cfg, self.state, embeds[0], lengths[0], slots[0],
+                            o.temperature, o.top_p, o.top_k, o.repetition_penalty, o.do_sample,
+                            o.max_new_tokens)
+        else:
+            insert_sequences(self.params, self.cfg, self.state, embeds, lengths, slots,
+                             [o.temperature for o in opts], [o.top_p for o in opts],
+                             [o.top_k for o in opts], [o.repetition_penalty for o in opts],
+                             [o.do_sample for o in opts], [o.max_new_tokens for o in opts])
+        self.stats["insert_upload_s"] += t_disp - t_up
+        self.stats["insert_dispatch_s"] += time.perf_counter() - t_disp
 
     def _insert_tokens(self, conds: list, ids: np.ndarray, n_ids: list, slots: list,
                        opts: list) -> None:
         """K prompts (conds [C, D] each, padded ids [K, Tb]) into K distinct
         slots: one prompt is a single insert (kernel K1), more a burst (one
         batched prefill). On the card the program ("insert", bucket) or
-        ("burst", bucket, K), its inputs staged under its lock (the ids and
+        ("burst", bucket, K), with the lanes per data shard on a
+        data-sharded state, its inputs staged under its lock (the ids and
         one int64 and one f32 block of the per-call values through pinned
         memory, each cond by a device copy); on the CPU the module
         function."""
         t_up = time.perf_counter()
         kb, c = len(slots), int(conds[0].shape[0])
+        split = self._shard_lanes(slots)
         ints = np.asarray([slots, n_ids, [o.top_k for o in opts], [o.do_sample for o in opts],
                            [o.max_new_tokens for o in opts]], np.int64)
         floats = np.asarray([[o.temperature for o in opts], [o.top_p for o in opts],
@@ -639,7 +709,9 @@ class DecodeEngine:
             width = () if c == self.cfg.num_cond_latents else (c,)
             bucket = c + ids.shape[1]
             key = ("insert", bucket, *width) if kb == 1 else ("burst", bucket, kb, *width)
-            prog = self._program(key, lambda: self._insert_fn(c, ids.shape[1], kb))
+            if split is not None:
+                key += (split,)
+            prog = self._program(key, lambda: self._insert_fn(c, ids.shape[1], kb, split))
             with prog.lock:
                 inp = prog.inputs
                 for lane, cond in zip(inp["cond"].view(kb, c, -1), conds):
@@ -651,9 +723,23 @@ class DecodeEngine:
         self.stats["insert_upload_s"] += t_disp - t_up
         self.stats["insert_dispatch_s"] += time.perf_counter() - t_disp
 
-    def _insert_fn(self, c: int, tb: int, kb: int) -> tuple:
+    def _shard_lanes(self, slots: list) -> tuple | None:
+        """On a data-sharded state, the number of `slots` in each data shard
+        (a captured insert's key; the runner fills free slots lowest first,
+        so a burst's lanes come in slot order, as the key needs), else
+        None."""
+        if not isinstance(self.state, DataShardedState):
+            return None
+        if list(slots) != sorted(slots):
+            raise ValueError(f"a burst's slots must ascend on a data-sharded state: {slots}")
+        per = self.state.per_shard
+        return tuple(sum(lo <= s < lo + per for s in slots)
+                     for lo in range(0, self.num_slots, per))
+
+    def _insert_fn(self, c: int, tb: int, kb: int, split: tuple | None = None) -> tuple:
         """(function, static inputs) of an insert program: the single insert
-        (kb 1) or the burst of kb real lanes. Inputs: cond [(K,) C, D] f32,
+        (kb 1) or the burst of kb real lanes, whose lanes fall `split` per
+        data shard on a data-sharded state. Inputs: cond [(K,) C, D] f32,
         ids [(K,) Tb] int64, ints [5(, K)] (slot(s), n_ids, top_k,
         do_sample, max_new) int64, floats [3(, K)] (temperature, top_p,
         repetition_penalty) f32."""
@@ -668,34 +754,40 @@ class DecodeEngine:
 
         def fn():
             insert(self.params, self.cfg, state, inp["cond"], inp["ids"], i[1], i[0], f[0], f[1],
-                   i[2], f[2], i[3], i[4])
+                   i[2], f[2], i[3], i[4], shard_lanes=split)
 
         return fn, inp
 
     def _migrate(self, src: int, dst: int) -> None:
         """migrate_slot(src -> dst): on the card the program ("migrate",),
-        src/dst staged under its lock; on the CPU the function itself."""
+        keyed by the two slots' data shards on a data-sharded state, src/dst
+        staged under its lock; on the CPU the function itself."""
         if not self._programs.captures:
             migrate_slot(self.state, src, dst)
             return
+        shards = None
+        if isinstance(self.state, DataShardedState):
+            shards = (self.state.locate(src)[0], self.state.locate(dst)[0])
 
         def build():
             inp = {"pair": torch.zeros((2,), dtype=torch.int64, device=self.device)}
             state, pair = self.state, inp["pair"]
-            return (lambda: migrate_slot(state, pair[0], pair[1])), inp
+            return (lambda: migrate_slot(state, pair[0], pair[1], shards)), inp
 
-        prog = self._program(("migrate",), build)
+        prog = self._program(("migrate",) + (() if shards is None else shards), build)
         with prog.lock:
             upload(prog.inputs["pair"], np.asarray([src, dst], np.int64))
             prog()
 
     def _group_inserts(self, to_insert: list[tuple[_Pending, int]]) -> list[list]:
-        """The pass's inserts grouped by (prefill bucket, cond width) and cut
-        into exact K buckets, largest first; the remainder one by one."""
+        """The pass's inserts grouped by (prefill bucket, cond width, or
+        embeds) and cut into exact K buckets, largest first; the remainder
+        one by one."""
         by_bucket: dict[tuple, list] = {}
         for pending, slot in to_insert:
             tp = pending.prompt
-            key = (prefill_bucket(tp.length, self.cfg.max_seq_len), int(tp.cond.shape[0]))
+            kind = "embeds" if isinstance(tp, EmbedsPrompt) else int(tp.cond.shape[0])
+            key = (prefill_bucket(tp.length, self.cfg.max_seq_len), kind)
             by_bucket.setdefault(key, []).append((pending, slot))
         chunks = []
         for pairs in by_bucket.values():
@@ -782,9 +874,8 @@ class DecodeEngine:
         if not slots:
             return
         with self._state_lock:
-            idx = torch.tensor(slots, dtype=torch.long).to(self.device)
             tokens = self._host_buffer((len(slots), self.cfg.max_audio_tokens), torch.int32)
-            tokens.copy_(self.state.tokens_buf[idx], non_blocking=True)
+            tokens.copy_(harvest_tokens_device(self.state, slots), non_blocking=True)
             rows = [harvest_latents_device(self.state, s) for s in slots]
             status = _Status(tokens, None)
             if self.device.type == "cuda":

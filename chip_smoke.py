@@ -138,13 +138,30 @@ Phases:
     donor (tokens equal, waveform within 1 PCM step); from_engine with
     n_replicas=2 on the default devices gives one replica and logs it;
  7b. tensor parallelism on one card: a DecodeEngine on a mesh of two model
-    shards on cuda:0 beside the unsharded one, full width, bf16 KV, K1 and
-    K2: 4 single inserts, 64 teacher-forced steps, hidden states and
-    logits within TP_SNR_FLOOR_DB; K1 and K2 at 8 heads; a 16-step block
-    on the mesh replayed as a graph; the dense int8 body's layer-0 rows and
-    scales of a prompt bit-equal to the unsharded engine's;
- 7c. the refusals on this card: tensor_parallel_size=2 on one GPU and
-    ragged_decode (K4) under a model mesh raise ValueError.
+    shards on cuda:0 beside the unsharded one, full width, with bf16 KV
+    (K1 and K2) and with int8 KV and ragged decode attention (K1 and K4,
+    which takes the whole row's scales): 4 single inserts, 64
+    teacher-forced steps, hidden states and logits within TP_SNR_FLOOR_DB;
+    K1 and K2 / K4 at 8 heads; a 16-step block on the mesh replayed as a
+    graph; under int8 layer 0's rows and scales of the prompts bit-equal
+    to the unsharded engine's; the dense int8 body's layer-0 rows and
+    scales of a prompt bit-equal to the unsharded engine's. Phase 3 holds
+    K4 at one shard's 8 heads with the 16-head row's scales given
+    bit-equal to the 16-head launch;
+ 7c. the refusal on this card: tensor_parallel_size=2 on one GPU raises
+    ValueError;
+ 7d. the data and dcn axes of a decode state: 8-slot DecodeEngines at full
+    width on cuda:0 meshes of data=2/model=1, data=2/model=2 and
+    dcn=2/data=1/model=2, with bf16 KV (K1, K2) and int8 KV with ragged
+    decode (K1, K4), slot bucketing on: 4 greedy TokenPrompt requests of
+    100 tokens and one [90, 1024] embeds prompt through `generate`, tokens
+    equal to the reference engine's (unsharded for model=1, the
+    model-only mesh's for model=2); then 8 sampled prompts as one burst
+    (spanning the data shards) and a 16-step sampled block, tokens,
+    counts and seen rows bit-equal to the reference's; two migrate_slot
+    from data shard 1 to 0, each destination bit-equal to its source;
+    decode blocks and migrations replay as graphs, and the path's kernels
+    launch (counts printed).
 
 Each phase's header gives the seconds since the start. Any failure exits
 non-zero. The kernels' launch counts include the launches of replayed
@@ -220,6 +237,7 @@ from auralis_tpu_torch.parallel.replica import logger as replica_logger
 from auralis_tpu_torch.runtime import graphs
 from auralis_tpu_torch.runtime.decode_loop import (
     PREFILL_BUCKETS,
+    DataShardedState,
     DecodeState,
     _assemble_prompt,
     decode_steps,
@@ -251,6 +269,7 @@ from auralis_tpu_torch.ops.experimental.fused_mlp import (
     mlp_w8_reference,
 )
 from auralis_tpu_torch.ops.mrf import PackedMRFStage, mrf_stage_plain, run_fused_stage
+from auralis_tpu_torch.ops.quant import quantize_rows
 from auralis_tpu_torch.ops.prefill_attention import (
     prefill_attention_plain,
     prefill_flash_attention,
@@ -555,6 +574,91 @@ def check_shard_shapes(dev, results) -> None:
         f"worst |err|/bound {ratio:.3f}, mismatch {mismatch:.4%}; kernel cold {ms:.4f} ms, hot "
         f"{ms_hot:.4f} ms, plain cold {plain_ms:.4f} ms per layer, bound {bound_ms:.5f} ms "
         f"({bound_by}; {bound_ms / ms:.1%} of cold)")
+
+
+def check_k4_shard(dev, results) -> None:
+    """K4 at one model shard's shapes under tensor parallelism of 2 (phases
+    7b and 7d): 8 heads on a [30, 8, 1280, 512] int8 cache with f32 scale
+    rows, given the new rows' scales over the whole 16-head row
+    (`row_scales`, what the sharded decode step passes), at every
+    write-position set. Each half of the heads, launched on its lanes of a
+    copy of the 16-head cache, must write the int8 lanes and scales and give
+    the ctx heads of the 16-head launch bit for bit; it is held against its
+    plain version on its own copy with phase 3's K4 bounds (caches and
+    scales bit-equal, ctx within 1e-5|ref| + 1e-6) and two launches
+    bit-equal. Then timed as K4 (cold and hot), into K4's `by_shape`."""
+    q, kn, vn, full = k4_inputs(dev, seed=9)
+    h, d, s = HEADS // 2, HEAD_DIM, q.shape[0]
+    w = h * d
+    row_scales = (quantize_rows(kn)[1], quantize_rows(vn)[1])
+    lanes = [slice(r * w, (r + 1) * w) for r in range(2)]
+    halves = [tuple(x[..., ln].contiguous() if i < 2 else x.clone() for i, x in enumerate(full))
+              for ln in lanes]
+    refs = [tuple(x.clone() for x in half) for half in halves]
+    args = [(q[:, r * h:(r + 1) * h].contiguous(), kn[:, ln].contiguous(),
+             vn[:, ln].contiguous()) for r, ln in enumerate(lanes)]
+    rows = {}
+    for name, wp_list in WRITE_POS_SETS.items():
+        wp = torch.tensor(wp_list, dtype=torch.int32, device=dev)
+        ctx16 = ragged_decode_attention(q, kn, vn, 0.125, HOT_LAYER, wp, *full)
+        worst, err = 0.0, 0.0
+        for r, ln in enumerate(lanes):
+            got = ragged_decode_attention(*args[r], 0.125, HOT_LAYER, wp, *halves[r],
+                                          row_scales=row_scales)
+            again = ragged_decode_attention(*args[r], 0.125, HOT_LAYER, wp, *halves[r],
+                                            row_scales=row_scales)
+            torch.cuda.synchronize()
+            want = ragged_decode_plain(*args[r], 0.125, HOT_LAYER, wp, *refs[r],
+                                       row_scales=row_scales)
+            as_16 = (torch.equal(got, ctx16[:, ln]) and torch.equal(halves[r][0], full[0][..., ln])
+                     and torch.equal(halves[r][1], full[1][..., ln])
+                     and torch.equal(halves[r][2], full[2]) and torch.equal(halves[r][3], full[3]))
+            if not as_16:
+                raise AssertionError(f"K4 at 8 heads with given scales, {name}, heads "
+                                     f"{r * h}-{(r + 1) * h - 1}: rows, scales or ctx differ from "
+                                     f"the 16-head launch's")
+            if not all(torch.equal(a, b) for a, b in zip(halves[r], refs[r])):
+                raise AssertionError(f"K4 at 8 heads with given scales, {name}: caches or scales "
+                                     f"differ from the plain version's")
+            if not torch.equal(got, again):
+                raise AssertionError(f"K4 at 8 heads with given scales, {name}: two launches on "
+                                     f"the same inputs differ")
+            ratio, mismatch = elementwise(got, want, 1e-5, 1e-6)
+            if not ratio <= 1.0:
+                raise AssertionError(f"K4 at 8 heads with given scales, {name}: worst "
+                                     f"error/bound {ratio}")
+            worst = max(worst, ratio)
+            err = max(err, (got - want).abs().max().item())
+        rows[name] = {"write_pos": wp_list, "max_abs_err": err, "worst_ratio": worst}
+        say(f"  K4 ragged int8 S={s} T={T_MAX} H=8 (one of 2 model shards, scales of the 16-head "
+            f"row given) {name}: both halves' int8 lanes, scales and ctx bit-equal to the 16-head "
+            f"launch's; against the plain version caches and scales bit-equal, ctx "
+            f"max_abs_err={err:.3e}, worst |err|/bound {worst:.3f}; repeat bit-equal")
+    del full, refs
+    torch.cuda.empty_cache()
+    # timed on the first half's copy: the appends of every layer now differ
+    # from the 16-head cache's, which nothing compares any more
+    mine, row = halves[0], w
+    for name, wp_list in WRITE_POS_SETS.items():
+        wp = torch.tensor(wp_list, dtype=torch.int32, device=dev)
+        ms, ms_hot = cold_hot_ms(lambda layer: ragged_decode_attention(
+            *args[0], 0.125, layer, wp, *mine, row_scales=row_scales))
+        rot = itertools.count()
+        plain_ms = time_ms(lambda: ragged_decode_plain(
+            *args[0], 0.125, next(rot) % LAYERS, wp, *halves[1], row_scales=row_scales), LAYERS)
+        # bytes as phase 3's K4, plus the two given scales per slot read
+        live = int((wp + 1).sum())
+        nbytes = (2 * (live - s) * (row + 4) + s * row * 2 + 2 * s * row * 2 + 2 * s * 4
+                  + 2 * s * (row + 4) + s * row * 4)
+        bound_ms, bound_by = bound(nbytes, 4 * live * row, "int8")
+        rows[name].update({"ms": ms, "ms_hot": ms_hot, "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by})
+        say(f"  K4 H=8 with given scales {name}: kernel cold {ms:.4f} ms, hot {ms_hot:.4f} ms, "
+            f"plain cold {plain_ms:.4f} ms per layer, bound {bound_ms:.5f} ms ({bound_by}, {live} "
+            f"live rows; {bound_ms / ms:.1%} of cold)")
+    results["ragged_decode"]["by_shape"]["H=8 scales given (one of 2 model shards)"] = rows
+    del halves, mine
+    torch.cuda.empty_cache()
 
 
 def check_slot_slices(tag: str, kernel, plain, caches, ref_caches, rtol: float, atol: float,
@@ -2639,33 +2743,28 @@ def tp_prompts(cfg, dev, n: int) -> list:
     return out
 
 
-def run_tensor_parallel(dev, smi: str) -> dict:
-    """Phase 7b: DecodeEngine on a mesh of two model shards on one card
-    (make_mesh(devices=[cuda:0, cuda:0], model=2)) beside the unsharded
-    engine, full width, bf16 KV, prefill_flash + flash_decode: 4 single
-    inserts through each runner's insert programs, then TP_STEPS
-    teacher-forced steps (both fed the unsharded engine's greedy tokens),
-    hidden states and logits against the unsharded engine as an SNR; K1 and
-    K2 must launch at 8 heads; a 16-step block on the mesh must replay as a
-    graph. Then the dense int8 body on the same mesh: layer 0's int8 rows
-    and scales of a prompt bit-equal to the unsharded engine's. Then 7c:
-    the refusals. Returns the kernel launches."""
-    cfg = dataclasses.replace(XTTSConfig().gpt, flash_decode=True, prefill_flash=True)
-    params, _ = params_from_numpy(*seed0_weights(), device=dev, dtype=torch.bfloat16)
-    mesh = make_mesh([dev, dev], data=1, model=2)
-    for w in KERNELS.values():
-        w["wrapper"].launches = 0
+def tp_against_unsharded(dev, smi: str, params, cfg, mesh, tag: str, decode_kernel: str) -> dict:
+    """DecodeEngine on `mesh` (two model shards on one card) beside the
+    unsharded engine, full width: 4 single inserts through each runner's
+    insert programs, then TP_STEPS teacher-forced steps (both fed the
+    unsharded engine's greedy tokens), hidden states and logits against
+    the unsharded engine as an SNR above TP_SNR_FLOOR_DB; K1 and the decode
+    kernel must launch at 8 heads; a 16-step block on the mesh must replay
+    as a graph. Under kv_int8 layer 0's int8 rows and scales of the prompts
+    (written from the same embeddings on both sides) must be bit-equal,
+    and those the forced steps appended are reported."""
+    greedy = SamplingOptions(temperature=1.0, top_p=1.0, top_k=1, repetition_penalty=1.0,
+                             do_sample=False)
     torch.cuda.empty_cache()
     with HeadsSeen(gpt_module, "prefill_flash_attention") as k1, \
-            HeadsSeen(gpt_module, "flash_decode_append_attention") as k2:
+            HeadsSeen(gpt_module, decode_kernel) as kd:
         one = DecodeEngine(params, cfg, num_slots=8, cache_dtype=torch.bfloat16, device=dev)
         tp = DecodeEngine(params, cfg, num_slots=8, cache_dtype=torch.bfloat16, device=dev,
                           mesh=mesh)
         shards = tp.state.cache.shards
-        say(f"  mesh {mesh}; shard caches {[tuple(c.k.shape) for c in shards]}; qkv per shard "
+        say(f"  {tag}: mesh {mesh}; shard caches {[tuple(c.k.shape) for c in shards]} "
+            f"{shards[0].k.dtype}; qkv per shard "
             f"{tuple(tp.params.shards[0]['blocks']['attn_w'].shape)}")
-        greedy = SamplingOptions(temperature=1.0, top_p=1.0, top_k=1, repetition_penalty=1.0,
-                                 do_sample=False)
         prompts = tp_prompts(cfg, dev, 4)
         graphs.reset_counts()
         for de in (one, tp):
@@ -2678,12 +2777,17 @@ def run_tensor_parallel(dev, smi: str) -> dict:
         lat_one = one.state.latents_buf[:s, 0].float().cpu().numpy()
         lat_tp = tp.state.latents_buf[:s, 0].float().cpu().numpy()
         snr_insert = snr_db_np(lat_one, lat_tp)
+        st1, st2 = one.state, tp.state
+        prompt_rows = None
+        if cfg.kv_int8:
+            prompt_rows = all(layer0_equal(st1.cache, st2.cache, slot, 0, p.length)
+                              for slot, p in enumerate(prompts))
         # teacher forcing: both engines read the unsharded engine's greedy
         # tokens, step by step
-        st1, st2 = one.state, tp.state
         h_snr, l_snr = [], []
         tokens = st1.last_token[:s].clone()
         pos, lens = st1.audio_pos[:s].clone(), st1.seq_lens[:s].clone()
+        start = lens.clone()
         t0 = time.perf_counter()
         for _ in range(TP_STEPS):
             h1 = gpt_decode_step(one.params, cfg, tokens, pos, lens, st1.cache)
@@ -2696,6 +2800,10 @@ def run_tensor_parallel(dev, smi: str) -> dict:
             pos, lens = pos + 1, lens + 1
         torch.cuda.synchronize()
         forced_s = time.perf_counter() - t0
+        appended = None
+        if cfg.kv_int8:
+            appended = sum(layer0_equal(st1.cache, st2.cache, slot, int(start[slot]),
+                                        int(lens[slot])) for slot in range(s))
         # the same slots' state moved on by hand: a graph block on the mesh
         for st in (st1, st2):
             st.seq_lens[:s], st.audio_pos[:s], st.last_token[:s] = lens, pos, tokens
@@ -2717,46 +2825,86 @@ def run_tensor_parallel(dev, smi: str) -> dict:
             one._decode_block(16, None, None, one._status_bufs[0])
         torch.cuda.synchronize()
         one_ms = (time.perf_counter() - t0) / 3 / 16 * 1e3
-    say(f"  4 single inserts per engine (insert programs: {graphs_text(inserts)}); first "
+    say(f"  {tag}: 4 single inserts per engine (insert programs: {graphs_text(inserts)}); first "
         f"latents SNR {snr_insert:.1f} dB; {TP_STEPS} teacher-forced steps ({forced_s:.1f} s, "
         f"both engines eager): hidden state SNR min {min(h_snr):.1f} / median "
         f"{statistics.median(h_snr):.1f} dB, logits SNR min {min(l_snr):.1f} / median "
-        f"{statistics.median(l_snr):.1f} dB (floor {TP_SNR_FLOOR_DB} dB); K1 heads {sorted(k1.heads)}, "
-        f"K2 heads {sorted(k2.heads)} ({smi})")
-    say(f"  16-step blocks on the mesh as graphs: {graphs_text(block)}; {block_ms:.3f} ms a step "
-        f"(two shards on one card) against {one_ms:.3f} unsharded, wall with the status copy "
-        f"({smi})")
+        f"{statistics.median(l_snr):.1f} dB (floor {TP_SNR_FLOOR_DB} dB); K1 heads "
+        f"{sorted(k1.heads)}, {decode_kernel} heads {sorted(kd.heads)} ({smi})")
+    if cfg.kv_int8:
+        say(f"  {tag}: layer 0's int8 rows and scales of the 4 prompts (each shard's copy of the "
+            f"scales) {'bit-equal' if prompt_rows else 'DIFFER'} to the unsharded engine's; of "
+            f"the rows the {TP_STEPS} forced steps appended at layer 0, {appended} of {s} slots' "
+            f"bit-equal")
+    say(f"  {tag}: 16-step blocks on the mesh as graphs: {graphs_text(block)}; {block_ms:.3f} ms "
+        f"a step (two shards on one card) against {one_ms:.3f} unsharded, wall with the status "
+        f"copy ({smi})")
     if min(min(h_snr), min(l_snr), snr_insert) < TP_SNR_FLOOR_DB:
-        raise AssertionError(f"7b: SNR below {TP_SNR_FLOOR_DB} dB")
+        raise AssertionError(f"7b {tag}: SNR below {TP_SNR_FLOOR_DB} dB")
     half = cfg.num_attention_heads // 2
-    if half not in k1.heads or half not in k2.heads:
-        raise AssertionError(f"7b: K1 heads {k1.heads}, K2 heads {k2.heads}: no launch at "
-                             f"{half} heads")
+    if half not in k1.heads or half not in kd.heads:
+        raise AssertionError(f"7b {tag}: K1 heads {k1.heads}, {decode_kernel} heads {kd.heads}: "
+                             f"no launch at {half} heads")
     if block.get("decode.replays", 0) < 1:
-        raise AssertionError("7b: the mesh's decode block did not replay as a graph")
+        raise AssertionError(f"7b {tag}: the mesh's decode block did not replay as a graph")
+    if prompt_rows is False:
+        raise AssertionError(f"7b {tag}: layer 0's int8 rows or scales differ under the mesh")
+    return {"h_snr": min(h_snr), "l_snr": min(l_snr), "block_ms": block_ms, "one_ms": one_ms}
+
+
+def layer0_equal(plain, sharded, slot: int, lo: int, hi: int) -> bool:
+    """Layer 0's int8 K/V rows [lo, hi) of `slot`, the model shards' lanes
+    side by side, and every shard's copy of their scales, bit-equal to the
+    unsharded cache's."""
+    k = torch.cat([c.k[0, slot, lo:hi] for c in sharded.shards], dim=-1)
+    v = torch.cat([c.v[0, slot, lo:hi] for c in sharded.shards], dim=-1)
+    return (torch.equal(k, plain.k[0, slot, lo:hi]) and torch.equal(v, plain.v[0, slot, lo:hi])
+            and all(torch.equal(c.k_scale[0, slot, lo:hi], plain.k_scale[0, slot, lo:hi])
+                    and torch.equal(c.v_scale[0, slot, lo:hi], plain.v_scale[0, slot, lo:hi])
+                    for c in sharded.shards))
+
+
+def run_tensor_parallel(dev, smi: str) -> dict:
+    """Phase 7b: DecodeEngine on a mesh of two model shards on one card
+    (make_mesh(devices=[cuda:0, cuda:0], model=2)) beside the unsharded
+    engine, full width (tp_against_unsharded): the bf16 KV configuration
+    (K1, K2) and the int8 one with ragged decode attention (K1, K4 at 8
+    heads given the whole row's scales). Then the dense int8 body on the
+    same mesh: layer 0's int8 rows and scales of a prompt bit-equal to the
+    unsharded engine's. Then 7c: the refusal. Returns the kernel
+    launches."""
+    params, _ = params_from_numpy(*seed0_weights(), device=dev, dtype=torch.bfloat16)
+    mesh = make_mesh([dev, dev], data=1, model=2)
+    base = XTTSConfig().gpt
+    for w in KERNELS.values():
+        w["wrapper"].launches = 0
+    tp_against_unsharded(dev, smi, params,
+                         dataclasses.replace(base, flash_decode=True, prefill_flash=True), mesh,
+                         "bf16 KV, K1 + K2", "flash_decode_append_attention")
+    tp_against_unsharded(dev, smi, params,
+                         dataclasses.replace(base, prefill_flash=True, kv_int8=True,
+                                             ragged_decode=True), mesh,
+                         "int8 KV, K1 + K4", "ragged_decode_attention")
     launches = {name: w["wrapper"].launches for name, w in KERNELS.items()}
-    del one, tp, st1, st2
     torch.cuda.empty_cache()
 
     # the dense int8 body on the same mesh: layer 0's rows and scales
-    icfg = dataclasses.replace(XTTSConfig().gpt, prefill_flash=True, kv_int8=True)
+    greedy = SamplingOptions(temperature=1.0, top_p=1.0, top_k=1, repetition_penalty=1.0,
+                             do_sample=False)
+    prompt = tp_prompts(base, dev, 1)[0]
+    icfg = dataclasses.replace(base, prefill_flash=True, kv_int8=True)
     sides = []
     for m in (None, mesh):
         de = DecodeEngine(params, icfg, num_slots=2, cache_dtype=torch.bfloat16, device=dev,
                           mesh=m)
         with de._state_lock:
-            de._insert(type("P", (), {"prompt": prompts[0], "options": greedy})(), 1)
+            de._insert(type("P", (), {"prompt": prompt, "options": greedy})(), 1)
         torch.cuda.synchronize()
         sides.append(de.state.cache)
         del de
     plain, sharded = sides
-    n = prompts[0].length
-    rows_k = torch.cat([c.k[0, 1, :n] for c in sharded.shards], dim=-1)
-    rows_v = torch.cat([c.v[0, 1, :n] for c in sharded.shards], dim=-1)
-    equal = (torch.equal(rows_k, plain.k[0, 1, :n]) and torch.equal(rows_v, plain.v[0, 1, :n])
-             and all(torch.equal(c.k_scale[0, 1, :n], plain.k_scale[0, 1, :n])
-                     and torch.equal(c.v_scale[0, 1, :n], plain.v_scale[0, 1, :n])
-                     for c in sharded.shards))
+    n = prompt.length
+    equal = layer0_equal(plain, sharded, 1, 0, n)
     deep = float((sharded.shards[0].k_scale[1:, 1, :n] / plain.k_scale[1:, 1, :n] - 1)
                  .abs().max())
     say(f"  dense int8 body on the mesh, a {n}-row prompt: layer 0's int8 rows and scales "
@@ -2772,7 +2920,7 @@ def run_tensor_parallel(dev, smi: str) -> dict:
     gpu_count = torch.cuda.device_count()
     try:
         core = {}  # never reached: the mesh is made first
-        XTTSv2Engine(XTTSConfig(), cfg, params=params, core=core, device=dev,
+        XTTSv2Engine(XTTSConfig(), base, params=params, core=core, device=dev,
                      tensor_parallel_size=2)
     except ValueError as e:
         say(f"  XTTSv2Engine(tensor_parallel_size=2) with {gpu_count} GPU: ValueError: {e}")
@@ -2781,16 +2929,158 @@ def run_tensor_parallel(dev, smi: str) -> dict:
     else:
         if gpu_count < 2:
             raise AssertionError("7c: tensor_parallel_size=2 did not raise on one GPU")
-    rcfg = dataclasses.replace(XTTSConfig().gpt, prefill_flash=True, ragged_decode=True,
-                               kv_int8=True)
-    try:
-        DecodeEngine(params, rcfg, num_slots=2, device=dev, mesh=mesh)
-    except ValueError as e:
-        say(f"  ragged_decode + kv_int8 on a model mesh: ValueError: {e}")
-        if "K4" not in str(e) or "ROADMAP" not in str(e):
-            raise
-    else:
-        raise AssertionError("7c: ragged_decode under a model mesh did not raise")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------------------------- data axes
+# phase 7d: (dcn, data, model) of each mesh on cuda:0; its reference is the
+# unsharded engine when model is 1, else the (1, 1, 2) mesh's engine (the
+# model axis alone changes the rounding of the row-parallel sums, which 7b
+# holds against the unsharded engine; the data axis changes no bit)
+DATA_MESHES = {"data=2 model=1": (1, 2, 1), "data=2 model=2": (1, 2, 2),
+               "dcn=2 data=1 model=2": (2, 1, 2)}
+DATA_TOKENS = 100  # max_new_tokens of 7d's requests
+DATA_REQUESTS = 4  # greedy TokenPrompt requests per engine, beside one embeds prompt
+DATA_SLOTS = 8
+
+
+def slot_tensors(state, slot: int) -> list:
+    """Every tensor of one slot (per-slot fields, sampling rows, and its KV
+    rows and scales in every model shard's cache), cloned."""
+    if isinstance(state, DataShardedState):
+        i, slot = state.locate(slot)
+        state = state.shards[i]
+    fields = (*state.sampling.tensors(), state.seq_lens, state.audio_pos, state.last_token,
+              state.active, state.done, state.tokens_buf, state.latents_buf,
+              state.n_generated)
+    return [t[slot].clone() for t in fields] + [t[:, slot].clone()
+                                                for t in state.cache.tensors()]
+
+
+def drive_data_engine(dev, params, cfg, shape, prompts, embeds) -> dict:
+    """One 8-slot DecodeEngine (slot bucketing on) on a cuda:0 mesh of
+    `shape` (dcn, data, model), or unsharded (None): DATA_REQUESTS greedy
+    TokenPrompt requests and one embeds prompt through `generate` at once;
+    then, from one generator state, 8 sampled prompts as one burst through
+    the runner's insert program and a 16-step sampled decode block through
+    its decode program; on a data mesh two migrations from data shard 1 to
+    data shard 0 through the migrate program (the second a replay), each
+    destination bit-equal to its source."""
+    mesh = None
+    if shape is not None:
+        dcn, data, model = shape
+        mesh = make_mesh([dev] * (dcn * data * model), data=data, model=model, dcn_data=dcn)
+    t0 = time.perf_counter()
+    de = DecodeEngine(params, cfg, num_slots=DATA_SLOTS, cache_dtype=torch.bfloat16, device=dev,
+                      mesh=mesh, slot_bucketing=True)
+    greedy = SamplingOptions(temperature=1.0, top_p=1.0, top_k=1, repetition_penalty=1.0,
+                             do_sample=False, max_new_tokens=DATA_TOKENS)
+
+    async def serve():
+        out = await asyncio.gather(*(de.generate(p, greedy) for p in [*prompts, embeds]))
+        await de.shutdown()
+        return out
+
+    served = [np.asarray(t) for t, _, _ in asyncio.run(serve())]
+    serve_s = time.perf_counter() - t0
+    sampled = SamplingOptions(temperature=0.75, top_p=0.85, top_k=50, repetition_penalty=5.0,
+                              do_sample=True)
+    g = torch.Generator(device="cpu").manual_seed(11)
+    conds = [0.5 * torch.randn((cfg.num_cond_latents, cfg.hidden_size), generator=g).to(dev)
+             for _ in range(DATA_SLOTS)]
+    tb = PREFILL_BUCKETS[1] - cfg.num_cond_latents  # one prefill bucket, 128
+    ids = torch.randint(5, 200, (DATA_SLOTS, tb), generator=g).numpy()
+    with de._state_lock:
+        de.state.generator.set_state(torch.Generator(device=dev).manual_seed(5).get_state())
+        de._insert_tokens(conds, ids, [60] * DATA_SLOTS, list(range(DATA_SLOTS)),
+                          [sampled] * DATA_SLOTS)
+        de._decode_block(16, None, None, de._status_bufs[0])
+    torch.cuda.synchronize()
+    state = de.state
+    field = state.field if isinstance(state, DataShardedState) else (
+        lambda name: getattr(state.sampling if hasattr(state.sampling, name) else state, name))
+    block = {name: field(name).cpu() for name in ("tokens_buf", "n_generated", "seen")}
+    migrated = None
+    if isinstance(state, DataShardedState):
+        migrated = []
+        with de._state_lock:
+            de._release_state([1, 2])
+            for src, dst in ((6, 1), (5, 2)):
+                want = slot_tensors(state, src)
+                de._migrate(src, dst)
+                got = slot_tensors(state, dst)
+                migrated.append(all(torch.equal(a, b) for a, b in zip(got, want)))
+        torch.cuda.synchronize()
+    out = {"served": served, "block": block, "migrated": migrated, "serve_s": serve_s,
+           "graphs": dict(graphs.counts), "stats": dict(de.stats)}
+    del de, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_data_axes(dev, smi: str) -> dict:
+    """Phase 7d: DecodeEngines at full width (XTTSConfig()), 8 slots, on
+    cuda:0 meshes of DATA_MESHES, with the bf16 KV configuration (K1, K2)
+    and the int8 one with ragged decode attention (K1, K4); each engine
+    drives drive_data_engine, and its served tokens (4 TokenPrompt requests
+    of DATA_TOKENS and one embeds prompt), its sampled block (tokens, counts
+    and seen rows) must equal its reference engine's, its migrations be
+    bit for bit, its decode programs replay as graphs and its path's
+    kernels launch. Returns the kernel launches of the data-sharded
+    engines' runs."""
+    params, _ = params_from_numpy(*seed0_weights(), device=dev, dtype=torch.bfloat16)
+    base = XTTSConfig().gpt
+    prompts = tp_prompts(base, dev, DATA_REQUESTS)
+    embeds = (0.5 * np.random.default_rng(12).standard_normal(
+        (90, base.hidden_size))).astype(np.float32)
+    configs = {
+        "bf16 KV (K1, K2)": (dataclasses.replace(base, prefill_flash=True, flash_decode=True),
+                             ("prefill_attention", "flash_decode_append")),
+        "int8 KV ragged (K1, K4)": (
+            dataclasses.replace(base, prefill_flash=True, kv_int8=True, ragged_decode=True),
+            ("prefill_attention", "ragged_decode"))}
+    launches = {name: 0 for name in KERNELS}
+    for tag, (cfg, must) in configs.items():
+        refs = {}
+        for ref, shape in (("unsharded", None), ("model=2", (1, 1, 2))):
+            graphs.reset_counts()
+            refs[ref] = drive_data_engine(dev, params, cfg, shape, prompts, embeds)
+            say(f"  {tag}, {ref} reference: served {[len(t) for t in refs[ref]['served']]} "
+                f"tokens in {refs[ref]['serve_s']:.1f} s; graphs {graphs_text(refs[ref]['graphs'])}")
+        for name, shape in DATA_MESHES.items():
+            for w in KERNELS.values():
+                w["wrapper"].launches = 0
+            graphs.reset_counts()
+            got = drive_data_engine(dev, params, cfg, shape, prompts, embeds)
+            run = {k: w["wrapper"].launches for k, w in KERNELS.items()}
+            for k in KERNELS:
+                launches[k] += run[k]
+            ref_name = "unsharded" if shape[2] == 1 else "model=2"
+            want = refs[ref_name]
+            served_equal = all(np.array_equal(a, b) for a, b in zip(got["served"], want["served"]))
+            block_equal = all(torch.equal(got["block"][k], want["block"][k]) for k in want["block"])
+            st = got["stats"]
+            say(f"  {tag}, {name} ({shape[0] * shape[1]} data shards): served "
+                f"{[len(t) for t in got['served']]} tokens in {got['serve_s']:.1f} s, "
+                f"{'equal' if served_equal else 'NOT EQUAL'} to the {ref_name} engine's (the last "
+                f"an embeds prompt); sampled 16-step block after a burst of 8 "
+                f"{'bit-equal' if block_equal else 'NOT EQUAL'}; migrations 6 -> 1, 5 -> 2 "
+                f"(data shard 1 -> 0) bit for bit {got['migrated']}; runner stats "
+                f"insert_batches {st['insert_batches']}, migrations {st['migrations']}, "
+                f"slot_bound_blocks {st['slot_bound_blocks']}; graphs {graphs_text(got['graphs'])}; "
+                f"launches {run} ({smi})")
+            if not (served_equal and block_equal and all(got["migrated"])):
+                raise AssertionError(f"7d {tag}, {name}: tokens, the sampled block or a "
+                                     f"migration differ from the {ref_name} engine's")
+            if (got["graphs"].get("decode.replays", 0) < 1
+                    or got["graphs"].get("migrate.replays", 0) < 1):
+                raise AssertionError(f"7d {tag}, {name}: no decode block or migration replayed "
+                                     f"as a graph: {got['graphs']}")
+            for k in must:
+                if run[k] <= 0:
+                    raise AssertionError(f"7d {tag}, {name}: kernel {k} was not launched")
     del params
     torch.cuda.empty_cache()
     return launches
@@ -3306,6 +3596,7 @@ def main() -> int:
     check_ragged(dev, results)
     check_fused_mlp(dev, results)
     check_shard_shapes(dev, results)
+    check_k4_shard(dev, results)
     torch.cuda.empty_cache()
 
     tokenizer = build_tokenizer(XTTSConfig().gpt.number_text_tokens)
@@ -3363,10 +3654,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("[7a] data-parallel replicas: two engines on one card behind the facade")
     replicas = run_replicas(dev, smi, tokenizer)
-    phase("[7b] tensor parallelism: a mesh of two model shards on one card")
+    phase("[7b] tensor parallelism: a mesh of two model shards on one card, bf16 and int8 "
+          "ragged")
     tensor = run_tensor_parallel(dev, smi)
+    phase("[7d] the data and dcn axes of a decode state: DecodeEngines on data x model meshes "
+          "of one card")
+    data_axes = run_data_axes(dev, smi)
     for name in KERNELS:
-        launches[name] += replicas[name] + tensor[name]
+        launches[name] += replicas[name] + tensor[name] + data_axes[name]
 
     # launches per main-path unit: one K1 per GPT layer per prompt insert,
     # one K2/K4 (and K5 on its path) per layer per decode step, one K3 per
@@ -3389,6 +3684,7 @@ def main() -> int:
                            "library_ms")}}
         for name, k in KERNELS.items()
     ]}
+    say(f"every phase passed in {time.perf_counter() - T_START:.1f} s")
     say(json.dumps(line))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -315,34 +315,179 @@ def test_w8a8_disabled_under_tp(monkeypatch):
         "decode_w8a8", "prefill_w8a8"]
 
 
-def test_ragged_decode_under_tp_raises():
-    """K4 quantises a new row over the lanes it holds: under a model mesh
-    the runner refuses ragged_decode with kv_int8 (ROADMAP names the fix),
-    at construction and in the sharded decode step."""
-    cfg = dataclasses.replace(torch_tiny().gpt, kv_int8=True, ragged_decode=True)
-    params = tw.tree_to_torch(_params(), "cpu")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tcore.DecodeEngine(params, cfg, num_slots=2, device="cpu", mesh=_mesh(2))
-    state = tmesh.shard_decode_state(
-        tloop.init_decode_state(cfg, 2, device="cpu"), _mesh(2))
-    with pytest.raises(ValueError, match="K4"):
-        tloop.decode_steps(tmesh.shard_gpt_params(params, _mesh(2)), cfg, state)
+# ------------------------------------------- K4 under tensor parallelism
+def _k4_inputs(seed, s=3, h=4, d=64, t=2 * 256):
+    """Inputs of K4's plain version at H heads: q [S, H, D] and new rows
+    [S, H*D] in bf16 (the int8 path's activations), an int8 cache with f32
+    scales of one layer, write positions on both sides of a split edge."""
+    rng = np.random.default_rng(seed)
+    q, kn, vn = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        torch.bfloat16) for shape in ((s, h, d), (s, h * d), (s, h * d)))
+    k_f, v_f = (rng.standard_normal((1, s, t, h * d)).astype(np.float32) for _ in range(2))
+    ks, vs = (np.maximum(np.abs(a).max(-1), 1e-8).astype(np.float32) / np.float32(127.0)
+              for a in (k_f, v_f))
+    caches = [torch.from_numpy(a) for a in (np.round(k_f / ks[..., None]).astype(np.int8),
+                                            np.round(v_f / vs[..., None]).astype(np.int8),
+                                            ks, vs)]
+    wp = torch.tensor([0, 127, 300][:s], dtype=torch.int32)
+    return q, kn, vn, caches, wp
 
 
-def test_data_axes_raise_not_implemented():
-    """The data and dcn axes of a decode state are the module's remaining
-    work: a mesh with data or dcn shards raises and names ROADMAP."""
-    cfg = torch_tiny().gpt
-    state = tloop.init_decode_state(cfg, 4, device="cpu")
-    params = tw.tree_to_torch(_params(), "cpu")
-    for mesh in (tmesh.make_mesh([CPU] * 4, data=2, model=2),
-                 tmesh.make_mesh([CPU] * 4, dcn_data=2, data=1, model=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmesh.shard_decode_state(state, mesh)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmesh.shard_gpt_params(params, mesh)
-    assert tmesh.make_mesh([CPU] * 8, dcn_data=2, data=2, model=2).axis_names == (
-        "dcn", "data", "model")
+@pytest.mark.parametrize("tp", [2, 4])
+def test_k4_plain_with_row_scales_on_shard_lanes(tp):
+    """K4's plain version on one model shard's heads with the whole row's
+    scales given (`row_scales`, as the sharded decode step passes them)
+    against the unsharded plain version: every shard's int8 lanes, its copy
+    of the scales and its ctx heads bit-equal to the unsharded ones."""
+    from auralis_tpu_torch.ops.experimental.attention import ragged_decode_plain
+    from auralis_tpu_torch.ops.quant import quantize_rows
+
+    q, kn, vn, caches, wp = _k4_inputs(7)
+    h, d = q.shape[1:]
+    whole = [c.clone() for c in caches]
+    ctx = ragged_decode_plain(q, kn, vn, 0.125, 0, wp, *whole)
+    row_scales = (quantize_rows(kn)[1], quantize_rows(vn)[1])
+    w = h * d // tp
+    for r in range(tp):
+        lanes = slice(r * w, (r + 1) * w)
+        mine = [caches[0][..., lanes].clone(), caches[1][..., lanes].clone(),
+                caches[2].clone(), caches[3].clone()]
+        got = ragged_decode_plain(q[:, r * h // tp:(r + 1) * h // tp], kn[:, lanes], vn[:, lanes],
+                                  0.125, 0, wp, *mine, row_scales=row_scales)
+        assert torch.equal(got, ctx[:, lanes])
+        assert torch.equal(mine[0], whole[0][..., lanes])
+        assert torch.equal(mine[1], whole[1][..., lanes])
+        assert torch.equal(mine[2], whole[2]) and torch.equal(mine[3], whole[3])
+
+
+def test_k4_plain_without_row_scales_unchanged():
+    """Without `row_scales` K4's plain version quantises each row over its
+    own lanes, as before: its caches and scales equal the Pallas kernel's
+    in interpret mode, and passing the rows' own scales changes no bit."""
+    from test_torch_int8 import _jax_ragged_blocking
+
+    from auralis_tpu_torch.ops.experimental.attention import ragged_decode_plain
+    from auralis_tpu_torch.ops.quant import quantize_rows
+
+    q, kn, vn, caches, wp = _k4_inputs(8)
+    base = [c.clone() for c in caches]
+    ctx = ragged_decode_plain(q, kn, vn, 0.125, 0, wp, *base)
+    given = [c.clone() for c in caches]
+    ctx_given = ragged_decode_plain(q, kn, vn, 0.125, 0, wp, *given,
+                                    row_scales=(quantize_rows(kn)[1], quantize_rows(vn)[1]))
+    assert torch.equal(ctx, ctx_given)
+    assert all(torch.equal(a, b) for a, b in zip(base, given))
+    _, *want = _jax_ragged_blocking(q.float().numpy(), kn.float().numpy(), vn.float().numpy(),
+                                    0.125, 0, wp.numpy(), [c.numpy() for c in caches])
+    for got, w in zip(base, want):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(w))
+
+
+def _jax_ragged_run(jcfg, jparams, tp, prompt, n_steps):
+    """JAX's greedy int8 ragged run (its Pallas kernel in interpret mode):
+    an insert into slot 1 of 4 and n_steps decode steps, unsharded or on
+    a (1, tp) mesh of the virtual CPU devices."""
+    state = jloop.init_decode_state(jcfg, 4, jax.random.PRNGKey(1), dtype=jnp.float32)
+    if tp:
+        jm = jmesh.make_mesh(data=1, model=tp)
+        jparams = jmesh.shard_gpt_params(jparams, jm)
+        state = jmesh.shard_decode_state(state, jm)
+    state = jloop.insert_sequence(
+        jparams, jcfg, state, jnp.asarray(prompt), jnp.int32(prompt.shape[0]), jnp.int32(1),
+        jnp.float32(1.0), jnp.float32(1.0), jnp.int32(0), jnp.float32(1.0), jnp.bool_(False))
+    return jloop.harvest(jloop.decode_steps(jparams, jcfg, state, n_steps=n_steps), 1)[0]
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_ragged_int8_under_tp(tp):
+    """kv_int8 + ragged_decode (K4, plain version) on a model mesh against
+    the unsharded ragged run, 4 greedy decode steps: layer 0's int8 rows and
+    every shard's copy of its scales bit-equal (the prompt's and each
+    appended step's: layer 0 reads the same embeddings on both sides);
+    deeper layers see hidden states summed in another order, so their
+    scales agree to rtol 1e-5 and their int8 lanes to one step. Greedy
+    tokens equal the unsharded run's and JAX's, unsharded and on its (1,
+    tp) mesh (its Pallas kernel in interpret mode)."""
+    flags = dict(kv_int8=True, ragged_decode=True)
+    cfg = dataclasses.replace(torch_tiny().gpt, **flags)
+    jcfg = dataclasses.replace(jax_tiny().gpt, **flags)
+    p = _params(2)
+    params = tw.tree_to_torch(p, "cpu")
+    prompt = _prompt(cfg, 14, 2)
+    one = _torch_run(params, cfg, None, [prompt], 4)
+    sharded = _torch_run(params, cfg, _mesh(tp), [prompt], 4)
+    rows = _rows(sharded.cache)
+    live = 14 + 4  # the prompt's rows and the 4 appended ones
+    assert torch.equal(rows[0, :, :live], one.cache.k[0, :, :live])
+    for c in sharded.cache.shards:
+        assert torch.equal(c.k_scale[0], one.cache.k_scale[0])
+        assert torch.equal(c.v_scale[0], one.cache.v_scale[0])
+        torch.testing.assert_close(c.k_scale, one.cache.k_scale, rtol=1e-5, atol=0)
+        torch.testing.assert_close(c.v_scale, one.cache.v_scale, rtol=1e-5, atol=0)
+    assert (rows.int() - one.cache.k.int()).abs().max() <= 1
+    tokens, _ = tloop.harvest(one, 1)
+    np.testing.assert_array_equal(tloop.harvest(sharded, 1)[0], tokens)
+    jparams = jax.tree.map(jnp.asarray, p)
+    for jtp in (None, tp):
+        np.testing.assert_array_equal(tokens, np.asarray(_jax_ragged_run(jcfg, jparams, jtp,
+                                                                         prompt, 4)))
+
+
+def test_runner_ragged_int8_on_a_mesh():
+    """DecodeEngine(mesh=) with kv_int8 + ragged_decode serves greedy chunks
+    (burst inserts, pipelined blocks) with the unsharded runner's tokens."""
+    cfg = dataclasses.replace(torch_tiny().gpt, kv_int8=True, ragged_decode=True,
+                              prefill_flash=True)
+    params = tw.tree_to_torch(_params(4), "cpu")
+    rng = np.random.default_rng(4)
+    prompts = [tcore.TokenPrompt(
+        cond=torch.from_numpy(0.3 * rng.standard_normal((4, cfg.hidden_size)).astype(np.float32)),
+        ids=rng.integers(5, 60, 6 + i).astype(np.int32)) for i in range(5)]
+    opts = tcore.SamplingOptions(do_sample=False, max_new_tokens=10)
+
+    async def serve(mesh):
+        engine = tcore.DecodeEngine(params, cfg, num_slots=4, device="cpu", mesh=mesh)
+        out = await asyncio.gather(*(engine.generate(p, opts) for p in prompts))
+        await engine.shutdown()
+        return out
+
+    want = asyncio.run(serve(None))
+    got = asyncio.run(serve(_mesh(2)))
+    for (gt, _, gn), (wt, _, wn) in zip(got, want):
+        assert gn == wn == 10
+        np.testing.assert_array_equal(gt, wt)
+
+
+def test_tensor_parallel_int8_ragged_serving(tmp_path):
+    """XTTSv2Engine(tensor_parallel_size=2, kv_int8=True) with ragged_decode
+    in its config serves a request through the facade (finite audio)."""
+    cfg = torch_tiny()
+    cfg.gpt = dataclasses.replace(cfg.gpt, ragged_decode=True, prefill_flash=True)
+    eng = XTTSv2Engine.random_init(cfg, tokenizer=TTSTokenizer(build_tiny_tokenizer().tokenizer),
+                                   seed=0, max_concurrency=2, device="cpu",
+                                   tensor_parallel_size=2, kv_int8=True)
+    g = eng.gpt_config
+    assert g.kv_int8 and g.ragged_decode and eng.decode_engine.state.cache.quantized
+    tts = TTS(scheduler_max_concurrency=2).with_engine(eng)
+    try:
+        out = tts.generate_speech(TTSRequest(
+            text="Ragged int8 under tensor parallelism.",
+            speaker_files=[sine_wav(tmp_path / "s.wav")], language="en", max_new_tokens=24))
+        arr = np.asarray(out.array)
+        assert arr.size > 500 and np.isfinite(arr).all()
+    finally:
+        tts.loop.run_until_complete(tts.shutdown())
+
+
+def test_default_mesh_needs_a_gpu(monkeypatch):
+    """With no CUDA device visible, make_mesh() without devices raises
+    instead of building a CPU mesh; named CPU devices still make one."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmesh.make_mesh(model=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmesh.default_devices()
+    assert tmesh.make_mesh([CPU, CPU], data=2).shape == {"data": 2, "model": 1}
 
 
 def test_specs_match_jax():
