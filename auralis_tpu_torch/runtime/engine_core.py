@@ -351,6 +351,18 @@ class DecodeEngine:
     def num_active(self) -> int:
         return len(self._slot_owner)
 
+    def idle_rows(self) -> int:
+        """KV rows still held by slots that are not decoding: a finished
+        slot keeps its length until it is refilled, and a decode step
+        attends over every stepped slot's rows up to its length, so a
+        request's step time depends on what ran before it."""
+        st = self.state
+        if isinstance(st, DataShardedState):
+            lens, active = st.field("seq_lens"), st.field("active")
+        else:
+            lens, active = st.seq_lens, st.active
+        return int((lens * ~active).sum())
+
     def reset_stats(self) -> None:
         """Zero the runner telemetry in place (after a warm-up, so build and
         first-call costs stay out of a timed region)."""

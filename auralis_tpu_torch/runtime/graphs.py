@@ -56,11 +56,15 @@ _CAPTURE_LOCK = threading.Lock()
 # the kind being a key's leading name ("insert", "burst", "migrate", "row",
 # "cond", ...) or "decode" for the decode blocks' (n_steps, ...) keys
 counts = {"captures": 0, "capture_s": 0.0, "instantiate_s": 0.0, "replays": 0}
+# the key of every program captured, in capture order (process-wide, as
+# `counts`): what a measurement names when something was captured inside it
+captured_keys: list = []
 
 
 def reset_counts() -> None:
     for k in list(counts):
         counts[k] = 0 if isinstance(counts[k], int) else 0.0
+    captured_keys.clear()
 
 
 def kind_of(key) -> str:
@@ -137,10 +141,10 @@ class Program:
     result is fn's output (a tensor or a tuple of them); after a replay it
     is the graph's static output, valid until the next call."""
 
-    def __init__(self, fn: Callable, inputs: dict, pool, generators: tuple,
-                 kind: str = "decode"):
+    def __init__(self, fn: Callable, inputs: dict, pool, generators: tuple, key):
         self.fn = fn
-        self.kind = kind
+        self.key = key
+        self.kind = kind_of(key)
         self.inputs = inputs  # static input tensors, staged by the caller
         self.lock = threading.Lock()
         self.launches: dict = {}  # kernel wrapper -> launches per replay
@@ -175,6 +179,7 @@ class Program:
         self.launches = tally
         self._graph = graph
         counts["captures"] += 1
+        captured_keys.append(self.key)
         _tally(self.kind, "captures")
 
 
@@ -202,7 +207,7 @@ class ProgramCache:
             if prog is None:
                 fn, inputs = build()
                 prog = self._programs[key] = Program(fn, inputs, self.pool, self.generators,
-                                                     kind_of(key))
+                                                     key)
             return prog
 
     def keys(self) -> list:

@@ -24,6 +24,8 @@ Phases:
     a decode step reads them: `ms`) and hot (one layer, in L2: `ms_hot`),
     then on a slot-bounded step (the first 2 and 4 slots of the 8-slot
     cache: bit-equal to the full-width step's rows, slots beyond untouched);
+    then the same checks and times at bench_torch's 64 slots (a [30, 64,
+    1280, 1024] cache: a mixed write-position set and all slots at 1046);
     K5 the same over 30 layers' MLP weights in the serving layout, beside
     the serving chain's cold time (`serving_chain_ms`), with two launches
     bit-equal and its fc -> proj overlap kept in a CUDA graph (the
@@ -161,7 +163,16 @@ Phases:
     counts and seen rows bit-equal to the reference's; two migrate_slot
     from data shard 1 to 0, each destination bit-equal to its source;
     decode blocks and migrations replay as graphs, and the path's kernels
-    launch (counts printed).
+    launch (counts printed);
+ 8. bench_torch at reduced depth: bench_torch.py's section functions on a
+    fresh bf16 engine at its settings (64 slots, 64-step blocks): the cold
+    request and the warmup (precompile_decode_programs, a batch of 2
+    requests, precompile_vocoder_buckets), then the RTF section (2
+    requests x 2 chunks, one run), TTFA (8 streams), the short phrase (3
+    reps) and the server load (8 requests, uncapped and capped); each
+    section's JSON line and its captures_in_timed are printed. Any failed
+    request fails the phase; K1, K2 and K3 must launch, programs (inserts
+    among them) replay, and every key of bench.py's result line be a number.
 
 Each phase's header gives the seconds since the start. Any failure exits
 non-zero. The kernels' launch counts include the launches of replayed
@@ -279,6 +290,7 @@ from decode_bench import (
     HEADS,
     HOT_LAYER,
     LAYERS,
+    SLOTS,
     T_MAX,
     WRITE_POS_SETS,
     cold_hot_ms,
@@ -702,63 +714,80 @@ def check_slot_slices(tag: str, kernel, plain, caches, ref_caches, rtol: float, 
     return rows
 
 
+# bench_torch's decode slot count (bench.py's BENCH_DECODE_SLOTS default):
+# K2 and K4 are also checked and timed at the width the benchmark steps
+# them, on a [30, 64, 1280, 1024] cache. Its write positions: the 8-slot
+# ragged mix and split edges, then 48 spread over 0-1046 without a period,
+# and every slot at the longest row.
+BENCH_SLOTS = 64
+WRITE_POS_64 = {
+    f"S={BENCH_SLOTS} mixed": (WRITE_POS_SETS["ragged"] + WRITE_POS_SETS["split edges"]
+                               + [(97 * i + 13 * i * i) % 1047 for i in range(48)]),
+    f"S={BENCH_SLOTS} all 1046": [1046] * BENCH_SLOTS,
+}
+
+
 def check_decode(dev, results) -> None:
     """K2 on a [30, 8, 1280, 1024] bf16 cache at every write-position set of
-    decode_bench.WRITE_POS_SETS. Both sides update their own copy of the
-    cache, which must stay bit-equal; ctx must be within its bounds, and two
-    launches on the same inputs must give the same bits. Timed cold (call i
-    on layer i % 30, `ms`) and hot (layer 17, `ms_hot`); the plain version
-    cold."""
-    q, kn, vn, kc, vc = k2_inputs(dev)
-    kc2, vc2 = kc.clone(), vc.clone()
-    s, row_b = q.shape[0], HEADS * HEAD_DIM * 2
+    decode_bench.WRITE_POS_SETS, and on a [30, 64, 1280, 1024] one at
+    WRITE_POS_64. Both sides update their own copy of the cache, which must
+    stay bit-equal; ctx must be within its bounds, and two launches on the
+    same inputs must give the same bits. Timed cold (call i on layer i % 30,
+    `ms`) and hot (layer 17, `ms_hot`); the plain version cold."""
     rows = {}
-    for name, wp_list in WRITE_POS_SETS.items():
-        wp = torch.tensor(wp_list, dtype=torch.int32, device=dev)
-        got = flash_decode_append_attention(q, kn, vn, kc, vc, HOT_LAYER, wp)
-        again = flash_decode_append_attention(q, kn, vn, kc, vc, HOT_LAYER, wp)
-        torch.cuda.synchronize()
-        want = flash_decode_plain(q, kn, vn, kc2, vc2, HOT_LAYER, wp)
-        if not (torch.equal(kc, kc2) and torch.equal(vc, vc2)):
-            raise AssertionError(f"K2 {name}: caches after the append differ from the plain "
-                                 f"index-put")
-        if not torch.equal(got, again):
-            raise AssertionError(f"K2 {name}: two launches on the same inputs differ")
-        err = (got.float() - want.float()).abs().max().item()
-        # ctx is bf16, the f32 result rounded once. Summation order may flip
-        # that rounding: one bf16 step, at most 2^-7 of |ctx|, plus 1e-5 for
-        # f32 noise on entries near zero. Flips are rare (2 of these 8192
-        # entries on an H100), so at most 1% may differ at all; bf16
-        # probabilities change ~37% (off the card).
-        ratio, mismatch = elementwise(got, want, 2.0 ** -7, 1e-5)
-        if not (ratio <= 1.0 and mismatch <= 0.01):
-            raise AssertionError(f"K2 {name}: worst error/bound {ratio}, mismatch {mismatch}")
-        ms, ms_hot = cold_hot_ms(
-            lambda layer: flash_decode_append_attention(q, kn, vn, kc, vc, layer, wp))
-        rot = itertools.count()
-        plain_ms = time_ms(
-            lambda: flash_decode_plain(q, kn, vn, kc2, vc2, next(rot) % LAYERS, wp), LAYERS)
-        # bytes: the live K and V rows (write_pos + 1 per slot: the cached
-        # ones and the new one) read once, the new rows written once more
-        # into the cache, q read and the bf16 ctx written; operations: QK^T
-        # and PV over the live rows
-        live = int((wp + 1).sum())
-        bound_ms, bound_by = bound(2 * live * row_b + s * row_b * (2 + 1 + 1),
-                                   4 * live * HEADS * HEAD_DIM, "bf16")
-        rows[name] = {"write_pos": wp_list, "max_abs_err": err, "ms": ms, "ms_hot": ms_hot,
-                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-        say(f"  K2 decode S={s} T={T_MAX} {name} write_pos={wp_list}: max_abs_err={err:.3e}, "
-            f"worst |err|/bound {ratio:.3f} (bound 2^-7|ref| + 1e-5 per entry), mismatch "
-            f"{mismatch:.4%} (bound 1%), repeat bit-equal; kernel cold {ms:.4f} ms, hot "
-            f"{ms_hot:.4f} ms, plain cold {plain_ms:.4f} ms per layer, bound {bound_ms:.5f} ms "
-            f"({bound_by}, {live} live rows; {bound_ms / ms:.1%} of cold)")
-    rows.update(check_slot_slices(
-        "K2",
-        lambda sb, wp: flash_decode_append_attention(q[:sb], kn[:sb], vn[:sb], kc, vc, HOT_LAYER,
-                                                     wp),
-        lambda sb, wp: flash_decode_plain(q[:sb], kn[:sb], vn[:sb], kc2, vc2, HOT_LAYER, wp),
-        (kc, vc), (kc2, vc2), 2.0 ** -7, 1e-5, dev))
-    del kc, vc, kc2, vc2
+    for slots, sets in ((SLOTS, WRITE_POS_SETS), (BENCH_SLOTS, WRITE_POS_64)):
+        q, kn, vn, kc, vc = k2_inputs(dev, slots=slots)
+        kc2, vc2 = kc.clone(), vc.clone()
+        s, row_b = q.shape[0], HEADS * HEAD_DIM * 2
+        for name, wp_list in sets.items():
+            wp = torch.tensor(wp_list, dtype=torch.int32, device=dev)
+            got = flash_decode_append_attention(q, kn, vn, kc, vc, HOT_LAYER, wp)
+            again = flash_decode_append_attention(q, kn, vn, kc, vc, HOT_LAYER, wp)
+            torch.cuda.synchronize()
+            want = flash_decode_plain(q, kn, vn, kc2, vc2, HOT_LAYER, wp)
+            if not (torch.equal(kc, kc2) and torch.equal(vc, vc2)):
+                raise AssertionError(f"K2 {name}: caches after the append differ from the plain "
+                                     f"index-put")
+            if not torch.equal(got, again):
+                raise AssertionError(f"K2 {name}: two launches on the same inputs differ")
+            err = (got.float() - want.float()).abs().max().item()
+            # ctx is bf16, the f32 result rounded once. Summation order may
+            # flip that rounding: one bf16 step, at most 2^-7 of |ctx|, plus
+            # 1e-5 for f32 noise on entries near zero. Flips are rare (2 of
+            # these 8192 entries on an H100), so at most 1% may differ at
+            # all; bf16 probabilities change ~37% (off the card).
+            ratio, mismatch = elementwise(got, want, 2.0 ** -7, 1e-5)
+            if not (ratio <= 1.0 and mismatch <= 0.01):
+                raise AssertionError(f"K2 {name}: worst error/bound {ratio}, mismatch {mismatch}")
+            ms, ms_hot = cold_hot_ms(
+                lambda layer: flash_decode_append_attention(q, kn, vn, kc, vc, layer, wp))
+            rot = itertools.count()
+            plain_ms = time_ms(
+                lambda: flash_decode_plain(q, kn, vn, kc2, vc2, next(rot) % LAYERS, wp), LAYERS)
+            # bytes: the live K and V rows (write_pos + 1 per slot: the
+            # cached ones and the new one) read once, the new rows written
+            # once more into the cache, q read and the bf16 ctx written;
+            # operations: QK^T and PV over the live rows
+            live = int((wp + 1).sum())
+            bound_ms, bound_by = bound(2 * live * row_b + s * row_b * (2 + 1 + 1),
+                                       4 * live * HEADS * HEAD_DIM, "bf16")
+            rows[name] = {"write_pos": wp_list, "max_abs_err": err, "ms": ms, "ms_hot": ms_hot,
+                          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            say(f"  K2 decode S={s} T={T_MAX} {name} write_pos={wp_list}: max_abs_err={err:.3e}, "
+                f"worst |err|/bound {ratio:.3f} (bound 2^-7|ref| + 1e-5 per entry), mismatch "
+                f"{mismatch:.4%} (bound 1%), repeat bit-equal; kernel cold {ms:.4f} ms, hot "
+                f"{ms_hot:.4f} ms, plain cold {plain_ms:.4f} ms per layer, bound {bound_ms:.5f} "
+                f"ms ({bound_by}, {live} live rows; {bound_ms / ms:.1%} of cold)")
+        if slots == SLOTS:
+            rows.update(check_slot_slices(
+                "K2",
+                lambda sb, wp: flash_decode_append_attention(q[:sb], kn[:sb], vn[:sb], kc, vc,
+                                                             HOT_LAYER, wp),
+                lambda sb, wp: flash_decode_plain(q[:sb], kn[:sb], vn[:sb], kc2, vc2, HOT_LAYER,
+                                                  wp),
+                (kc, vc), (kc2, vc2), 2.0 ** -7, 1e-5, dev))
+        del q, kn, vn, kc, vc, kc2, vc2
+        torch.cuda.empty_cache()
     main = rows["ragged"]
     results["flash_decode_append"] = {
         **{k: v for k, v in main.items() if k != "write_pos"}, "library_ms": None,
@@ -908,64 +937,70 @@ def check_mrf(dev, results) -> None:
 
 def check_ragged(dev, results) -> None:
     """K4 on a [30, 8, 1280, 1024] int8 cache with f32 scale rows at every
-    write-position set of decode_bench.WRITE_POS_SETS. Both sides update
-    their own copy of the caches and scales, which must stay bit-equal; ctx
-    must be within its bound, and two launches on the same inputs must give
-    the same bits. Timed as K2."""
-    q, kn, vn, mine = k4_inputs(dev)
-    ref = tuple(x.clone() for x in mine)
-    s, row = q.shape[0], HEADS * HEAD_DIM
+    write-position set of decode_bench.WRITE_POS_SETS, and on a [30, 64,
+    1280, 1024] one at WRITE_POS_64. Both sides update their own copy of
+    the caches and scales, which must stay bit-equal; ctx must be within its
+    bound, and two launches on the same inputs must give the same bits.
+    Timed as K2."""
     rows = {}
-    for name, wp_list in WRITE_POS_SETS.items():
-        wp = torch.tensor(wp_list, dtype=torch.int32, device=dev)
-        got = ragged_decode_attention(q, kn, vn, 0.125, HOT_LAYER, wp, *mine)
-        again = ragged_decode_attention(q, kn, vn, 0.125, HOT_LAYER, wp, *mine)
-        torch.cuda.synchronize()
-        want = ragged_decode_plain(q, kn, vn, 0.125, HOT_LAYER, wp, *ref)
-        for what, a, b in zip(("k_cache", "v_cache", "k_scale", "v_scale"), mine, ref):
-            if not torch.equal(a, b):
-                raise AssertionError(f"K4 {name}: {what} after the append differs from the "
-                                     f"plain version")
-        if not torch.equal(got, again):
-            raise AssertionError(f"K4 {name}: two launches on the same inputs differ")
-        err = (got - want).abs().max().item()
-        # ctx is f32 on both sides, from the same int8 rows and scales: the
-        # scores are exact integers, so only expf and the order of the f32
-        # sums differ. On the CPU the plain version in f32 against an f64
-        # evaluation reaches 0.24 of this bound (1.2e-6 at |ctx| up to 3.2).
-        # One wrong key, scale or mask row among ~1,000 live keys moves ctx
-        # by ~1e-3, far past it.
-        ratio, mismatch = elementwise(got, want, 1e-5, 1e-6)
-        if not ratio <= 1.0:
-            raise AssertionError(f"K4 {name}: worst error/bound {ratio}")
-        ms, ms_hot = cold_hot_ms(
-            lambda layer: ragged_decode_attention(q, kn, vn, 0.125, layer, wp, *mine))
-        rot = itertools.count()
-        plain_ms = time_ms(
-            lambda: ragged_decode_plain(q, kn, vn, 0.125, next(rot) % LAYERS, wp, *ref), LAYERS)
-        # bytes: the cached int8 K and V rows and their f32 scales read once,
-        # q and the new bf16 rows read, the appended int8 rows and scales and
-        # the f32 ctx written; operations: QK^T and PV over the live rows, at
-        # the int8 rate (the lower bound: PV runs in f32)
-        live = int((wp + 1).sum())
-        nbytes = (2 * (live - s) * (row + 4) + s * row * 2 + 2 * s * row * 2
-                  + 2 * s * (row + 4) + s * row * 4)
-        bound_ms, bound_by = bound(nbytes, 4 * live * row, "int8")
-        rows[name] = {"write_pos": wp_list, "max_abs_err": err, "ms": ms, "ms_hot": ms_hot,
-                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-        say(f"  K4 ragged int8 S={s} T={T_MAX} {name} write_pos={wp_list}: caches and scales "
-            f"bit-equal; ctx max_abs_err={err:.3e}, worst |err|/bound {ratio:.3f} (bound "
-            f"1e-5|ref| + 1e-6 per entry), differing {mismatch:.4%}, repeat bit-equal; kernel "
-            f"cold {ms:.4f} ms, hot {ms_hot:.4f} ms, plain cold {plain_ms:.4f} ms per layer, "
-            f"bound {bound_ms:.5f} ms ({bound_by}, {live} live rows; {bound_ms / ms:.1%} of "
-            f"cold)")
-    rows.update(check_slot_slices(
-        "K4",
-        lambda sb, wp: ragged_decode_attention(q[:sb], kn[:sb], vn[:sb], 0.125, HOT_LAYER, wp,
-                                               *mine),
-        lambda sb, wp: ragged_decode_plain(q[:sb], kn[:sb], vn[:sb], 0.125, HOT_LAYER, wp, *ref),
-        mine, ref, 1e-5, 1e-6, dev))
-    del mine, ref
+    for slots, sets in ((SLOTS, WRITE_POS_SETS), (BENCH_SLOTS, WRITE_POS_64)):
+        q, kn, vn, mine = k4_inputs(dev, slots=slots)
+        ref = tuple(x.clone() for x in mine)
+        s, row = q.shape[0], HEADS * HEAD_DIM
+        for name, wp_list in sets.items():
+            wp = torch.tensor(wp_list, dtype=torch.int32, device=dev)
+            got = ragged_decode_attention(q, kn, vn, 0.125, HOT_LAYER, wp, *mine)
+            again = ragged_decode_attention(q, kn, vn, 0.125, HOT_LAYER, wp, *mine)
+            torch.cuda.synchronize()
+            want = ragged_decode_plain(q, kn, vn, 0.125, HOT_LAYER, wp, *ref)
+            for what, a, b in zip(("k_cache", "v_cache", "k_scale", "v_scale"), mine, ref):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K4 {name}: {what} after the append differs from the "
+                                         f"plain version")
+            if not torch.equal(got, again):
+                raise AssertionError(f"K4 {name}: two launches on the same inputs differ")
+            err = (got - want).abs().max().item()
+            # ctx is f32 on both sides, from the same int8 rows and scales:
+            # the scores are exact integers, so only expf and the order of
+            # the f32 sums differ. On the CPU the plain version in f32
+            # against an f64 evaluation reaches 0.24 of this bound (1.2e-6
+            # at |ctx| up to 3.2). One wrong key, scale or mask row among
+            # ~1,000 live keys moves ctx by ~1e-3, far past it.
+            ratio, mismatch = elementwise(got, want, 1e-5, 1e-6)
+            if not ratio <= 1.0:
+                raise AssertionError(f"K4 {name}: worst error/bound {ratio}")
+            ms, ms_hot = cold_hot_ms(
+                lambda layer: ragged_decode_attention(q, kn, vn, 0.125, layer, wp, *mine))
+            rot = itertools.count()
+            plain_ms = time_ms(lambda: ragged_decode_plain(
+                q, kn, vn, 0.125, next(rot) % LAYERS, wp, *ref), LAYERS)
+            # bytes: the cached int8 K and V rows and their f32 scales read
+            # once, q and the new bf16 rows read, the appended int8 rows and
+            # scales and the f32 ctx written; operations: QK^T and PV over
+            # the live rows, at the int8 rate (the lower bound: PV runs in
+            # f32)
+            live = int((wp + 1).sum())
+            nbytes = (2 * (live - s) * (row + 4) + s * row * 2 + 2 * s * row * 2
+                      + 2 * s * (row + 4) + s * row * 4)
+            bound_ms, bound_by = bound(nbytes, 4 * live * row, "int8")
+            rows[name] = {"write_pos": wp_list, "max_abs_err": err, "ms": ms, "ms_hot": ms_hot,
+                          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            say(f"  K4 ragged int8 S={s} T={T_MAX} {name} write_pos={wp_list}: caches and "
+                f"scales bit-equal; ctx max_abs_err={err:.3e}, worst |err|/bound {ratio:.3f} "
+                f"(bound 1e-5|ref| + 1e-6 per entry), differing {mismatch:.4%}, repeat "
+                f"bit-equal; kernel cold {ms:.4f} ms, hot {ms_hot:.4f} ms, plain cold "
+                f"{plain_ms:.4f} ms per layer, bound {bound_ms:.5f} ms ({bound_by}, {live} live "
+                f"rows; {bound_ms / ms:.1%} of cold)")
+        if slots == SLOTS:
+            rows.update(check_slot_slices(
+                "K4",
+                lambda sb, wp: ragged_decode_attention(q[:sb], kn[:sb], vn[:sb], 0.125,
+                                                       HOT_LAYER, wp, *mine),
+                lambda sb, wp: ragged_decode_plain(q[:sb], kn[:sb], vn[:sb], 0.125, HOT_LAYER,
+                                                   wp, *ref),
+                mine, ref, 1e-5, 1e-6, dev))
+        del q, kn, vn, mine, ref
+        torch.cuda.empty_cache()
     main = rows["ragged"]
     results["ragged_decode"] = {
         **{k: v for k, v in main.items() if k != "write_pos"}, "library_ms": None,
@@ -3086,6 +3121,71 @@ def run_data_axes(dev, smi: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- bench_torch
+# phase 8's depth: bench_torch's sections at a small load
+BENCH_DEPTH = {"n_requests": 2, "chunks": 2, "streams": 8, "short_reps": 3,
+               "server_requests": 8}
+
+
+def run_bench_sections(dev, smi: str) -> dict:
+    """Phase 8: bench_torch.py's section functions at reduced depth on a
+    fresh bf16 engine built by bench_torch (its tokenizer and settings: 64
+    slots, 64-step blocks): its cold request and warmup, then the RTF,
+    TTFA, short-phrase and server-load sections. Every request must
+    succeed, K1, K2 and K3 must launch in the sections, programs (inserts
+    among them) must replay, and every key of bench.py's result line must be
+    a number. Returns the sections' launch counts."""
+    import bench_torch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    engine = bench_torch.build_engine("bf16", bench_torch.engine_settings(), device=dev)
+    torch.cuda.synchronize()
+    say(f"  engine: {engine.decode_slots} slots, {engine.decode_engine.steps_per_sync}-step "
+        f"blocks, bench_torch's bf16 config, built in {time.perf_counter() - t0:.1f} s")
+    tts = TTS(scheduler_max_concurrency=bench_torch.CONCURRENCY).with_engine(engine)
+    d = BENCH_DEPTH
+    with tempfile.TemporaryDirectory() as tmp:
+        speaker = bench_torch.write_speaker(os.path.join(tmp, "speaker.wav"))
+        warm = bench_torch.run_cold_and_warm(tts, speaker, chunks=d["chunks"])
+        say(f"  cold and warm: {json.dumps({**warm.metrics, **warm.book()})} ({smi})")
+        for w in KERNELS.values():
+            w["wrapper"].launches = 0
+        graphs.reset_counts()
+        sections = {
+            "rtf": bench_torch.run_rtf(tts, speaker, n_requests=d["n_requests"],
+                                       chunks=d["chunks"], reps=1),
+            "ttfa": bench_torch.run_ttfa(tts, speaker, streams=d["streams"]),
+            "short_phrase": bench_torch.run_short_phrase(tts, speaker, reps=d["short_reps"]),
+            "server": bench_torch.run_server_load(tts, n_requests=d["server_requests"]),
+        }
+        launches = {name: w["wrapper"].launches for name, w in KERNELS.items()}
+        counts = dict(graphs.counts)
+        tts.loop.run_until_complete(tts.shutdown())
+    result = {}
+    for name, sec in sections.items():
+        result.update(sec.metrics)
+        say(f"  [{name}] captures_in_timed {sec.captures_in_timed} {sec.captured_keys}; "
+            f"{json.dumps({**sec.metrics, **sec.book()})}")
+    say(f"  launches in the sections {launches}; graphs {graphs_text(counts)} ({smi})")
+    failed = sum(sec.failed for sec in (warm, *sections.values()))
+    if failed:
+        raise AssertionError(f"phase 8: {failed} requests failed")
+    missing = [k for k in bench_torch.RESULT_KEYS
+               if k not in ("metric", "unit", "skipped_sections")
+               and not isinstance(result.get(k), (int, float, list))]
+    if missing:
+        raise AssertionError(f"phase 8: no number for {missing}")
+    for name in BF16_PATH:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by phase 8's sections")
+    must_replay("phase 8's sections", counts)
+    must_replay_inserts("phase 8's sections", counts)
+    del tts, engine
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ------------------------------------------------------ checkpoint and server
 # A Coqui-style state from seeded numpy weights: the JAX-free inverse of the
 # loaders (a copy of tests/helpers.py's, which imports the JAX package;
@@ -3660,8 +3760,10 @@ def main() -> int:
     phase("[7d] the data and dcn axes of a decode state: DecodeEngines on data x model meshes "
           "of one card")
     data_axes = run_data_axes(dev, smi)
+    phase("[8] bench_torch at reduced depth: bench.py's four sections on a fresh bf16 engine")
+    bench = run_bench_sections(dev, smi)
     for name in KERNELS:
-        launches[name] += replicas[name] + tensor[name] + data_axes[name]
+        launches[name] += replicas[name] + tensor[name] + data_axes[name] + bench[name]
 
     # launches per main-path unit: one K1 per GPT layer per prompt insert,
     # one K2/K4 (and K5 on its path) per layer per decode step, one K3 per

@@ -86,35 +86,35 @@ def cold_hot_ms(call) -> tuple[float, float]:
     return cold, time_ms(lambda: call(HOT_LAYER), HOT_CALLS)
 
 
-def k2_inputs(dev, seed: int = 2):
-    """q [8, 16, 64], k_new/v_new [8, 1024] and K/V caches [30, 8, 1280,
-    1024], bf16 standard normal."""
+def k2_inputs(dev, seed: int = 2, slots: int = SLOTS):
+    """q [slots, 16, 64], k_new/v_new [slots, 1024] and K/V caches [30,
+    slots, 1280, 1024], bf16 standard normal (slots 8 by default)."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(seed)
-    shape = (LAYERS, SLOTS, T_MAX, HEADS * HEAD_DIM)
+    shape = (LAYERS, slots, T_MAX, HEADS * HEAD_DIM)
     kc = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
     vc = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
-    q = torch.randn((SLOTS, HEADS, HEAD_DIM), generator=gen, device=dev).to(torch.bfloat16)
-    kn = torch.randn((SLOTS, HEADS * HEAD_DIM), generator=gen, device=dev).to(torch.bfloat16)
-    vn = torch.randn((SLOTS, HEADS * HEAD_DIM), generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((slots, HEADS, HEAD_DIM), generator=gen, device=dev).to(torch.bfloat16)
+    kn = torch.randn((slots, HEADS * HEAD_DIM), generator=gen, device=dev).to(torch.bfloat16)
+    vn = torch.randn((slots, HEADS * HEAD_DIM), generator=gen, device=dev).to(torch.bfloat16)
     return q, kn, vn, kc, vc
 
 
-def k4_inputs(dev, seed: int = 4):
-    """q [8, 16, 64] and k_new/v_new [8, 1024] bf16; int8 K/V caches [30, 8,
-    1280, 1024] and f32 scale rows [30, 8, 1280] at the size randn rows of
-    1024 lanes give (max|x| / 127)."""
+def k4_inputs(dev, seed: int = 4, slots: int = SLOTS):
+    """q [slots, 16, 64] and k_new/v_new [slots, 1024] bf16; int8 K/V caches
+    [30, slots, 1280, 1024] and f32 scale rows [30, slots, 1280] at the size
+    randn rows of 1024 lanes give (max|x| / 127); slots 8 by default."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(seed)
-    shape = (LAYERS, SLOTS, T_MAX, HEADS * HEAD_DIM)
+    shape = (LAYERS, slots, T_MAX, HEADS * HEAD_DIM)
     kc, vc = (torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
               for _ in range(2))
     ks, vs = (0.02 + 0.01 * torch.rand(shape[:3], generator=gen, device=dev) for _ in range(2))
-    q = torch.randn((SLOTS, HEADS, HEAD_DIM), generator=gen, device=dev).to(torch.bfloat16)
-    kn = torch.randn((SLOTS, HEADS * HEAD_DIM), generator=gen, device=dev).to(torch.bfloat16)
-    vn = torch.randn((SLOTS, HEADS * HEAD_DIM), generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((slots, HEADS, HEAD_DIM), generator=gen, device=dev).to(torch.bfloat16)
+    kn = torch.randn((slots, HEADS * HEAD_DIM), generator=gen, device=dev).to(torch.bfloat16)
+    vn = torch.randn((slots, HEADS * HEAD_DIM), generator=gen, device=dev).to(torch.bfloat16)
     return q, kn, vn, (kc, vc, ks, vs)
 
 

@@ -348,6 +348,10 @@ def test_runner_on_a_data_mesh_matches_unsharded(mesh):
     assert isinstance(eng.state, tloop.DataShardedState)
     assert eng.stats["insert_batches"] > 0 and eng.stats["slot_bound_blocks"] > 0
     assert eng.num_active == 0 and not eng.state.field("active").any()
+    # every finished slot keeps its length: all of it is idle
+    for e in engines.values():
+        lens = e.state.field("seq_lens") if e is eng else e.state.seq_lens
+        assert e.idle_rows() == int(lens.sum()) > 0
 
 
 def _embeds(cfg, lengths, seed):

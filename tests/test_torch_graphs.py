@@ -210,6 +210,26 @@ def test_replays_add_the_captured_launch_counts(monkeypatch):
     assert cache.get("k", lambda: pytest.fail("built twice")) is prog
 
 
+def test_captures_record_their_keys(monkeypatch):
+    """Each capture appends its program's key to `captured_keys`, in
+    capture order, beside the kinds' tallies; replays add nothing, and
+    reset_counts() clears the list with the counts."""
+    monkeypatch.setattr(graphs, "CudaGraph", _RunningGraph)
+    monkeypatch.setattr(graphs, "captures_on", lambda device: True)
+    graphs.reset_counts()
+    cache = graphs.ProgramCache("cpu")
+    keys = [("row", 64, 2), (16, None, None), ("insert", 128)]
+    for key in keys + keys:
+        prog = cache.get(key, lambda: (lambda: torch.ones(1), {}))
+        with prog.lock:
+            prog()
+    assert graphs.captured_keys == keys
+    assert [graphs.counts[f"{k}.captures"] for k in ("row", "decode", "insert")] == [1, 1, 1]
+    assert graphs.counts["captures"] == 3 and graphs.counts["replays"] == 3
+    graphs.reset_counts()
+    assert graphs.captured_keys == [] and graphs.counts["captures"] == 0
+
+
 def test_a_failed_capture_raises(monkeypatch):
     """A capture that fails raises out of the call; nothing falls back."""
 
