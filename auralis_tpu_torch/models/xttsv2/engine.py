@@ -20,11 +20,14 @@ Counterpart of `XTTSv2Engine` in auralis_tpu/models/xttsv2/engine.py:
   launched speculatively right after the young block that makes it final
   (`_SpecFirstSeg`).
 
-The JAX engine arms int8 KV, W8A8, the per-program W8A8 policy and slot
-bucketing by default only on a TPU; on any other backend they are off
-unless passed, and so they are here until an H100 measurement sets them.
-`slot_bucketing=True` turns bucketing on; the policy the JAX engine would
-arm is `w8a8_policy()`, which a caller hands to `DecodeEngine`. The slot
+The serving defaults (`serving_defaults`) follow the JAX engine's
+accelerator branch, with a CUDA device where it tests for a TPU: on one
+card, without tensor parallelism, int8 KV, the per-program W8A8 policy (at
+the card's KV-to-weight crossover), int8 prefill weights and slot
+bucketing each default to the value an H100 A/B set (the *_CUDA constants
+below, PERF.md §5): each lost there to its bf16 or unbucketed counterpart,
+so each is off; on the CPU they stay off, as the JAX engine has them off a
+TPU. An explicit argument always wins. The slot
 count is fitted to the card's free memory after the weights, less what the
 captured programs of `TTS.warmup()` will reserve (`_fit_slots_to_hbm`,
 `_program_pool_bytes`). Options the port lacks are dropped with a warning.
@@ -116,6 +119,18 @@ VOCODER_LATENT_BUCKETS = (256, 384, 512, 640)
 # read is below this multiple of the bf16 weight bytes: the JAX engine's
 # crossover, fitted on a TPU v5e, not an H100 measurement
 W8A8_KV_TO_WEIGHT_CROSSOVER_TPU = 3
+# The serving defaults on one CUDA device without tensor parallelism, the
+# counterparts of the JAX engine's TPU defaults. Each was set on an H100 by
+# prod_step_torch.py's step matrix and bench_torch.py --config default's A/B
+# (PERF.md §5, "Serving defaults on the H100"): the dense int8 body, W8A8
+# decode and int8 prefill were slower than bf16 in every cell, and slot
+# bucketing cost e-book RTF by more than the spread of its calls. W8A8 won
+# at no KV-to-weight ratio, so the card's crossover is 0.
+KV_INT8_CUDA = False
+W8A8_AUTO_CUDA = False
+PREFILL_W8A8_CUDA = False
+SLOT_BUCKETING_CUDA = False
+W8A8_KV_TO_WEIGHT_CROSSOVER_CUDA = 0
 # headroom the slot fit leaves on the card for activations and the
 # allocator, as a share of its memory (the JAX engine's 8%)
 HBM_HEADROOM = 0.08
@@ -282,6 +297,67 @@ class _SpecFirstSeg:
         self.task = None
 
 
+@dataclasses.dataclass(frozen=True)
+class ServingDefaults:
+    """What `serving_defaults` resolves: the GPT config with kv_int8,
+    decode_w8a8 and prefill_w8a8 set, whether the per-program W8A8 policy is
+    armed and at which KV-to-weight crossover, and slot bucketing."""
+
+    gpt_config: XTTSGPTConfig
+    w8a8_auto: bool
+    crossover: float
+    slot_bucketing: bool
+
+
+def serving_defaults(device_type: str, tensor_parallel_size: int, gpt_config: XTTSGPTConfig,
+                     kv_int8: Optional[bool] = None, decode_w8a8: Optional[bool] = None,
+                     prefill_w8a8: Optional[bool] = None,
+                     slot_bucketing: Optional[bool] = None) -> ServingDefaults:
+    """The engine's serving configuration, in the JAX engine's order and by
+    its rules (auralis_tpu/models/xttsv2/engine.py:333-428, 526-536), with
+    `device_type == "cuda"` where JAX tests for a TPU backend and the *_CUDA
+    constants for the values it measured on a TPU:
+    - an explicit argument wins; `kv_int8` is resolved only without
+      flash_decode, and defaults off under tensor parallelism;
+    - the W8A8 policy arms only when `decode_w8a8` is unset, the config's
+      decode_w8a8 is off and neither flash_decode nor ragged_decode is on;
+    - `prefill_w8a8` arms only when `decode_w8a8 is not False`;
+    - under tensor parallelism the int8 weight flags are refused (warned);
+    - the caller's config is never mutated (a replaced copy comes back).
+    On the CPU every default is off, as JAX has them off a TPU."""
+    card = device_type == "cuda"
+    single = tensor_parallel_size == 1
+    if kv_int8 is None and not gpt_config.flash_decode:
+        kv_int8 = card and single and KV_INT8_CUDA
+    if kv_int8 is not None and kv_int8 != gpt_config.kv_int8:
+        gpt_config = dataclasses.replace(gpt_config, kv_int8=kv_int8)
+    if (decode_w8a8 or gpt_config.decode_w8a8) and not single:
+        logger.warning(
+            "decode_w8a8 is unsupported under tensor parallelism (int8 weights would "
+            "replicate per device and activation quantization forces per-layer "
+            "collectives); disabling.")
+        decode_w8a8 = False
+    w8a8_auto = (decode_w8a8 is None and not gpt_config.decode_w8a8 and card and single
+                 and W8A8_AUTO_CUDA and not gpt_config.flash_decode
+                 and not gpt_config.ragged_decode)
+    if decode_w8a8 is not None and decode_w8a8 != gpt_config.decode_w8a8:
+        gpt_config = dataclasses.replace(gpt_config, decode_w8a8=decode_w8a8)
+    if prefill_w8a8 is None and not gpt_config.prefill_w8a8:
+        prefill_w8a8 = card and single and PREFILL_W8A8_CUDA and decode_w8a8 is not False
+    if (prefill_w8a8 or gpt_config.prefill_w8a8) and not single:
+        logger.warning(
+            "prefill_w8a8 is unsupported under tensor parallelism (int8 weights would "
+            "replicate per device and activation quantization forces per-layer "
+            "collectives); disabling.")
+        prefill_w8a8 = False
+    if prefill_w8a8 is not None and prefill_w8a8 != gpt_config.prefill_w8a8:
+        gpt_config = dataclasses.replace(gpt_config, prefill_w8a8=prefill_w8a8)
+    if slot_bucketing is None:
+        slot_bucketing = card and SLOT_BUCKETING_CUDA
+    crossover = W8A8_KV_TO_WEIGHT_CROSSOVER_CUDA if card else W8A8_KV_TO_WEIGHT_CROSSOVER_TPU
+    return ServingDefaults(gpt_config, w8a8_auto, crossover, bool(slot_bucketing))
+
+
 class XTTSv2Engine(BaseAsyncTTSEngine):
     """Asynchronous XTTSv2 engine on the torch decode loop."""
 
@@ -310,6 +386,7 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         ref_length_quantum_s: float = 1.0,
         seg_first_batch1: bool = False,
         seed: int = 0,
+        serving: Optional[ServingDefaults] = None,
         **kwargs,
     ):
         # tensor parallelism: a (1, tp) mesh over the visible GPUs (or tp
@@ -327,22 +404,22 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
             devices = (None if on_card else [torch.device("cpu")] * tensor_parallel_size)
             self.mesh = make_mesh(devices, data=1, model=tensor_parallel_size)
             device = self.mesh.first_device
-            for name, flag in (("decode_w8a8", decode_w8a8), ("prefill_w8a8", prefill_w8a8)):
-                if flag or (flag is None and getattr(gpt_config, name)):
-                    logger.warning(
-                        "%s is unsupported under tensor parallelism (int8 weights would "
-                        "replicate per device and activation quantization forces per-layer "
-                        "collectives); disabling.", name)
-            decode_w8a8 = prefill_w8a8 = False
-        # the JAX engine's non-TPU defaults: kv_int8 off unless passed (it
-        # keeps the config's value only under flash_decode), the W8A8 flags
-        # as the config has them unless passed
-        if kv_int8 is None and not gpt_config.flash_decode:
-            kv_int8 = False
-        flags = {"kv_int8": kv_int8, "decode_w8a8": decode_w8a8, "prefill_w8a8": prefill_w8a8}
-        changed = {k: v for k, v in flags.items() if v is not None and v != getattr(gpt_config, k)}
-        if changed:  # never mutate the caller's config
-            gpt_config = dataclasses.replace(gpt_config, **changed)
+        # `serving`, another engine's resolved configuration (a replica's
+        # donor's), is taken as it is, flags and policy
+        resolved = serving or serving_defaults(
+            torch.device(device).type, tensor_parallel_size, gpt_config, kv_int8, decode_w8a8,
+            prefill_w8a8, slot_bucketing)
+        self.serving = resolved
+        gpt_config = resolved.gpt_config
+        # the per-program W8A8 policy, where the resolution arms it: the
+        # int8 decode weights run while a block's KV read is below the
+        # crossover times the block weights' bytes (w8a8_policy)
+        self._w8a8_auto = resolved.w8a8_auto
+        self.w8a8_crossover = resolved.crossover
+        if self._w8a8_auto:
+            logger.info("decode_w8a8 auto policy enabled (per-program int8 weights when KV "
+                        "bytes < %sx weight bytes; adds blocks_q8 to the params)",
+                        resolved.crossover)
         if kwargs:
             logger.warning("ignoring engine options the port does not have: %s", sorted(kwargs))
         if seg_first_batch1:
@@ -360,7 +437,8 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         if self.mesh is not None:
             params = {k: v for k, v in params.items() if k != "blocks_q8"}
             self.params = params
-        if (gpt_config.decode_w8a8 or gpt_config.prefill_w8a8) and "blocks_q8" not in params:
+        if ((gpt_config.decode_w8a8 or gpt_config.prefill_w8a8 or self._w8a8_auto)
+                and "blocks_q8" not in params):
             self.params = {**params, "blocks_q8": quantize_decode_weights(params["blocks"])}
         self.core = dict(core)
         if self.mesh is not None:
@@ -389,7 +467,8 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
             stream_block_steps += 1
         self.decode_engine = DecodeEngine(
             self.params, gpt_config, num_slots=self.decode_slots, cache_dtype=cache_dtype,
-            steps_per_sync=steps_per_sync, seed=seed, slot_bucketing=bool(slot_bucketing),
+            steps_per_sync=steps_per_sync, seed=seed, slot_bucketing=resolved.slot_bucketing,
+            w8a8_policy=self.w8a8_policy(self.w8a8_crossover) if self._w8a8_auto else None,
             stream_block_steps=stream_block_steps, device=self.device, mesh=self.mesh)
         hifigan = self.core["hifigan"]
         self._packed_stages = pack_hifigan_mrf(
@@ -600,14 +679,13 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
                     weights / 1024**3, self.decode_slots, slot / 1024**2, pools / 1024**3)
         return self.max_gb_for_model
 
-    def w8a8_policy(self):
-        """The per-program W8A8 policy the JAX engine arms on a TPU: a
-        function of (len_bound, slot_bound) that is True (run the int8
-        decode weights) while the block's KV read is below
-        W8A8_KV_TO_WEIGHT_CROSSOVER_TPU times the bytes of the block
-        weights. Off by default on the card (no H100 measurement has set
-        it): pass it to `DecodeEngine(w8a8_policy=...)` with `blocks_q8` in
-        the params."""
+    def w8a8_policy(self, crossover: float = W8A8_KV_TO_WEIGHT_CROSSOVER_TPU):
+        """The per-program W8A8 policy, the JAX engine's closure: a function
+        of (len_bound, slot_bound) that is True (run the int8 decode
+        weights) while the block's KV read is below `crossover` times the
+        bytes of the bf16 block weights. The engine arms it with its
+        `w8a8_crossover` where `serving_defaults` says so; the default
+        crossover is the JAX engine's, fitted on a TPU v5e."""
         g = self.gpt_config
         d, nl = g.hidden_size, g.num_hidden_layers
         kv_elem = 1 if g.kv_int8 else self.cache_dtype.itemsize
@@ -615,7 +693,7 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
 
         def policy(len_bound: int, slot_bound: int) -> bool:
             kv_bytes = slot_bound * len_bound * 2 * d * nl * kv_elem
-            return kv_bytes < W8A8_KV_TO_WEIGHT_CROSSOVER_TPU * w_bytes
+            return kv_bytes < crossover * w_bytes
 
         return policy
 

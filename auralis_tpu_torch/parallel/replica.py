@@ -92,10 +92,9 @@ class ReplicatedTTSEngine(BaseAsyncTTSEngine):
                     # equal the donor
                     cache_dtype=engine.cache_dtype,
                     vocoder_dtype=None,  # core was already cast by the donor
-                    kv_int8=engine.gpt_config.kv_int8,
-                    decode_w8a8=engine.gpt_config.decode_w8a8,
-                    prefill_w8a8=engine.gpt_config.prefill_w8a8,
-                    slot_bucketing=engine.decode_engine.slot_bucketing,
+                    # the donor's resolved flags, W8A8 policy and slot
+                    # bucketing as they are (blocks_q8 comes in the params)
+                    serving=engine.serving,
                     device=dev,
                 )
             )

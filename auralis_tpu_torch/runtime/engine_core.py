@@ -107,6 +107,14 @@ from .graphs import Program, ProgramCache, upload
 
 logger = setup_logger("engine")
 
+# The largest block (slot bound x length bound cells) whose W8A8 program
+# runs the dense int8 body's bf16-probabilities variant (decode_attn_fp):
+# the JAX runner's region, measured on a TPU, and the H100's, set by
+# prod_step_torch.py's step matrix (PERF.md §5, "Serving defaults on the
+# H100"), where the variant won in every cell up to 64 slots x 1280 rows
+ATTN_FP_MAX_CELLS_TPU = 16 * 256
+ATTN_FP_MAX_CELLS_CUDA = 64 * 1280
+
 
 @dataclass
 class TokenPrompt:
@@ -219,10 +227,12 @@ class DecodeEngine:
         self._w8a8_policy = w8a8_policy if "blocks_q8" in params else None
         self._cfg_w8a8 = (dataclasses.replace(cfg, decode_w8a8=True)
                           if self._w8a8_policy is not None else cfg)
+        self.device = torch.device(device)
         # the dense int8 body's bf16-probabilities variant for small blocks
-        # (at most this many slot x row cells), where the policy steers;
-        # the JAX runner's TPU-measured region, kept for parity
-        self._attn_fp_max_cells = 16 * 256
+        # (at most this many slot x row cells), where the policy steers: the
+        # H100's region on the card, the JAX runner's elsewhere
+        self._attn_fp_max_cells = (ATTN_FP_MAX_CELLS_CUDA if self.device.type == "cuda"
+                                   else ATTN_FP_MAX_CELLS_TPU)
         self._cfg_w8a8_fp = (dataclasses.replace(self._cfg_w8a8, decode_attn_fp=True)
                              if self._w8a8_policy is not None and cfg.kv_int8
                              else self._cfg_w8a8)
@@ -230,7 +240,6 @@ class DecodeEngine:
         self.steps_per_sync = steps_per_sync
         self.stream_block_steps = stream_block_steps or self.STREAM_BLOCK_STEPS
         self.slot_bucketing = slot_bucketing
-        self.device = torch.device(device)
         self.state: DecodeState = init_decode_state(
             cfg, num_slots, seed=seed, dtype=cache_dtype, device=self.device)
         # a graph captures one device's stream: a mesh over several cards

@@ -505,15 +505,15 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--slot_bucketing", action=argparse.BooleanOptionalAction, default=None,
         help="step only the lowest quarter/half of the decode slots at low "
-             "occupancy, with automatic slot compaction (default off on the "
-             "card until a measurement there sets it). --no-slot_bucketing opts out",
+             "occupancy, with automatic slot compaction (default off: on the H100 "
+             "it cost e-book RTF). --slot_bucketing opts in",
     )
     parser.add_argument(
         "--kv_int8", action=argparse.BooleanOptionalAction, default=None,
-        help="int8 KV cache (default off on the card until a measurement there "
-             "sets it; a config.json's kv_int8 takes effect only with this flag). "
-             "With ragged_decode in the GPT config, decode attention runs over "
-             "the ragged int8 rows",
+        help="int8 KV cache (default off: on the H100 the dense int8 body lost "
+             "to bf16 KV; a config.json's kv_int8 takes effect only with this "
+             "flag). With ragged_decode in the GPT config, decode attention runs "
+             "over the ragged int8 rows",
     )
     parser.add_argument(
         "--device", default=None,

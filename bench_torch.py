@@ -1,7 +1,7 @@
 """Benchmark of the PyTorch/CUDA port (auralis_tpu_torch) on one NVIDIA GPU:
 bench.py's four sections, with bench.py's traffic, on the port.
 
-    python3 bench_torch.py [--config bf16|int8]
+    python3 bench_torch.py [--config default|bf16|int8]
 
 Runs the complete public path (TTS facade -> scheduler -> conditioning ->
 continuous-batched decode -> vocoder, then the OpenAI-compatible server) at
@@ -12,10 +12,22 @@ weights never sample the stop token, so every chunk runs to the 605-token
 cap.
 
 Configurations (`--config`):
-- bf16 (default): `prefill_flash` + `flash_decode`, bf16 weights and KV
-  cache; kernels K1 (prefill attention), K2 (flash-decode append), K3 (MRF).
-- int8: `prefill_flash` + `ragged_decode`, with `kv_int8`, `decode_w8a8`,
-  `prefill_w8a8`; kernels K1, K4 (ragged int8 decode), K3.
+- default: `XTTSConfig()` with no kernel flag and every engine flag left to
+  the engine's own serving defaults (`serving_defaults`: on one card the
+  values an H100 A/B set for int8 KV, the per-program W8A8 policy, int8
+  prefill and slot bucketing), as bench.py builds its engine; the dense
+  decode bodies and the prompt's attention in plain PyTorch, kernel K3
+  (MRF) in the vocoder.
+- bf16: `prefill_flash` + `flash_decode`, bf16 weights and KV cache;
+  kernels K1 (prefill attention), K2 (flash-decode append), K3.
+- int8: `prefill_flash` + `ragged_decode`, with `kv_int8`, `decode_w8a8`
+  (on every decode program) and `prefill_w8a8`; kernels K1, K4 (ragged int8
+  decode), K3. Neither is the JAX package's TPU serving configuration: that
+  is bench.py's flagless engine (`default` here), which on a TPU ran the
+  dense int8 body, the W8A8 policy, int8 prefill and bucketing.
+bf16 and int8 pin every engine flag to what they ran when they were
+introduced: int8 prefill and the W8A8 policy off on bf16, slot bucketing
+off on both unless BENCH_SLOT_BUCKETING sets it.
 
 Sections, in bench.py's order and with its traffic:
 1. RTF: N_REQUESTS requests of SENTENCE * 2 * CHUNKS_PER_REQUEST at
@@ -53,8 +65,12 @@ the upstream README's claim on an RTX 3090, not a TPU figure.
 
 Environment, as bench.py reads it: BENCH_DECODE_SLOTS (64),
 BENCH_STEPS_PER_SYNC (64), BENCH_SLOT_BUCKETING (1/0; unset: the engine's
-default), BENCH_SERVER_CONCURRENCY (32), BENCH_SERVER_REQUESTS (32),
-BENCH_SKIP_SERVER=1, BENCH_BUDGET_S. bench.py's BENCH_PREFILL_FLASH and
+default, or off for bf16 and int8), BENCH_SERVER_CONCURRENCY (32),
+BENCH_SERVER_REQUESTS (32), BENCH_SKIP_SERVER=1, BENCH_BUDGET_S. The port
+adds BENCH_KV_INT8, BENCH_DECODE_W8A8 and BENCH_PREFILL_W8A8 (1/0; unset:
+the configuration's value, else the engine's default) for the defaults'
+A/Bs; BENCH_DECODE_W8A8=0 also disarms the W8A8 policy. The engine's
+resolved flags are in the result's `config.resolved`. bench.py's BENCH_PREFILL_FLASH and
 BENCH_SEG_FIRST_BATCH1 are not read: `--config` sets the kernel flags, and
 the port's engine ignores seg_first_batch1 (it pads no batch).
 
@@ -132,12 +148,26 @@ RESULT_KEYS = (
     "server_capped_p95_ms", "server_capped_audio_s_per_s", "skipped_sections",
 )
 
-# --config: (GPT config flags, engine flags)
+# --config: (GPT config flags, engine flags); an engine flag left out takes
+# the engine's default
 CONFIGS = {
-    "bf16": ({"prefill_flash": True, "flash_decode": True}, {}),
+    "default": ({}, {}),
+    "bf16": ({"prefill_flash": True, "flash_decode": True},
+             {"kv_int8": False, "decode_w8a8": False, "prefill_w8a8": False,
+              "slot_bucketing": False}),
     "int8": ({"prefill_flash": True, "ragged_decode": True},
-             {"kv_int8": True, "decode_w8a8": True, "prefill_w8a8": True}),
+             {"kv_int8": True, "decode_w8a8": True, "prefill_w8a8": True,
+              "slot_bucketing": False}),
 }
+# the kernels (chip_smoke's wrapper names) each configuration's path runs
+CONFIG_KERNELS = {
+    "default": ("mrf_stage",),
+    "bf16": ("prefill_attention", "flash_decode_append", "mrf_stage"),
+    "int8": ("prefill_attention", "ragged_decode", "mrf_stage"),
+}
+# the port's engine-flag overrides: environment variable -> engine flag
+FLAG_ENV = {"BENCH_KV_INT8": "kv_int8", "BENCH_DECODE_W8A8": "decode_w8a8",
+            "BENCH_PREFILL_W8A8": "prefill_w8a8"}
 SAMPLE_RATE = 24000
 
 
@@ -241,14 +271,38 @@ def build_tokenizer():
     return TTSTokenizer(tok)
 
 
-def build_engine(config: str, settings: dict, device="cuda") -> XTTSv2Engine:
-    """The full-width engine of `config` with seed-0 random bf16 weights."""
-    gpt_flags, engine_flags = CONFIGS[config]
-    cfg = XTTSConfig()
-    cfg.gpt = dataclasses.replace(cfg.gpt, **gpt_flags)
+def engine_kwargs(config: str, settings: dict) -> dict:
+    """The engine flags of `config`, under the environment's overrides
+    (FLAG_ENV, then `settings`' slot_bucketing when set), and `settings`'
+    slot and step counts. A flag none of them sets is left to the engine."""
+    kw = dict(CONFIGS[config][1])
+    for var, flag in FLAG_ENV.items():
+        if os.environ.get(var) is not None:
+            kw[flag] = os.environ[var] == "1"
+    kw.update({k: v for k, v in settings.items() if v is not None})
+    return kw
+
+
+def resolved_flags(engine: XTTSv2Engine) -> dict:
+    """What the engine runs after its defaults: the GPT config's flags, the
+    W8A8 policy and its crossover, slot bucketing and the attn_fp region."""
+    g, de = engine.gpt_config, engine.decode_engine
+    return {**{k: getattr(g, k) for k in ("prefill_flash", "flash_decode", "ragged_decode",
+                                          "kv_int8", "decode_w8a8", "prefill_w8a8",
+                                          "decode_attn_fp")},
+            "w8a8_policy": de._w8a8_policy is not None, "w8a8_crossover": engine.w8a8_crossover,
+            "slot_bucketing": de.slot_bucketing, "attn_fp_max_cells": de._attn_fp_max_cells}
+
+
+def build_engine(config: str, settings: dict, device="cuda",
+                 base: XTTSConfig | None = None) -> XTTSv2Engine:
+    """The full-width engine of `config` (on `base`'s architecture when
+    given, as a test's tiny one) with seed-0 random bf16 weights."""
+    cfg = base or XTTSConfig()
+    cfg.gpt = dataclasses.replace(cfg.gpt, **CONFIGS[config][0])
     return XTTSv2Engine.random_init(
         config=cfg, tokenizer=build_tokenizer(), dtype=torch.bfloat16, device=device,
-        max_concurrency=CONCURRENCY, **settings, **engine_flags)
+        max_concurrency=CONCURRENCY, **engine_kwargs(config, settings))
 
 
 def write_speaker(path: str) -> str:
@@ -636,7 +690,7 @@ def nvidia_smi_line() -> str:
 
 def main(argv: list | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--config", choices=sorted(CONFIGS), default="bf16")
+    ap.add_argument("--config", choices=sorted(CONFIGS), default="default")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_torch: no CUDA device visible; this benchmark has no CPU path",
@@ -645,14 +699,15 @@ def main(argv: list | None = None) -> int:
     dev = torch.device("cuda", 0)
     settings = engine_settings()
     skip_server = os.environ.get("BENCH_SKIP_SERVER", "") == "1"
-    gpt_flags, engine_flags = CONFIGS[args.config]
+    gpt_flags = CONFIGS[args.config][0]
     payload = {key: None for key in RESULT_KEYS}
     payload.update({
         "metric": "full-pipeline RTF (wall / generated-audio-seconds)",
         "unit": "x realtime",
         "skipped_sections": [],
         "backend": "torch-cuda",
-        "config": {"name": args.config, **gpt_flags, **engine_flags},
+        "config": {"name": args.config, **gpt_flags, **engine_kwargs(args.config, {}),
+                   "kernels": list(CONFIG_KERNELS[args.config])},
         "device": {"name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
                    "nvidia_smi": nvidia_smi_line()},
         "torch": torch.__version__,
@@ -694,6 +749,8 @@ def main(argv: list | None = None) -> int:
     torch.cuda.synchronize(dev)
     cold["boot_s"] = round(time.perf_counter() - t0, 3)
     payload["settings"]["decode_slots_fit"] = engine.decode_slots
+    payload["config"]["resolved"] = resolved_flags(engine)
+    _log(f"[config] {payload['config']}")
     tts = TTS(scheduler_max_concurrency=CONCURRENCY).with_engine(engine)
     with tempfile.TemporaryDirectory() as tmp:
         speaker = write_speaker(os.path.join(tmp, "bench_speaker.wav"))

@@ -62,7 +62,8 @@ Phases:
     the same traffic through an unbucketed runner (tokens equal); one
     facade request of 9 chunks (a batched insert, a finite waveform);
     then the int8 configuration's bounds and runner, and the dense int8
-    body under the per-program W8A8 policy (its choice at every bound);
+    body under the per-program W8A8 policy at crossover 1, where it flips
+    inside the 16-slot grid (its choice at every bound);
     K2 and K3 (bf16) and K4 (int8) must launch in the runner drives,
     and graphs replay there, insert programs among them;
  4f. streaming on the bf16 configuration with 16 slots: one solo
@@ -172,7 +173,24 @@ Phases:
     reps) and the server load (8 requests, uncapped and capped); each
     section's JSON line and its captures_in_timed are printed. Any failed
     request fails the phase; K1, K2 and K3 must launch, programs (inserts
-    among them) replay, and every key of bench.py's result line be a number.
+    among them) replay, and every key of bench.py's result line be a number;
+ 9. serving defaults: a full-width engine built with no engine flag (what
+    `TTS.from_pretrained`, the CLI server and bench_torch's `default`
+    serve) at 4 slots; its resolved defaults (kernel flags, int8 KV, the
+    W8A8 policy and its crossover, int8 prefill, slot bucketing, the
+    attn_fp region) must equal PERF.md's table; TTS.warmup() on it, its
+    memory growth against the slot fit's estimate, and the program every
+    decode key was captured with against the policy (W8A8 on one side of
+    the crossover and bf16 weights on the other where it is armed; bf16
+    weights everywhere on the H100); then 4 concurrent requests with no
+    capture, programs replaying and K3 launching; one short greedy request
+    bit-equal (tokens and PCM) to an engine given the same flags
+    explicitly, lazily captured and replayed.
+
+Every phase but 9 pins its engines' flags (PINNED: no int8 KV, W8A8 or
+bucketing unless the phase names them), so it runs what its name says
+whatever the card's defaults are; phase 6's servers run the defaults, as
+a user's would, with the kernel flags of their config.json.
 
 Each phase's header gives the seconds since the start. Any failure exits
 non-zero. The kernels' launch counts include the launches of replayed
@@ -1182,9 +1200,21 @@ def seed0_weights() -> tuple[dict, dict]:
     return random_init(XTTSConfig(), seed=0)
 
 
-def build_engine(dev, tokenizer, gpt_flags: dict, engine_flags: dict, **kw) -> XTTSv2Engine:
+# the engine flags every phase's engine is pinned to unless the phase names
+# them: no int8 KV, W8A8 (policy included) or bucketing by default, so each
+# phase runs what its name and its checks say whatever the card's serving
+# defaults are (phase 9 runs those)
+PINNED = {"kv_int8": False, "decode_w8a8": False, "prefill_w8a8": False,
+          "slot_bucketing": False}
+
+
+def build_engine(dev, tokenizer, gpt_flags: dict, engine_flags: dict | None,
+                 **kw) -> XTTSv2Engine:
     """The full-width engine with seeded random bf16 weights (what
-    XTTSv2Engine.random_init builds, from the cached seed-0 weights)."""
+    XTTSv2Engine.random_init builds, from the cached seed-0 weights), its
+    engine flags pinned (PINNED under `engine_flags`), or left to the
+    engine's serving defaults when `engine_flags` is None."""
+    engine_flags = {} if engine_flags is None else {**PINNED, **engine_flags}
     cfg = XTTSConfig()
     cfg.gpt = dataclasses.replace(cfg.gpt, **gpt_flags)
     t0 = time.perf_counter()
@@ -1198,7 +1228,7 @@ def build_engine(dev, tokenizer, gpt_flags: dict, engine_flags: dict, **kw) -> X
     say(f"  engine: GPT {cfg.gpt.num_hidden_layers} layers x {cfg.gpt.hidden_size}, "
         f"{cfg.gpt.num_attention_heads} heads, {engine.decode_slots} slots, KV cache "
         f"{tuple(cache.k.shape)} {cache.k.dtype}{' + f32 scales' if cache.quantized else ''}, "
-        f"{', '.join(f'{k}={v}' for k, v in {**gpt_flags, **engine_flags}.items())}; "
+        f"{', '.join(f'{k}={v}' for k, v in {**gpt_flags, **engine_flags}.items()) or 'defaults'}; "
         f"memory plan {engine.max_gb_for_model:.2f} GiB; built in {time.perf_counter() - t0:.1f} s")
     return engine
 
@@ -1535,7 +1565,7 @@ def run_reference_check(dev, tokenizer) -> None:
             engine = XTTSv2Engine(cfg, cfg.gpt, params=params, core=core, tokenizer=tokenizer,
                                   device=device, cache_dtype=torch.float32,
                                   vocoder_dtype=torch.float32, decode_slots=2,
-                                  max_concurrency=1)
+                                  max_concurrency=1, **PINNED)
             graphs.reset_counts()
             out[device.type] = asyncio.run(_greedy_chunk(engine, wav_path, "Hello world.", 24))
             say(f"  {device.type}: {len(out[device.type][0])} tokens, "
@@ -1588,7 +1618,7 @@ def run_int8_reference_check(dev) -> None:
         params, core = params_from_numpy(gpt_np, core_np, device=device, dtype=torch.bfloat16)
         engine = XTTSv2Engine(cfg, cfg.gpt, params=params, core=core, device=device,
                               decode_slots=2, max_concurrency=1, kv_int8=True,
-                              decode_w8a8=True, prefill_w8a8=True)
+                              decode_w8a8=True, prefill_w8a8=True, slot_bucketing=False)
         g, p, cache = engine.gpt_config, engine.params, engine.decode_engine.state.cache
         embeds = _assemble_prompt(p, g, torch.from_numpy(cond).to(device),
                                   torch.from_numpy(ids).to(device), n_ids).to(torch.bfloat16)
@@ -1904,20 +1934,29 @@ def check_runner(engine, smi: str, must_launch: tuple, facade_wav: str | None) -
     return launches
 
 
+def program_name(c) -> str:
+    """The decode program a config runs: its weights and attention variant."""
+    return {(False, False): "bf16 weights", (True, True): "W8A8 + bf16 probabilities",
+            (True, False): "W8A8"}[(c.decode_w8a8, c.decode_attn_fp)]
+
+
+# the W8A8 policy's crossover in phase 4e's drive: it flips inside the
+# 16-slot grid (the TPU's 3 picks W8A8 for every block of 16 int8 slots, and
+# the card's attn_fp region gives every W8A8 block of the dense int8 body
+# the bf16-probabilities variant), so two programs run
+POLICY_CROSSOVER = 1
+
+
 def check_policy(engine, smi: str) -> None:
     """The dense int8 body (kv_int8, no K4) run by a DecodeEngine given the
-    engine's w8a8_policy(): 6 greedy chunks of 12-32 tokens. Prints the
-    program _cfg_for picks at every (length bound, slot bound) pair and the
-    programs the blocks ran; at least two programs must appear."""
+    engine's w8a8_policy() at POLICY_CROSSOVER: 6 greedy chunks of 12-32
+    tokens. Prints the program _cfg_for picks at every (length bound, slot
+    bound) pair and the programs the blocks ran; at least two programs must
+    appear."""
     g = dataclasses.replace(engine.gpt_config, ragged_decode=False, decode_w8a8=False)
     de = DecodeEngine(engine.params, g, num_slots=CONC_SLOTS, slot_bucketing=True,
-                      w8a8_policy=engine.w8a8_policy(), device=engine.device)
-    names = {(False, False): "bf16 weights", (True, True): "W8A8 + bf16 probabilities",
-             (True, False): "W8A8"}
-
-    def name(c):
-        return names[(c.decode_w8a8, c.decode_attn_fp)]
-
+                      w8a8_policy=engine.w8a8_policy(POLICY_CROSSOVER), device=engine.device)
+    name = program_name
     table = {f"len={lb} slots={sb or CONC_SLOTS}": name(de._cfg_for(lb, sb))
              for lb in (*de.LEN_BUCKETS, None) for sb in (*de._slot_buckets(), None)}
     ran = []
@@ -1934,7 +1973,7 @@ def check_policy(engine, smi: str) -> None:
         return out
 
     got = asyncio.run(go())
-    say(f"  W8A8 policy (KV bytes < 3 x weight bytes, the TPU fit) over (len bound, slot "
+    say(f"  W8A8 policy (KV bytes < {POLICY_CROSSOVER} x weight bytes) over (len bound, slot "
         f"bound): {table}")
     say(f"  dense int8 body under the policy: {len(got)} chunks of {[n for *_, n in got]} "
         f"tokens, blocks ran {dict((k, ran.count(k)) for k in set(ran))} ({smi})")
@@ -3186,6 +3225,152 @@ def run_bench_sections(dev, smi: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------- serving defaults
+# the card's serving defaults as PERF.md §5's table ("Serving defaults on
+# the H100") sets them: what an engine built with no flag on one card must
+# resolve to
+DEFAULTS_TABLE = {"prefill_flash": False, "flash_decode": False, "ragged_decode": False,
+                  "kv_int8": False, "decode_w8a8": False, "prefill_w8a8": False,
+                  "decode_attn_fp": False, "w8a8_policy": False, "w8a8_crossover": 0,
+                  "slot_bucketing": False, "attn_fp_max_cells": 64 * 1280}
+DEFAULTS_SLOTS = 4  # phase 9's decode slots (the half bucket 2)
+DEFAULTS_TOKENS = 60  # tokens a chunk in phase 9's requests
+DEFAULTS_GREEDY_TOKENS = 24
+
+
+def run_defaults(dev, smi: str, tokenizer) -> dict:
+    """Phase 9: a full-width engine built with no flag (the configuration
+    `TTS.from_pretrained`, the CLI server and bench_torch's `default` serve)
+    on the card. Its resolved defaults print and must equal DEFAULTS_TABLE;
+    both precompile hooks on the fresh engine, their memory growth against
+    the slot fit's pool estimate (4g's check), and the program each decode
+    key was captured with against the W8A8 policy at its (length bound,
+    slot bound), which must pick W8A8 on one side of the crossover and bf16
+    weights on the other when it is armed; `TTS.warmup()`, then 4
+    concurrent requests with no capture, decode programs replaying and K3
+    launching; a short greedy request bit-equal (tokens and PCM) to an
+    engine given the same flags explicitly. Returns the kernel launches of
+    the drives."""
+    import bench_torch
+    from auralis_tpu_torch.runtime import engine_core
+
+    with tempfile.TemporaryDirectory() as tmp:
+        wav_path = write_voice(tmp)
+        torch.cuda.empty_cache()
+        engine = build_engine(dev, tokenizer, {}, None, decode_slots=DEFAULTS_SLOTS)
+        de = engine.decode_engine
+        got = bench_torch.resolved_flags(engine)
+        say(f"  resolved serving defaults: {got}; PERF.md's table: {DEFAULTS_TABLE}")
+        if got != DEFAULTS_TABLE:
+            raise AssertionError(f"9: the flagless engine resolved {got}, not {DEFAULTS_TABLE}")
+
+        # TTS.warmup() on the fresh engine (both precompile hooks, then a
+        # traffic pass), with the program each decode key was captured with
+        ran = {}
+        step = engine_core.decode_steps_status
+
+        def recorded(params, cfg, state, n_steps, len_bound=None, slot_bound=None, **kw):
+            ran[(n_steps, len_bound, slot_bound)] = program_name(cfg)
+            return step(params, cfg, state, n_steps, len_bound, slot_bound, **kw)
+
+        tts = TTS(scheduler_max_concurrency=4).with_engine(engine)
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_reserved()
+        graphs.reset_counts()
+        engine_core.decode_steps_status = recorded
+        try:
+            t0 = time.perf_counter()
+            tts.warmup(text="Hello world, this is a test of speech. The quick brown fox jumps "
+                            "over the lazy dog.")
+            torch.cuda.synchronize()
+        finally:
+            engine_core.decode_steps_status = step
+        grown = torch.cuda.memory_reserved() - start
+        say(f"  TTS.warmup() on the fresh engine: {time.perf_counter() - t0:.1f} s, graphs "
+            f"{graphs_text(graphs.counts)}; memory reserved +{grown / 2**30:.2f} GiB, of it the "
+            f"graph pools: decode state {pool_gib(de._programs.pool):.2f} GiB, vocoder "
+            f"{pool_gib(engine._vocoder_programs.pool):.2f} GiB; the slot fit's pool estimate "
+            f"{engine.pool_bytes / 2**30:.2f} GiB ({engine.pool_bytes / max(grown, 1):.2f}x) "
+            f"({smi})")
+        if engine.pool_bytes < grown:
+            raise AssertionError(f"9: pool estimate {engine.pool_bytes} below the warmup's "
+                                 f"growth {grown}")
+        keys = de.precompile_keys()
+        if len(decode_keys(de)) != len(keys):
+            raise AssertionError(f"9: warmup captured {len(decode_keys(de))} of {len(keys)} "
+                                 "decode keys")
+        policy = de._w8a8_policy
+        want = {}
+        for n, sb, lb in keys:
+            c = de._cfg_for(lb, sb)
+            want[(n, lb, sb)] = program_name(c)
+            if policy is not None:
+                w8 = policy(lb or de.cfg.max_seq_len, sb or de.num_slots)
+                if c.decode_w8a8 != w8:
+                    raise AssertionError(f"9: _cfg_for({lb}, {sb}) is {program_name(c)}, the "
+                                         f"policy says W8A8={w8}")
+        table = {f"steps={n} len={lb} slots={sb or de.num_slots}": ran.get((n, lb, sb))
+                 for n, sb, lb in keys}
+        say(f"  decode programs captured by key (policy: KV bytes < "
+            f"{engine.w8a8_crossover} x weight bytes): {table}")
+        if any(ran.get(k) != v for k, v in want.items()):
+            raise AssertionError(f"9: captured programs {ran}, the policy picks {want}")
+        names = set(want.values())
+        if policy is not None and not ({"bf16 weights"} < names):
+            raise AssertionError(f"9: the armed policy picked {names} over the keys: no block "
+                                 "on both sides of the crossover")
+
+        # 4 concurrent requests with nothing left to capture
+        for w in KERNELS.values():
+            w["wrapper"].launches = 0
+        graphs.reset_counts()
+        t0 = time.perf_counter()
+        outs = tts.loop.run_until_complete(asyncio.gather(*(
+            tts.generate_speech_async(TTSRequest(text=SENTENCE, speaker_files=[wav_path],
+                                                 language="en",
+                                                 max_new_tokens=DEFAULTS_TOKENS))
+            for _ in range(4))))
+        for i, o in enumerate(outs):
+            check_waveform(f"9 request {i}", o)
+        launches = {name: w["wrapper"].launches for name, w in KERNELS.items()}
+        audio = sum(o.array.size for o in outs) / 24000
+        say(f"  4 concurrent requests after TTS.warmup(): {audio:.2f} s audio in "
+            f"{time.perf_counter() - t0:.2f} s; graphs {graphs_text(graphs.counts)}; launches "
+            f"{launches} ({smi})")
+        if graphs.counts["captures"]:
+            raise AssertionError(f"9: {graphs.counts['captures']} programs captured after "
+                                 f"TTS.warmup(): {graphs.captured_keys}")
+        must_replay("phase 9's requests", graphs.counts)
+        if launches["mrf_stage"] <= 0:
+            raise AssertionError("kernel mrf_stage was not launched by phase 9's requests")
+
+        # the same flags given explicitly: bit-equal greedy tokens and PCM
+        text = "Hello world, this is a test of speech."
+        want_tok, want_wav = tts.loop.run_until_complete(
+            _greedy_chunk(engine, wav_path, text, DEFAULTS_GREEDY_TOKENS))
+        tts.loop.run_until_complete(tts.shutdown())
+        del tts, engine, de
+        torch.cuda.empty_cache()
+        flags = {k: got[k] for k in ("kv_int8", "prefill_w8a8", "slot_bucketing")}
+        flags["decode_w8a8"] = None if got["w8a8_policy"] else got["decode_w8a8"]
+        twin = build_engine(dev, tokenizer, {}, flags, decode_slots=DEFAULTS_SLOTS)
+        if bench_torch.resolved_flags(twin) != got:
+            raise AssertionError(f"9: the explicit engine resolved "
+                                 f"{bench_torch.resolved_flags(twin)}")
+        runs = [asyncio.run(_greedy_chunk(twin, wav_path, text, DEFAULTS_GREEDY_TOKENS))
+                for _ in range(2)]  # lazy captures, then replays
+        for tag, (tok, wav) in zip(("first (eager, then captured)", "second (replayed)"), runs):
+            same = np.array_equal(tok, want_tok) and np.array_equal(wav, want_wav)
+            say(f"  greedy request on the engine given {flags}, {tag}: {len(tok)} tokens, "
+                f"{'bit-equal' if same else 'DIFFERENT'} tokens and PCM against the flagless "
+                "engine's")
+            if not same:
+                raise AssertionError(f"9: the explicit engine's {tag} greedy request differs")
+        del twin
+        torch.cuda.empty_cache()
+    return launches
+
+
 # ------------------------------------------------------ checkpoint and server
 # A Coqui-style state from seeded numpy weights: the JAX-free inverse of the
 # loaders (a copy of tests/helpers.py's, which imports the JAX package;
@@ -3762,8 +3947,12 @@ def main() -> int:
     data_axes = run_data_axes(dev, smi)
     phase("[8] bench_torch at reduced depth: bench.py's four sections on a fresh bf16 engine")
     bench = run_bench_sections(dev, smi)
+    phase("[9] serving defaults: a full-width engine built with no flag, its resolved defaults, "
+          "the W8A8 policy's programs, warmup and an explicit twin")
+    defaults = run_defaults(dev, smi, tokenizer)
     for name in KERNELS:
-        launches[name] += replicas[name] + tensor[name] + data_axes[name] + bench[name]
+        launches[name] += (replicas[name] + tensor[name] + data_axes[name] + bench[name]
+                           + defaults[name])
 
     # launches per main-path unit: one K1 per GPT layer per prompt insert,
     # one K2/K4 (and K5 on its path) per layer per decode step, one K3 per
