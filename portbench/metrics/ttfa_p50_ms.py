@@ -1,0 +1,9 @@
+"""Median, over the requests due in the window (a closed loop's requests
+sent in it), of the time from each one's due time to its first audio
+(host clock); a failed or unfinished request counts as the end of the
+drain."""
+from portbench import readers
+
+
+def read(rec):
+    return readers.due_latency_p50_ms(rec, "first")
