@@ -60,6 +60,7 @@ in a memory pool of their own. The eager functions (`_cond_latents`,
 from __future__ import annotations
 
 import asyncio
+import contextvars
 import dataclasses
 import hashlib
 import json
@@ -68,7 +69,7 @@ import os
 import time
 import weakref
 from pathlib import Path
-from typing import Any, AsyncGenerator, List, Optional, Tuple, Union
+from typing import Any, AsyncGenerator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -79,7 +80,8 @@ from ...common.dsp_np import trim_silence_db
 from ...common.logger import setup_logger
 from ...common.output import TTSOutput
 from ...common.requests import TTSRequest
-from ...common.tracing import record as trace_record, span
+from ...common.tracing import (
+    TRACE_ID, device_span, interval, record as trace_record, resolve, span)
 from ...ops.experimental.attention import CHUNK, DECODE_SPLIT, PARTIAL_FLOATS
 from ...ops.mel import wav_to_mel_cloning
 from ...ops.mrf import pack_hifigan_mrf
@@ -158,6 +160,8 @@ class _VocodeBatcher:
     time-to-first-audio path), seg, row. Up to MAX_INFLIGHT batches run at
     once in worker threads; they issue to the same CUDA stream as the decode
     runner, so a vocode is ordered after the block whose latents it reads.
+    Each item carries its chunk's trace id (tracing.TRACE_ID), taken when it
+    is submitted: the batches run in the batcher's own task.
 
     Unlike the JAX batcher, a batch is not padded to a fixed size (its
     `_pad`): here too each batch size is its own captured program, but the
@@ -177,7 +181,7 @@ class _VocodeBatcher:
         self._inflight: Optional[asyncio.Semaphore] = None
         self._loop: Optional[asyncio.AbstractEventLoop] = None
 
-    async def submit(self, kind: str, item: tuple) -> np.ndarray:
+    async def submit(self, kind: str, item: tuple, trace_id: Optional[str] = None) -> np.ndarray:
         loop = asyncio.get_running_loop()
         if loop is not self._loop:
             # the engine outlives individual event loops (the sync API runs
@@ -187,10 +191,12 @@ class _VocodeBatcher:
             self._task = None
             self._loop = loop
         fut: asyncio.Future = loop.create_future()
-        self._pending[kind].append((item, fut))
+        self._pending[kind].append((item, fut, trace_id))
         if self._task is None or self._task.done():
             self._inflight = asyncio.Semaphore(self.MAX_INFLIGHT)
-            self._task = loop.create_task(self._drain())
+            # a context of its own: the batches serve every chunk, not the
+            # submitter's (tracing.TRACE_ID)
+            self._task = loop.create_task(self._drain(), context=contextvars.Context())
         return await fut
 
     async def _drain(self) -> None:
@@ -210,11 +216,12 @@ class _VocodeBatcher:
             flights.append(loop.create_task(self._fly(kind, batch)))
 
     async def _fly(self, kind: str, batch: list) -> None:
-        items = [it for it, _ in batch]
+        items = [it for it, _, _ in batch]
         try:
-            outs = await asyncio.to_thread(self._run_batch, kind, items)
+            outs = await asyncio.to_thread(self._run_batch, kind, items,
+                                           [tid for _, _, tid in batch])
         except Exception as e:  # every waiter gets the failure
-            for _, fut in batch:
+            for _, fut, _ in batch:
                 try:
                     if not fut.done():
                         fut.set_exception(e)
@@ -223,7 +230,7 @@ class _VocodeBatcher:
             return
         finally:
             self._inflight.release()
-        for (_, fut), out in zip(batch, outs):
+        for (_, fut, _), out in zip(batch, outs):
             try:
                 if not fut.done():
                     fut.set_result(out)
@@ -231,22 +238,21 @@ class _VocodeBatcher:
                 pass  # a future of a closed loop
 
     @torch.no_grad()
-    def _run_batch(self, kind: str, items: list) -> list:
+    def _run_batch(self, kind: str, items: list, trace_ids: Sequence = ()) -> list:
         eng = self.engine
         rows = [it[0] for it in items]
         ns = [int(it[1]) for it in items]
         if kind == "row":  # (row, n, g)
             return eng._trimmed(eng._vocode_batch("row", rows, ns, [it[2] for it in items],
-                                                  eng.row_bucket(max(ns))), ns)
+                                                  eng.row_bucket(max(ns)), trace_ids), ns)
         if kind == "seg_first":  # (row, n_mask, g): frames [0, FIRST_SEG_PF)
-            with span("vocode.seg_first_device"):
-                pcm = eng._vocode_batch("seg_first", rows, ns, [it[2] for it in items])
+            pcm = eng._vocode_batch("seg_first", rows, ns, [it[2] for it in items],
+                                    trace_ids=trace_ids)
             return [pcm[i, : FIRST_SEG_PF * 256].astype(np.float32) / 32767.0
                     for i in range(len(items))]
         # seg: (row, n_mask, emit_start_pf, emit_count_pf, g)
         starts = [eng._seg_slice_start(it[2]) for it in items]
-        with span("vocode.seg_device"):
-            pcm = eng._vocode_batch("seg", rows, ns, [it[4] for it in items], starts)
+        pcm = eng._vocode_batch("seg", rows, ns, [it[4] for it in items], starts, trace_ids)
         outs = []
         for i, it in enumerate(items):
             offset = it[2] - starts[i]
@@ -265,13 +271,16 @@ class _SpecFirstSeg:
     stopped inside the block, so the consumer uses the result only after a
     snapshot confirms n >= claim, and discards it on an earlier final one.
     The emitted samples lie below total_pf(claim - 2) - PAD_PF, the same
-    hold-back as the snapshot path, so the waveform is the same either way."""
+    hold-back as the snapshot path, so the waveform is the same either way.
+    It carries its chunk's trace id: the hook runs in the runner's task."""
 
-    __slots__ = ("engine", "g", "claim_n", "emit_pf", "task")
+    __slots__ = ("engine", "g", "trace_id", "claim_n", "emit_pf", "task")
 
-    def __init__(self, engine: "XTTSv2Engine", speaker_embeddings):
+    def __init__(self, engine: "XTTSv2Engine", speaker_embeddings,
+                 trace_id: Optional[str] = None):
         self.engine = engine
         self.g = speaker_embeddings
+        self.trace_id = trace_id
         self.claim_n: Optional[int] = None
         self.emit_pf = 0
         self.task: Optional[asyncio.Task] = None
@@ -286,7 +295,7 @@ class _SpecFirstSeg:
         self.claim_n, self.emit_pf = n_claim, FIRST_SEG_PF
         loop = asyncio.get_running_loop()
         self.task = loop.create_task(
-            eng._vocode_batcher.submit("seg_first", (row, n_claim, self.g)))
+            eng._vocode_batcher.submit("seg_first", (row, n_claim, self.g), self.trace_id))
         # a discarded speculation must not log "exception never retrieved"
         self.task.add_done_callback(lambda t: t.exception() if not t.cancelled() else None)
         return True
@@ -859,10 +868,8 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         hit = self._cond_cache.pop(cache_key, None)
         if hit is not None:
             self._cond_cache[cache_key] = hit  # re-insert: dict order is the LRU order
-            trace_record("phase1.cond_cache_hit", 0.0)
             return hit
 
-        t_cond = time.perf_counter()
         speaker_embs, audios = [], []
         for ref in refs:
             def _load(r=ref):
@@ -881,7 +888,6 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         gpt_cond = await asyncio.to_thread(
             self.get_gpt_cond_latents, full_audio, gpt_cond_len, gpt_cond_chunk_len)
         speaker = np.mean(np.stack(speaker_embs), axis=0)  # [1, 512]
-        trace_record("phase1.cond_miss", time.perf_counter() - t_cond)
         while len(self._cond_cache) >= self.conditioning_cache_size:
             self._cond_cache.pop(next(iter(self._cond_cache)))
         self._cond_cache[cache_key] = (gpt_cond, speaker)
@@ -942,18 +948,24 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         try:
             for idx, ids in enumerate(token_chunks):
                 prompt = self._build_prompt(cond_dev, ids)
-                if request.stream:
-                    # a snapshot mailbox, so segments are vocoded while the
-                    # chunk decodes, and the speculative first segment
-                    queue = asyncio.Queue()
-                    spec = _SpecFirstSeg(self, speaker_embeddings)
-                    fut = asyncio.ensure_future(self.decode_engine.generate(
-                        prompt, options, stream_queue=queue, on_young_block=spec.hook))
-                    handles.append((fut, queue, spec))
-                else:
-                    handles.append(asyncio.ensure_future(
-                        self.decode_engine.generate(prompt, options)))
-                request_ids.append(f"{request.request_id}_{idx}")
+                chunk_id = f"{request.request_id}_{idx}"
+                # the chunk's decode task inherits its trace id
+                token = TRACE_ID.set(chunk_id)
+                try:
+                    if request.stream:
+                        # a snapshot mailbox, so segments are vocoded while
+                        # the chunk decodes, and the speculative first segment
+                        queue = asyncio.Queue()
+                        spec = _SpecFirstSeg(self, speaker_embeddings, chunk_id)
+                        fut = asyncio.ensure_future(self.decode_engine.generate(
+                            prompt, options, stream_queue=queue, on_young_block=spec.hook))
+                        handles.append((fut, queue, spec))
+                    else:
+                        handles.append(asyncio.ensure_future(
+                            self.decode_engine.generate(prompt, options)))
+                finally:
+                    TRACE_ID.reset(token)
+                request_ids.append(chunk_id)
         except BaseException:
             for handle in handles:
                 self.cancel_generation_handle(handle)
@@ -1161,7 +1173,7 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
 
     @torch.no_grad()
     def _vocode_batch(self, kind: str, rows: list, ns: list, speaker_embeddings: list,
-                      arg=None) -> np.ndarray:
+                      arg=None, trace_ids: Sequence = ()) -> np.ndarray:
         """One batch of the vocode batcher as 16-bit PCM [B, samples] on the
         host: kind "row" (`arg`: the row bucket), "seg" (`arg`: each lane's
         window start) or "seg_first"; rows are device latent rows [T_audio,
@@ -1169,28 +1181,39 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         bucket and exact B: its inputs are staged into the program's static
         tensors and its output copied to the host under the program's lock
         (up to MAX_INFLIGHT batches run in threads at once). On the CPU the
-        eager functions run."""
+        eager functions run. The staging and the program are the device span
+        `vocode.device.<kind>` (the lanes' `trace_ids`, the batch size),
+        resolved once the PCM is on the host."""
+        timed = device_span(f"vocode.device.{kind}", self.device, trace_ids=list(trace_ids),
+                            batch=len(rows))
         if not self._vocoder_programs.captures:
-            stacked = torch.stack(rows)
-            if kind == "row":
-                pcm = self._rows_pcm(stacked, self._lanes(ns),
-                                     self._speaker_rows(speaker_embeddings), arg)
-            elif kind == "seg":
-                pcm = self._vocode_seg(stacked, ns, arg, speaker_embeddings)
-            else:
-                pcm = self._vocode_seg_first(stacked, ns, speaker_embeddings)
-            return pcm.cpu().numpy()
+            with timed:
+                stacked = torch.stack(rows)
+                if kind == "row":
+                    pcm = self._rows_pcm(stacked, self._lanes(ns),
+                                         self._speaker_rows(speaker_embeddings), arg)
+                elif kind == "seg":
+                    pcm = self._vocode_seg(stacked, ns, arg, speaker_embeddings)
+                else:
+                    pcm = self._vocode_seg_first(stacked, ns, speaker_embeddings)
+            out = pcm.cpu().numpy()
+            resolve()
+            return out
         prog = self._vocoder_program(kind, len(rows), arg if kind == "row" else None)
         inp = prog.inputs
         with prog.lock:
-            width = inp["rows"].shape[1]
-            for lane, row in zip(inp["rows"], rows):
-                lane.copy_(row[:width])
-            upload(inp["n"], np.asarray(ns, np.int64))
-            upload(inp["g"], _lane_floats(speaker_embeddings))
-            if kind == "seg":
-                upload(inp["starts"], np.asarray(arg, np.int64))
-            return prog().cpu().numpy()
+            with timed:
+                width = inp["rows"].shape[1]
+                for lane, row in zip(inp["rows"], rows):
+                    lane.copy_(row[:width])
+                upload(inp["n"], np.asarray(ns, np.int64))
+                upload(inp["g"], _lane_floats(speaker_embeddings))
+                if kind == "seg":
+                    upload(inp["starts"], np.asarray(arg, np.int64))
+                pcm = prog()
+            out = pcm.cpu().numpy()
+        resolve()
+        return out
 
     def precompile_vocoder_buckets(self) -> None:
         """Capture every vocoder program the batcher can run before serving
@@ -1265,15 +1288,22 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
 
     async def _tokens_to_speech_inner(self, future, queue, spec, speaker_embeddings,
                                       request) -> AsyncGenerator[TTSOutput, None]:
+        """The chunk's audio; its first piece is marked on the timeline by
+        the instant `phase2.first_audio` under the chunk's trace id."""
         sr = self.hifi_config.output_sample_rate
         start_time = request.start_time if request else None
+        trace_id = _trace_id_of(future)
+
+        def first_audio():
+            now = time.perf_counter()
+            interval("phase2.first_audio", now, now, trace_id)
+
         if queue is None:
-            with span("phase2.decode_wait"):
-                tokens, row, n = await future
+            tokens, row, n = await future
             if n == 0:
                 return
-            with span("phase2.vocode"):
-                wav = await self._vocode_batcher.submit("row", (row, n, speaker_embeddings))
+            wav = await self._vocode_batcher.submit("row", (row, n, speaker_embeddings), trace_id)
+            first_audio()
             yield TTSOutput(array=wav, sample_rate=sr, start_time=start_time,
                             token_length=int(len(tokens)))
             return
@@ -1302,7 +1332,8 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
                     await future  # raises the decode's failure here
                 row, n, final = await queue.get()
             if not first_wait_recorded:
-                trace_record("phase2.first_snapshot_wait", time.perf_counter() - t_consume)
+                trace_record("phase2.first_snapshot_wait", time.perf_counter() - t_consume,
+                             trace_id)
                 first_wait_recorded = True
             if row is None:
                 await future  # the poison sentinel: surface the runner's failure
@@ -1316,10 +1347,10 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
                 high = max(0, self._total_pf(max(0, n - 2)) - PAD_PF)
             if emitted_pf == 0 and spec is not None and spec.task is not None:
                 if n >= spec.claim_n:
-                    with span("phase2.vocode_segment"):
-                        wav = await spec.task
+                    wav = await spec.task
                     emitted_pf = spec.emit_pf
                     spec = None
+                    first_audio()
                     yield TTSOutput(array=wav, sample_rate=sr, start_time=start_time,
                                     token_length=int(round(emitted_pf / pf_per_token)))
                 elif final:
@@ -1334,9 +1365,10 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
             threshold = FIRST_SEG_PF if emitted_pf == 0 else SEG_PF
             while (high - emitted_pf >= threshold) or (final and high > emitted_pf):
                 emit = min(SEG_PF, high - emitted_pf)
-                with span("phase2.vocode_segment"):
-                    wav = await self._vocode_batcher.submit(
-                        "seg", (row, n, emitted_pf, emit, speaker_embeddings))
+                wav = await self._vocode_batcher.submit(
+                    "seg", (row, n, emitted_pf, emit, speaker_embeddings), trace_id)
+                if not emitted_pf:
+                    first_audio()
                 emitted_pf += emit
                 threshold = SEG_PF
                 yield TTSOutput(array=wav, sample_rate=sr, start_time=start_time,
@@ -1353,6 +1385,12 @@ def _card(device: torch.device) -> torch.device:
     if device.type == "cuda" and device.index is None:
         return torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def _trace_id_of(future) -> Optional[str]:
+    """The chunk id a decode task was started under (tracing.TRACE_ID)."""
+    get_context = getattr(future, "get_context", None)
+    return get_context().get(TRACE_ID) if get_context is not None else None
 
 
 def _unpack_handle(handle) -> tuple:

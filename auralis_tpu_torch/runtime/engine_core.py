@@ -58,6 +58,19 @@ embeddings array: uploaded at insert, padded to its prefill bucket and
 inserted by the module functions, one by one or as a K-bucketed burst,
 eagerly (no captured program; JAX marks this path not latency-optimized).
 
+Tracing (common/tracing.py): each pass's inserts and compaction are one
+`decode.insert_device` device span and its decode block one
+`decode.block_device` span (attributes: steps, bounds, program, the trace
+ids of the chunks inserted or owned), resolved at the status read; the
+runner's host turns (`decode.handoff`, `decode.dispatch`,
+`decode.status_wait`, `decode.snapshots`, `decode.hooks`,
+`decode.harvest`, `decode.idle_wait`) and each chunk's life from
+`generate()` to its result (`decode.chunk`) are timeline intervals. Counters:
+`decode.block_steps` (the steps of each timed block, with its device time),
+`decode.rows_read` (the K/V rows each block's program reads, summed over
+its steps) and `decode.rows_live` (those of slots still generating), from
+host state alone.
+
 With a `mesh` (parallel/mesh.py, the JAX runner's `mesh=`) the params and
 the decode state are sharded once at construction: the slots over the
 data (and dcn) shards, each shard's KV cache over its model shards.
@@ -72,6 +85,7 @@ captures one device's stream.
 from __future__ import annotations
 
 import asyncio
+import contextvars
 import dataclasses
 import threading
 import time
@@ -83,7 +97,7 @@ import numpy as np
 import torch
 
 from ..common.logger import setup_logger
-from ..common.tracing import record
+from ..common.tracing import TRACE_ID, count, device_span, interval, record, resolve
 from ..models.xttsv2.config import XTTSGPTConfig
 from .decode_loop import (
     PREFILL_BUCKETS,
@@ -151,7 +165,7 @@ class SamplingOptions:
     max_new_tokens: int = 0  # 0 = the model's max_audio_tokens
 
 
-@dataclass
+@dataclass(eq=False)  # identity: `_queue.remove` must not compare tensors
 class _Pending:
     prompt: TokenPrompt | EmbedsPrompt
     options: SamplingOptions
@@ -171,6 +185,12 @@ class _Pending:
     # set when the awaiting consumer went away: the runner releases the slot
     # at its next pass instead of decoding the remaining dead steps
     cancelled: bool = False
+    # the chunk id of the submitting context (tracing.TRACE_ID), which the
+    # runner's spans carry: they run in the runner's own task
+    trace_id: Optional[str] = None
+    # (steps, rows read per step) of each block issued while it owned a
+    # slot; rows None where they follow its length (the rows counters)
+    block_rows: list = field(default_factory=list)
 
 
 @dataclass
@@ -262,6 +282,14 @@ class DecodeEngine:
         # its insert (the length bound's input)
         self._slot_meta: dict[int, dict] = {}
         self._steps_total = 0
+        # per slot its cache length (seq_lens) as the host knows it: exact for
+        # a free slot (its leftover length), assumed still generating for an
+        # owned one until its status settles it (the rows counters' input)
+        self._host_lens = np.zeros((num_slots,), np.int64)
+        self._reads_by_length = cfg.flash_decode or cfg.ragged_decode
+        cache = (self.state.shards[0] if isinstance(self.state, DataShardedState)
+                 else self.state).cache
+        self._cache_len = cache.max_len
         # two pinned status buffers: block k's is read while block k+1's fills
         self._status_bufs = [self._host_buffer((num_slots,), torch.int32) for _ in range(2)]
         self._status_turn = 0
@@ -292,7 +320,9 @@ class DecodeEngine:
         whole prompt, start-audio row included); resolves to (tokens,
         latent_row, n). With `stream_queue`, (latent_row, n, final)
         snapshots are pushed there while it decodes, the final one after
-        the future resolves."""
+        the future resolves. The chunk's `decode.chunk` interval runs from
+        here until the result (or failure) is back."""
+        t_entry = time.perf_counter()
         self._closed = False  # shutdown() quiesces; a later submit reopens
         loop = asyncio.get_running_loop()
         fut: asyncio.Future = loop.create_future()
@@ -317,7 +347,7 @@ class DecodeEngine:
                     f"(cfg.max_seq_len={self.cfg.max_seq_len})")
             prompt = EmbedsPrompt(embeds)
         pending = _Pending(prompt, options or SamplingOptions(), fut, stream_queue,
-                           on_young_block)
+                           on_young_block, trace_id=TRACE_ID.get())
         self._queue.append(pending)
         self._ensure_runner()
         self._wake.set()
@@ -333,6 +363,8 @@ class DecodeEngine:
                 pass
             self._wake.set()
             raise
+        finally:
+            interval("decode.chunk", t_entry, time.perf_counter(), pending.trace_id)
 
     async def shutdown(self) -> None:
         self._closed = True
@@ -359,6 +391,12 @@ class DecodeEngine:
     @property
     def num_active(self) -> int:
         return len(self._slot_owner)
+
+    @property
+    def steps_total(self) -> int:
+        """Decode steps dispatched since construction (every slot of a block
+        steps together)."""
+        return self._steps_total
 
     def idle_rows(self) -> int:
         """KV rows still held by slots that are not decoding: a finished
@@ -396,7 +434,9 @@ class DecodeEngine:
             self._wake = asyncio.Event()
             self._loop = loop
         if self._runner is None or self._runner.done():
-            self._runner = loop.create_task(self._run())
+            # a context of its own: the runner serves every chunk, not the
+            # one whose generate() started it (tracing.TRACE_ID)
+            self._runner = loop.create_task(self._run(), context=contextvars.Context())
             self._runner.add_done_callback(self._on_runner_done)
 
     def _on_runner_done(self, task: asyncio.Task) -> None:
@@ -678,6 +718,7 @@ class DecodeEngine:
         embeds = torch.from_numpy(rows).to(self.device).to(prompt_dtype(self.cfg, self.state))
         lengths = [p.prompt.length for p in pendings]
         opts = [p.options for p in pendings]
+        self._host_lens[slots] = lengths  # the insert's first token advances it
         t_disp = time.perf_counter()
         if len(pendings) == 1:
             o = opts[0]
@@ -709,6 +750,9 @@ class DecodeEngine:
                            [o.max_new_tokens for o in opts]], np.int64)
         floats = np.asarray([[o.temperature for o in opts], [o.top_p for o in opts],
                              [o.repetition_penalty for o in opts]], np.float32)
+        # the prompt is cond + ids + start-audio; the insert's first token
+        # advances the length past it
+        self._host_lens[slots] = c + np.asarray(n_ids) + 1
         if not self._programs.captures:
             ids_dev = torch.from_numpy(ids).to(self.device)
             t_disp = time.perf_counter()
@@ -783,6 +827,7 @@ class DecodeEngine:
         """migrate_slot(src -> dst): on the card the program ("migrate",),
         keyed by the two slots' data shards on a data-sharded state, src/dst
         staged under its lock; on the CPU the function itself."""
+        self._host_lens[dst] = self._host_lens[src]  # src keeps its rows
         if not self._programs.captures:
             migrate_slot(self.state, src, dst)
             return
@@ -825,26 +870,87 @@ class DecodeEngine:
         st = self.stats
         with self._state_lock:
             t0 = time.perf_counter()
-            for chunk in chunks:
-                if len(chunk) == 1:
-                    self._insert(*chunk[0])
-                else:
-                    self._insert_batch(chunk)
-            self._compact_slots()
-            st["insert_s"] += time.perf_counter() - t0
+            if chunks or self.slot_bucketing:
+                with device_span("decode.insert_device", self.device,
+                                 trace_ids=[p.trace_id for chunk in chunks for p, _ in chunk]):
+                    for chunk in chunks:
+                        if len(chunk) == 1:
+                            self._insert(*chunk[0])
+                        else:
+                            self._insert_batch(chunk)
+                    self._compact_slots()
             t1 = time.perf_counter()
+            st["insert_s"] += t1 - t0
             slot_bound, len_bound = self._slot_bucket(), self._len_bucket()
             host = self._status_bufs[self._status_turn]
             self._status_turn ^= 1
-            self._decode_block(n_steps, len_bound, slot_bound, host)
+            self._count_rows(n_steps, slot_bound, len_bound)
+            cfg = self._cfg_for(len_bound, slot_bound)
+            with device_span("decode.block_device", self.device,
+                             counts={"decode.block_steps": n_steps}, steps=n_steps,
+                             slot_bound=slot_bound, len_bound=len_bound,
+                             program=("w8a8" if cfg.decode_w8a8 else "bf16")
+                             + ("_fp" if cfg.decode_attn_fp else ""),
+                             trace_ids=[p.trace_id for p in self._slot_owner.values()]):
+                self._decode_block(n_steps, len_bound, slot_bound, host)
             event = None
             if self.device.type == "cuda":
                 event = torch.cuda.Event()
                 event.record(torch.cuda.current_stream(self.device))
-            st["dispatch_s"] += time.perf_counter() - t1
-        st["blocks"] += 1
+            t2 = time.perf_counter()
+            st["dispatch_s"] += t2 - t1
         st["slot_bound_blocks"] += slot_bound is not None
+        interval("decode.dispatch", t0, t2)
         return _Status(host, event)
+
+    def _count_rows(self, n_steps: int, slot_bound: int | None, len_bound: int | None) -> None:
+        """Count the K/V rows the next block's program reads, summed over its
+        steps (`decode.rows_read`), and those of slots still generating
+        (`decode.rows_live`), from host state alone. The dense bodies read
+        every stepped slot's rows up to the block's length bound (the
+        cache's length when None); K2 and K4 read each stepped slot's rows
+        up to its length, an idle slot's leftover length too. Every owned
+        slot counts as generating through the block; one that stopped
+        earlier is settled when its status is read at harvest
+        (`_settle_rows`)."""
+        stepped = slot_bound or self.num_slots
+        owned = list(self._slot_owner)  # all below the slot bound
+        n, tri = n_steps, n_steps * (n_steps - 1) // 2
+        if self._reads_by_length:
+            lens = self._host_lens
+            read = n * int(lens[:stepped].sum() + stepped) + tri * len(owned)
+            live = n * int(lens[owned].sum() + len(owned)) + tri * len(owned)
+            lens[owned] += n
+            per_step = None
+        else:
+            per_step = min(len_bound or self._cache_len, self._cache_len)
+            read, live = n * stepped * per_step, n * per_step * len(owned)
+        for p in self._slot_owner.values():
+            p.block_rows.append((n, per_step))
+        count("decode.rows_read", read)
+        count("decode.rows_live", live)
+
+    def _settle_rows(self, slot: int, pending: _Pending, n: int) -> None:
+        """A harvested slot's steps after its stop (the host counted every
+        issued step as generating; `n` is its status's n_generated) are not
+        live, and under K2/K4 each read its final length's rows."""
+        extra = pending.n_host - n
+        if extra <= 0:
+            return
+        if self._reads_by_length:
+            final = int(self._host_lens[slot]) - extra
+            self._host_lens[slot] = final
+            tri = extra * (extra - 1) // 2
+            count("decode.rows_read", -tri)
+            count("decode.rows_live", -(extra * (final + 1) + tri))
+            return
+        dead, left = 0, extra
+        for n_steps, per_step in reversed(pending.block_rows):
+            k = min(left, n_steps)
+            dead, left = dead + k * per_step, left - k
+            if not left:
+                break
+        count("decode.rows_live", -dead)
 
     def _push_stream_snapshots(self, done: np.ndarray, n_generated: np.ndarray) -> None:
         """Give every still-running streaming slot a fresh (latent_row, n,
@@ -892,6 +998,7 @@ class DecodeEngine:
             if pending is not None:
                 slots.append(slot)
                 owners.append(pending)
+                self._settle_rows(slot, pending, int(n_generated[slot]))
         if not slots:
             return
         with self._state_lock:
@@ -947,28 +1054,37 @@ class DecodeEngine:
                 if head.cancelled or head.future.done():
                     continue  # cancelled between enqueue and insert
                 slot = free.pop(0)
-                record("decode.queue_wait", time.perf_counter() - head.enqueue_time)
+                record("decode.queue_wait", time.perf_counter() - head.enqueue_time,
+                       head.trace_id)
                 to_insert.append((head, slot))
                 self._own(head, slot)
             if not self._slot_owner:
                 pending_status = None
                 st["idle_waits"] += 1
                 self._wake.clear()
+                t_idle = time.perf_counter()
                 try:
                     await asyncio.wait_for(self._wake.wait(), timeout=5.0)
                 except asyncio.TimeoutError:
                     pass
+                interval("decode.idle_wait", t_idle, time.perf_counter())
                 continue
             migrations = st["migrations"]
             n_steps = self._block_steps()
-            st["occupancy_sum"] += len(self._slot_owner)
+            owned = len(self._slot_owner)
             t_block = time.perf_counter()
             status = await asyncio.to_thread(self._device_pass, self._group_inserts(to_insert),
                                              n_steps)
+            # the pass's counters, at one point with no await between
+            st["blocks"] += 1
+            st["occupancy_sum"] += owned
             self._steps_total += n_steps
+            t_back = time.perf_counter()
+            interval("decode.handoff", t_block, t_back)
             # hooks run here, on the event loop (they create tasks), before
             # any status read
             self._fire_young_hooks(n_steps)
+            interval("decode.hooks", t_back, time.perf_counter())
             if to_insert or st["migrations"] != migrations:
                 pending_status = None  # it indexes the slots before this pass
             young = n_steps < self.steps_per_sync
@@ -981,15 +1097,21 @@ class DecodeEngine:
             if read is not None:
                 t0 = time.perf_counter()
                 packed = read.wait() if read.ready() else await asyncio.to_thread(read.wait)
-                st["status_wait_s"] += time.perf_counter() - t0
+                t1 = time.perf_counter()
+                st["status_wait_s"] += t1 - t0
+                interval("decode.status_wait", t0, t1)
+                resolve()  # the device spans of the blocks this status covers
                 if young:
-                    record("decode.young_block", time.perf_counter() - t_block)
+                    record("decode.young_block", t1 - t_block)
                 _, done, n_gen = unpack_status(packed)
                 self._push_stream_snapshots(done, n_gen)
+                t2 = time.perf_counter()
+                interval("decode.snapshots", t1, t2)
                 if done.any():
-                    t1 = time.perf_counter()
                     self._harvest_done(done, n_gen)
-                    st["harvest_s"] += time.perf_counter() - t1
+                    t3 = time.perf_counter()
+                    st["harvest_s"] += t3 - t2
+                    interval("decode.harvest", t2, t3)
             await asyncio.sleep(0)  # let producers/consumers run between blocks
 
 

@@ -2020,11 +2020,13 @@ SENTENCE = ("the quick brown fox jumps over the lazy dog while voice cloning "
 STREAM_CONCURRENCY = 8
 STREAM_SLOTS = 16  # every chunk of the 8 requests holds a slot at once
 STREAM_CAP = 120  # tokens per chunk in phase 4f's sampled requests
-# the engine's tracing spans on the way to the first segment: a chunk's wait
-# for a slot, a young block from issue to its status, the wait for the
-# first snapshot, a first-segment vocode batch
+# the engine's tracing spans on the way to the first segment, on the host's
+# clock: a chunk's wait for a slot, a young block from issue to its status,
+# the wait for the first snapshot, the tokenizer (the first segment's device
+# time, `vocode.device.seg_first`, is a device span: the bursts run with the
+# timeline off, as served)
 TTFA_SPANS = ("decode.queue_wait", "decode.young_block", "phase2.first_snapshot_wait",
-              "vocode.seg_first_device", "phase1.tokenize")
+              "phase1.tokenize")
 
 
 def pcm_diff(got: np.ndarray, want: np.ndarray) -> tuple[int, float]:
@@ -2042,9 +2044,9 @@ def record_batches(engine) -> list:
     batcher, flights = engine._vocode_batcher, []
     run = batcher._run_batch
 
-    def recording(kind, items):
+    def recording(kind, items, *rest):
         flights.append((kind, len(items)))
-        return run(kind, items)
+        return run(kind, items, *rest)
 
     batcher._run_batch = recording
     return flights

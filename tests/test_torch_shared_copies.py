@@ -27,7 +27,6 @@ JAX_PKG = ROOT / "auralis_tpu"
 PORT = ROOT / "auralis_tpu_torch"
 
 # copied file -> original line numbers (1-based) allowed to differ
-TRACING_PROFILER_LINES = set(range(6, 10)) | set(range(76, 92))  # torch.profiler, not jax
 OAI_SERVER_LINES = (
     {150}  # a docstring's TPU time to first audio
     | {446, 447, 448}  # the persistent XLA compile cache (not ported)
@@ -45,7 +44,6 @@ COPIES = {
     **{f"common/{m}.py": set() for m in (
         "__init__", "logger", "metrics", "scheduler", "requests", "output", "audio_io",
         "enhancer", "dsp_np", "native_audio", "ffmpeg_codec")},
-    "common/tracing.py": TRACING_PROFILER_LINES,
     **{str(p.relative_to(JAX_PKG)): set() for p in sorted((JAX_PKG / "frontend").rglob("*.py"))},
     "core/__init__.py": set(),
     "core/tts.py": set(),
@@ -64,9 +62,9 @@ COPIES = {
 # port modules with their own torch code (held against the JAX package by
 # the other tests/test_torch_*.py files)
 PORTED = {
-    "__init__.py", "ops/__init__.py", "ops/_build.py", "ops/interpolate.py", "ops/resample.py",
-    "ops/mel.py", "ops/prefill_attention.py", "ops/mrf.py", "ops/experimental/__init__.py",
-    "ops/experimental/attention.py", "ops/experimental/fused_mlp.py", "ops/quant.py",
+    "__init__.py", "common/tracing.py", "ops/__init__.py", "ops/_build.py", "ops/interpolate.py",
+    "ops/resample.py", "ops/mel.py", "ops/prefill_attention.py", "ops/mrf.py",
+    "ops/experimental/__init__.py", "ops/experimental/attention.py", "ops/experimental/fused_mlp.py", "ops/quant.py",
     "models/xttsv2/__init__.py", "models/xttsv2/gpt.py",
     "models/xttsv2/modules.py", "models/xttsv2/hifigan.py", "models/xttsv2/weights.py",
     "models/xttsv2/engine.py", "runtime/__init__.py", "runtime/sampler.py",

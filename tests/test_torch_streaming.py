@@ -165,9 +165,9 @@ def test_seg_first_burst_of_six_flies_as_one_batch(engines, monkeypatch):
     flights = []
     orig = _VocodeBatcher._run_batch
 
-    def recording(self, kind, batch_items):
+    def recording(self, kind, batch_items, *rest):
         flights.append(len(batch_items))
-        return orig(self, kind, batch_items)
+        return orig(self, kind, batch_items, *rest)
 
     monkeypatch.setattr(_VocodeBatcher, "_run_batch", recording)
     batcher = te._vocode_batcher
@@ -188,7 +188,7 @@ def test_batcher_failure_reaches_every_waiter(engines, monkeypatch):
     te = torch_tts.tts_engine
     rows, gs = _rows(te, 2, seed=9)
 
-    def boom(self, kind, items):
+    def boom(self, kind, items, *rest):
         raise RuntimeError("synthetic vocoder failure")
 
     monkeypatch.setattr(_VocodeBatcher, "_run_batch", boom)
