@@ -163,7 +163,11 @@ def device_values(x, dtype: torch.dtype, device) -> torch.Tensor:
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm computed in f32 regardless of activation dtype."""
+    """LayerNorm computed in f32 regardless of activation dtype, result in
+    x's dtype. With scale and bias in x's dtype one kernel does it: torch's
+    LayerNorm on bf16 reduces and normalises in f32 and rounds once."""
+    if x.dtype == scale.dtype == bias.dtype:
+        return F.layer_norm(x, (x.shape[-1],), scale, bias, eps)
     y = F.layer_norm(x.float(), (x.shape[-1],), scale.float(), bias.float(), eps)
     return y.to(x.dtype)
 
@@ -180,7 +184,7 @@ def _dot(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> tor
 
 
 def _gelu(y: torch.Tensor) -> torch.Tensor:
-    return F.gelu(y.float()).to(y.dtype)  # exact erf GELU in f32
+    return F.gelu(y)  # exact erf GELU, computed in f32 on bf16 too
 
 
 def text_embeddings(params: dict, token_ids: torch.Tensor) -> torch.Tensor:
@@ -246,25 +250,49 @@ def _prefill_attention_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
 
 
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [B, M, K] @ b [B, K, N] -> [B, M, N] f32, with f32 sums. On the card
+    one batched tensor-core product reads bf16 (or f16) operands as they are
+    stored: a strided view whose rows, or columns, are contiguous is read in
+    place, whatever its batch stride. The CPU has no such kernel, so there
+    the operands are upcast first. Products of bf16 values are exact in f32,
+    so the two compute the same function up to the order of the sums."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
 def _dense_attention(cache: KVCache, layer: int, q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor, slot_idx: torch.Tensor, lens: torch.Tensor,
                      live: torch.Tensor, onehot: torch.Tensor, scale: float) -> torch.Tensor:
-    """The dense body of the JAX decode step (gpt.py:574-605): scatter the
-    new rows q/k/v [S, HD] at `lens`, then masked softmax over the flat
-    [T, H*Dh] cache's first `live.shape[1]` rows; onehot [HD, H] maps lanes
-    to heads. Returns ctx [S, HD] f32."""
+    """The dense body of the JAX decode step
+    (auralis_tpu/models/xttsv2/gpt.py:574-605): scatter the new rows q/k/v
+    [S, HD] at `lens`, then masked softmax over the flat [T, H*Dh] cache's
+    first `live.shape[1]` rows; onehot [HD, H] maps lanes to heads. Returns
+    ctx [S, HD] f32.
+
+    Precision, as the JAX body's: the operands of both products are in the
+    cache dtype (the cache rows, q times the scale rounded once, the
+    probabilities rounded once after an f32 masked softmax); their products
+    are exact in f32 and summed in f32. The cache rows are read in place,
+    never copied: an f32 copy of [S, bound, HD] would cost more than the
+    products themselves."""
     s, bound = live.shape
-    cache.k[layer, slot_idx, lens] = k.to(cache.k.dtype)
-    cache.v[layer, slot_idx, lens] = v.to(cache.v.dtype)
-    k_all = cache.k[layer, :s, :bound].float()  # [S, bound, HD]
-    v_all = cache.v[layer, :s, :bound].float()
-    qmat = (q.float() * scale)[:, :, None] * onehot[None]  # [S, HD, H]
-    qmat = qmat.to(cache.k.dtype).float()
-    scores = torch.einsum("stc,sch->sht", k_all, qmat)
-    scores = scores.masked_fill(~live[:, None, :], torch.finfo(torch.float32).min)
-    probs = torch.softmax(scores, dim=-1).to(cache.v.dtype).float()
-    ctx_full = torch.einsum("sht,stc->shc", probs, v_all)  # [S, H, HD]
-    return (ctx_full * onehot.T[None]).sum(dim=1)
+    nh = onehot.shape[1]
+    dt = cache.k.dtype
+    cache.k[layer, slot_idx, lens] = k.to(dt)
+    cache.v[layer, slot_idx, lens] = v.to(dt)
+    k_all = cache.k[layer, :s, :bound]  # [S, bound, HD], a view
+    v_all = cache.v[layer, :s, :bound]
+    # qmat[s, h]: q[s] times the scale on head h's lanes, zero on the others
+    qmat = (q * scale).to(dt)[:, None, :] * onehot.T[None].to(dt)  # [S, H, HD]
+    scores = _bmm_f32(qmat, k_all.transpose(1, 2))  # [S, H, bound]
+    scores = torch.where(live[:, None, :], scores, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    ctx_full = _bmm_f32(probs, v_all)  # [S, H, HD]: every head against every lane
+    # each head's own lanes: ctx[s, h*Dh + d] = ctx_full[s, h, h*Dh + d]
+    ctx = torch.diagonal(ctx_full.view(s, nh, nh, -1), dim1=1, dim2=2)  # [S, Dh, H]
+    return ctx.transpose(1, 2).reshape(s, -1)
 
 
 # ----------------------------------------------------------------- prefill

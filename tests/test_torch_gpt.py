@@ -85,6 +85,45 @@ def test_gpt_decode_step_matches_jax(flash_decode):
     np.testing.assert_allclose(cache_t.v.numpy(), np.asarray(cache_j.v), rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("product", ["scores", "context"])
+def test_bmm_f32_on_cpu_is_the_upcast_product(product, dtype):
+    """The dense body's batched product on the CPU: the f32 product of the
+    upcast operands, bit for bit, with the cache operand a strided view of
+    a [L, S, T, HD] cache as the body passes it (K transposed for the
+    scores, V as it is for the context)."""
+    s, nh, hd, t, bound = 4, 2, 16, 64, 40
+    g = torch.Generator().manual_seed(11)
+    cache = torch.randn((3, s + 2, t, nh * hd), generator=g).to(dtype)
+    rows = cache[1, :s, :bound]  # [S, bound, HD]
+    if product == "scores":
+        a, b = torch.randn((s, nh, nh * hd), generator=g).to(dtype), rows.transpose(1, 2)
+    else:
+        a, b = torch.softmax(torch.randn((s, nh, bound), generator=g), -1).to(dtype), rows
+    got = tgpt._bmm_f32(a, b)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, torch.bmm(a.float(), b.float()))
+
+
+@pytest.mark.parametrize("fn", ["layer_norm", "gelu"])
+def test_bf16_layer_norm_and_gelu_round_the_f32_result(fn):
+    """LayerNorm and gelu on bf16 activations (with bf16 scale and bias) run
+    in bf16: gelu is the f32 result rounded once, bit for bit; LayerNorm
+    lies within one bf16 step of the f32 result (its f32 sums may run in
+    another order)."""
+    g = torch.Generator().manual_seed(12)
+    x = (3 * torch.randn((64, 1024), generator=g) + 0.5).to(torch.bfloat16)
+    if fn == "gelu":
+        assert torch.equal(tgpt._gelu(x), torch.nn.functional.gelu(x.float()).to(x.dtype))
+        return
+    w, b = (1 + 0.02 * torch.randn(1024, generator=g)).to(x.dtype), \
+        (0.02 * torch.randn(1024, generator=g)).to(x.dtype)
+    got = tgpt.layer_norm(x, w, b)
+    want = torch.nn.functional.layer_norm(x.float(), (1024,), w.float(), b.float(), 1e-5)
+    assert got.dtype == torch.bfloat16
+    assert bool(((got.float() - want).abs() <= 2.0 ** -7 * want.abs()).all())
+
+
 def test_heads_and_prompt_embeds_match_jax():
     jc, tc = _cfgs()
     jp, tp = _both(_params(5))
