@@ -10,9 +10,11 @@ Two loops:
 
 So that every seed does the same work, the sizes come from the mix's own
 `master_seed`: the pool of request sizes (text length and sentence count,
-token cap, voice) and, in an open loop, the gaps between arrivals, in the
-calm and the burst phases apart. The run's seed only permutes them (the
-gaps within their phase; with `block`, the pool is `block` sizes repeated
+token cap, voice) and, in an open loop, the arrivals of each calm and each
+burst stretch of each period. The run's seed only permutes them (the
+spacings of the arrivals within their stretch, so each stretch holds the
+same number of arrivals whatever the seed, and so does a window whose ends
+fall on a period's edge; with `block`, the pool is `block` sizes repeated
 and each run of `block` requests is permuted within itself, so any span of
 requests holds nearly the same sizes) and draws the words. Every
 1 / `greedy_share`-th request in the run's order, the first included, is
@@ -104,19 +106,25 @@ def _sizes(mix: dict, n: int) -> list:
     return (out * (n // len(out) + 1))[:n]
 
 
-def _gaps(mix: dict, duration: float) -> tuple[list, list]:
-    """Arrival gaps (seconds) from the master seed: those drawn in the
-    calm phase and those in the bursts, enough for `duration`."""
+def _stretches(mix: dict, duration: float) -> list:
+    """The arrivals from the master seed over `duration` seconds: per calm
+    and per burst stretch of each period, (start, end, arrival times), each
+    stretch a Poisson process at its rate."""
     rng = np.random.default_rng(mix["master_seed"] + 1)
     b = mix["burst"]
-    calm, burst, t = [], [], 0.0
-    while t < duration:
-        in_burst = (t % b["period_s"]) >= b["period_s"] - b["length_s"]
-        rate = mix["rate_per_s"] * (b["factor"] if in_burst else 1.0)
-        g = float(rng.exponential(1.0 / rate))
-        (burst if in_burst else calm).append(g)
-        t += g
-    return calm, burst
+    period, calm_s = b["period_s"], b["period_s"] - b["length_s"]
+    out = []
+    for k in range(math.ceil(duration / period)):
+        t0 = k * period
+        for start, end, factor in ((t0, t0 + calm_s, 1.0), (t0 + calm_s, t0 + period, b["factor"])):
+            times, t = [], start
+            while True:
+                t += float(rng.exponential(1.0 / (mix["rate_per_s"] * factor)))
+                if t >= end:
+                    break
+                times.append(t)
+            out.append((start, end, times))
+    return out
 
 
 def requests(root: Path, mix: dict, seed: int, duration: float) -> list:
@@ -125,15 +133,12 @@ def requests(root: Path, mix: dict, seed: int, duration: float) -> list:
     rng = np.random.default_rng(int(seed))
     words = (root / "portbench" / "traffic" / "words.txt").read_text().split()
     if mix["loop"] == "open":
-        calm, burst = _gaps(mix, duration)
-        calm = [calm[i] for i in rng.permutation(len(calm))]
-        burst = [burst[i] for i in rng.permutation(len(burst))]
-        b, dues, t = mix["burst"], [], 0.0
-        while calm or burst:
-            in_burst = (t % b["period_s"]) >= b["period_s"] - b["length_s"]
-            pool = burst if (in_burst and burst) or not calm else calm
-            t += pool.pop()
-            dues.append(t)
+        dues = []
+        for start, end, times in _stretches(mix, duration):
+            # the spacings (from the stretch's start to its end) in another order
+            spacings = np.diff([start, *times, end])
+            dues += [float(t) for t in
+                     start + np.cumsum(spacings[rng.permutation(len(spacings))])[:-1]]
         n = len(dues)
     else:
         dues = None

@@ -27,7 +27,9 @@ out of the result.
 """
 from __future__ import annotations
 
+import math
 import statistics
+import sys
 
 import numpy as np
 
@@ -56,6 +58,15 @@ def latencies(rec: dict, key: str) -> list:
 def due_latency_p50_ms(rec: dict, key: str) -> float | None:
     lat = sorted(latencies(rec, key))
     return lat[(len(lat) - 1) // 2] * 1e3 if lat else None
+
+
+def due_latency_p95_ms(rec: dict, key: str) -> float | None:
+    """The 95th percentile (nearest rank) of `latencies`, in ms; None with
+    fewer than 200 requests, which leave under ten beyond it."""
+    lat = sorted(latencies(rec, key))
+    if len(lat) < 200:
+        return None
+    return lat[math.ceil(0.95 * len(lat)) - 1] * 1e3
 
 
 def window_share(rec: dict, r: dict) -> float:
@@ -163,14 +174,64 @@ def idle_percent(rec: dict) -> float | None:
     return (1 - tr["busy_s"] / tr["window_s"]) * 100
 
 
+def k2_percent(rec: dict) -> float | None:
+    """Kernel K2's share of its roofline in the traced sub-window, in %: the
+    least time to read the K and V rows that the decode steps in the
+    sub-window needed (each active slot's rows at each step; the rows of
+    idle slots that K2 reads anyway are not counted), over the device time
+    of the K2 kernels (`flash_decode*`) in it. A chunk's tokens are placed
+    evenly between its submission and its end. Bound by bytes."""
+    tr, cfg = rec.get("trace"), rec["config"]
+    seconds = kernel_seconds(rec, "flash_decode")
+    if not tr or not seconds:
+        return None
+    rows = steps = 0
+    for r in rec["requests"]:
+        for c in r["chunks"]:
+            if c["t_done"] is None or c["n"] < 2:
+                continue
+            t0, span = c["t_submit"], c["t_done"] - c["t_submit"]
+            for j in range(1, c["n"]):
+                if tr["host_start"] <= t0 + span * j / c["n"] < tr["host_end"]:
+                    rows += c["prompt_len"] + j
+                    steps += 1
+    if not steps:
+        return None
+    ms, by = flops.bound(flops.decode_attention_bytes(cfg, rows, steps),
+                         flops.decode_attention_ops(cfg, rows), "bf16")
+    print(f"[k2_roofline] bound by {by}, {steps} slot-steps over {rows} rows, K2 "
+          f"{seconds:.6f} s on the device; card {rec['device']['kind']}, power limit "
+          f"{rec['device']['power_limit']}", file=sys.stderr)
+    return ms / 1e3 / seconds * 100
+
+
+def k3_rows_percent(rec: dict) -> float | None:
+    """Kernel K3's share of its roofline in the traced sub-window for the
+    row vocoder, in %: the least time the MRF stages need for the frames of
+    the chunks whose decoding ended in the sub-window (each is vocoded whole
+    as it ends; a bucket's padding is not counted as needed), over the
+    device time of the `mrf_conv*` kernels in it."""
+    tr, cfg = rec.get("trace"), rec["config"]
+    seconds = kernel_seconds(rec, "mrf_conv")
+    if not tr or not seconds:
+        return None
+    frames = sum(flops.frames_of(cfg, c["n"]) for r in rec["requests"] for c in r["chunks"]
+                 if c["t_done"] is not None and tr["host_start"] <= c["t_done"] < tr["host_end"])
+    if not frames:
+        return None
+    ms, by = flops.bound(flops.mrf_bytes(cfg, frames), flops.mrf_ops(cfg, frames), "bf16")
+    print(f"[k3_roofline] bound by {by}, {frames} frames of row chunks, K3 {seconds:.6f} s on "
+          f"the device; card {rec['device']['kind']}, power limit "
+          f"{rec['device']['power_limit']}", file=sys.stderr)
+    return ms / 1e3 / seconds * 100
+
+
 def k3_percent(rec: dict) -> float | None:
     """Kernel K3's share of its roofline in the traced sub-window, in %:
     the least time the MRF stages need for the frames of the audio that
     arrived in the sub-window (each piece vocoded just before it arrived;
     a vocoder window's context frames and a bucket's padding not counted
     as needed), over the device time of the `mrf_conv*` kernels in it."""
-    import sys
-
     tr, cfg = rec.get("trace"), rec["config"]
     seconds = kernel_seconds(rec, "mrf_conv")
     if not tr or not seconds:

@@ -73,8 +73,26 @@ def test_same_seed_same_schedule(name):
     assert sum(r.greedy for r in a) == sum(r.greedy for r in c)
     assert len(a) == len(c)
     if name == "chat":
-        assert sorted(np.diff([0.0] + [r.due for r in a]).round(9)) == \
-            sorted(np.diff([0.0] + [r.due for r in c]).round(9))
+        # every calm and burst stretch holds the same arrivals in another order
+        def per_stretch(reqs):
+            b = mix["burst"]
+            edge = [(r.due // b["period_s"], r.due % b["period_s"] >= b["period_s"] - b["length_s"])
+                    for r in reqs]
+            return {k: edge.count(k) for k in set(edge)}
+
+        assert per_stretch(a) == per_stretch(c)
+        assert [r.due for r in a] != [r.due for r in c]
+
+        # the seed only reorders the spacings drawn from `master_seed`,
+        # stretch by stretch (from its start through its arrivals to its end)
+        def spacings(reqs, start, end):
+            dues = [r.due for r in reqs if start <= r.due < end]
+            return sorted(np.diff([start, *dues, end]).round(9))
+
+        stretches = generator._stretches(mix, 60)
+        assert len(stretches) == 12
+        for start, end, _ in stretches:
+            assert spacings(a, start, end) == spacings(c, start, end)
     assert np.array_equal(generator.voice(mix, 5, 1), generator.voice(mix, 5, 1))
 
 
