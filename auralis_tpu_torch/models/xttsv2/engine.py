@@ -43,19 +43,20 @@ counterpart of the JAX engine's jitted `_vocode_row_fn(bucket)`,
 `_vocode_seg_fn` and `_vocode_seg_first_fn`; its decode blocks replay the
 runner's. A key's first call runs eagerly and is captured after it;
 `precompile_vocoder_buckets` and `precompile_decode_programs`, which
-`TTS.warmup()` calls, capture every key before serving. The eager functions
-(`_vocode_rows`, `_vocode_seg`, `_vocode_seg_first`) stay the reference and
-the CPU path. Not ported, by design: the hot/warming row-bucket sets
-(`serving_row_bucket`), which keep XLA compiles off the serving path, and
-the legacy embeds-prompt branch.
+`TTS.warmup()` calls, capture every key before serving. On the CPU the same
+programs run their functions eagerly. The eager functions (`_vocode_rows`,
+`_vocode_seg`, `_vocode_seg_first`) stay the reference. Not ported, by
+design: the hot/warming row-bucket sets (`serving_row_bucket`), which keep
+XLA compiles off the serving path, and the legacy embeds-prompt branch.
 
 So is conditioning: on the card `get_gpt_cond_latents` replays one program
 per 22.05 kHz chunk length ("cond", n_samples) and the speaker embedding one
 per 16 kHz reference length ("speaker", n_samples), the JAX engine's
 `_cond_fn(n_samples)` and `_speaker_fn(n_samples)`, captured lazily on a
 key's first call (`ref_length_quantum_s` bounds the lengths, as in JAX)
-in a memory pool of their own. The eager functions (`_cond_latents`,
-`_speaker_dvector`) stay the reference and the CPU path.
+in a memory pool of their own; on the CPU the same programs run eagerly.
+The functions (`_cond_latents`, `_speaker_dvector`) are their bodies and
+the reference.
 """
 from __future__ import annotations
 
@@ -157,11 +158,18 @@ class _VocodeBatcher:
     in the next; nothing waits on a timer.
 
     Kinds in priority order: seg_first (the first segment, on the
-    time-to-first-audio path), seg, row. Up to MAX_INFLIGHT batches run at
-    once in worker threads; they issue to the same CUDA stream as the decode
-    runner, so a vocode is ordered after the block whose latents it reads.
-    Each item carries its chunk's trace id (tracing.TRACE_ID), taken when it
-    is submitted: the batches run in the batcher's own task.
+    time-to-first-audio path), seg, row. Batches run in worker threads and
+    issue to the same CUDA stream as the decode runner, so a vocode is
+    ordered after the block whose latents it reads. Their programs run one
+    at a time, under the vocoder cache's lock (`_vocode_batch`); what
+    overlaps is each batch's host copy, which waits for the stream up to its
+    output, decode blocks included, and the trimming after it. So up to
+    MAX_INFLIGHT batches are in flight at once: with one, the batcher forms
+    no batch while that copy waits, and on an H100 (6 seeds each) the loaded
+    e-book served a median 175.7 audio_s/s against 317.5 with three, and
+    the loaded chat's time to first audio rose from 146 to 1752 ms at its
+    median. Each item carries its chunk's trace id (tracing.TRACE_ID),
+    taken when it is submitted: the batches run in the batcher's own task.
 
     Unlike the JAX batcher, a batch is not padded to a fixed size (its
     `_pad`): here too each batch size is its own captured program, but the
@@ -819,16 +827,16 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
     @torch.no_grad()
     def _conditioning(self, kind: str, wav: np.ndarray) -> np.ndarray:
         """`_cond_latents` ("cond") or `_speaker_dvector` ("speaker") of a host
-        wav [1, n], f32 on the host. On the card the program of (kind, n):
-        the wav staged through pinned memory and the output copied to the
-        host under the program's lock (conditioning runs in worker threads);
-        on the CPU the eager function."""
+        wav [1, n], f32 on the host, through the program of (kind, n)
+        (captured on the card, eager on the CPU). Conditioning runs in worker
+        threads, so the rule of `graphs.py`'s pool holds: under the cache's
+        lock the wav is staged through pinned memory, the program runs and
+        its output is cloned out of the pool; the host copy waits after the
+        release."""
         wav = np.ascontiguousarray(wav, np.float32)
-        fn = self._cond_latents if kind == "cond" else self._speaker_dvector
-        if not self._cond_programs.captures:
-            return fn(torch.from_numpy(wav).to(self.device)).float().cpu().numpy()
         if wav.ndim != 2 or wav.shape[0] != 1:
             raise ValueError(f"conditioning takes one [1, n] reference, got {wav.shape}")
+        fn = self._cond_latents if kind == "cond" else self._speaker_dvector
 
         def build():
             inp = {"wav": torch.zeros(wav.shape, dtype=torch.float32, device=self.device)}
@@ -837,7 +845,8 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         prog = self._cond_programs.get((kind, wav.shape[1]), build)
         with prog.lock:
             upload(prog.inputs["wav"], wav)
-            return prog().float().cpu().numpy()
+            out = prog().clone()
+        return out.float().cpu().numpy()
 
     async def get_audio_conditioning(
         self,
@@ -1053,8 +1062,8 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         """The batched row vocoder: latent rows [B, T_audio, D] on the device,
         each with its own n live entries, masked and padded to the bucket of
         the largest n; returns each waveform trimmed to its true length (f32
-        on the host, from 16-bit PCM). Eager: the batcher replays the
-        captured program instead (`_vocode_batch`)."""
+        on the host, from 16-bit PCM). Eager: the batcher runs the program of
+        the same body instead (`_vocode_batch`)."""
         return self._trimmed(self._rows_pcm(rows, self._lanes(ns),
                                             self._speaker_rows(speaker_embeddings),
                                             self.row_bucket(max(ns))).cpu().numpy(), ns)
@@ -1119,8 +1128,8 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
     def _vocode_seg(self, rows: torch.Tensor, ns: list, slice_starts: list,
                     speaker_embeddings: list) -> torch.Tensor:
         """`_seg_pcm` on latent rows [B, T_audio, D] on the device and host
-        per-lane n, window starts and d-vectors. Eager: the batcher replays
-        the captured program instead (`_vocode_batch`)."""
+        per-lane n, window starts and d-vectors. Eager: the batcher runs the
+        program of the same body instead (`_vocode_batch`)."""
         return self._seg_pcm(rows, self._lanes(ns), self._lanes(slice_starts),
                              self._speaker_rows(speaker_embeddings))
 
@@ -1141,12 +1150,12 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
     def _vocode_seg_first(self, rows: torch.Tensor, ns: list,
                           speaker_embeddings: list) -> torch.Tensor:
         """`_seg_first_pcm` on latent rows [B, T_audio, D] on the device and
-        host per-lane n and d-vectors. Eager: the batcher replays the
-        captured program instead (`_vocode_batch`)."""
+        host per-lane n and d-vectors. Eager: the batcher runs the program of
+        the same body instead (`_vocode_batch`)."""
         return self._seg_first_pcm(rows, self._lanes(ns), self._speaker_rows(speaker_embeddings))
 
     def _vocoder_program(self, kind: str, b: int, bucket: Optional[int] = None) -> Program:
-        """The captured vocoder program of (kind, row bucket, B), the JAX
+        """The vocoder program of (kind, row bucket, B), the JAX
         engine's `_vocode_row_fn(bucket)` / `_vocode_seg_fn` /
         `_vocode_seg_first_fn` at batch B: static inputs rows [B, the
         latents it reads, D] f32, n [B] int64, g [B, d_vector] f32 and, for
@@ -1177,32 +1186,22 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         """One batch of the vocode batcher as 16-bit PCM [B, samples] on the
         host: kind "row" (`arg`: the row bucket), "seg" (`arg`: each lane's
         window start) or "seg_first"; rows are device latent rows [T_audio,
-        D]. On the card the batch replays the captured program of its kind,
-        bucket and exact B: its inputs are staged into the program's static
-        tensors and its output copied to the host under the program's lock
-        (up to MAX_INFLIGHT batches run in threads at once). On the CPU the
-        eager functions run. The staging and the program are the device span
-        `vocode.device.<kind>` (the lanes' `trace_ids`, the batch size),
+        D]. The batch runs the program of its kind, bucket and exact B
+        (captured on the card, eager on the CPU). Batches run in worker
+        threads, so the rule of `graphs.py`'s pool holds: under the vocoder
+        cache's lock the inputs are staged into the program's static
+        tensors, the program runs and its output is cloned out of the pool;
+        the host copy waits after the release. The wait for the lock is the
+        record `vocode.lock_wait`; the staging and the program are the device
+        span `vocode.device.<kind>` (the lanes' `trace_ids`, the batch size),
         resolved once the PCM is on the host."""
-        timed = device_span(f"vocode.device.{kind}", self.device, trace_ids=list(trace_ids),
-                            batch=len(rows))
-        if not self._vocoder_programs.captures:
-            with timed:
-                stacked = torch.stack(rows)
-                if kind == "row":
-                    pcm = self._rows_pcm(stacked, self._lanes(ns),
-                                         self._speaker_rows(speaker_embeddings), arg)
-                elif kind == "seg":
-                    pcm = self._vocode_seg(stacked, ns, arg, speaker_embeddings)
-                else:
-                    pcm = self._vocode_seg_first(stacked, ns, speaker_embeddings)
-            out = pcm.cpu().numpy()
-            resolve()
-            return out
         prog = self._vocoder_program(kind, len(rows), arg if kind == "row" else None)
         inp = prog.inputs
+        t_wait = time.perf_counter()
         with prog.lock:
-            with timed:
+            trace_record("vocode.lock_wait", time.perf_counter() - t_wait)
+            with device_span(f"vocode.device.{kind}", self.device, trace_ids=list(trace_ids),
+                             batch=len(rows)):
                 width = inp["rows"].shape[1]
                 for lane, row in zip(inp["rows"], rows):
                     lane.copy_(row[:width])
@@ -1211,7 +1210,8 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
                 if kind == "seg":
                     upload(inp["starts"], np.asarray(arg, np.int64))
                 pcm = prog()
-            out = pcm.cpu().numpy()
+            pcm = pcm.clone()
+        out = pcm.cpu().numpy()
         resolve()
         return out
 

@@ -45,7 +45,7 @@ captures the whole key set before serving. So are the JAX runner's other
 jitted programs: the single insert per prefill bucket ("insert", bucket),
 the burst insert per (bucket, K) ("burst", bucket, K) and `migrate_slot`
 ("migrate",), whose per-call values (slots, id counts, sampling options)
-are staged into static device tensors under each program's lock;
+are staged into static device tensors under the cache's lock;
 `precompile_inserts()` captures them before serving. The status copy is
 issued eagerly; on the CPU everything is. The decode
 state is updated in place, so every latent row handed out (snapshot, hook

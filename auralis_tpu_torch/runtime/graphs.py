@@ -7,14 +7,22 @@ length), and each call runs it as one dispatch. Issued eagerly, the same
 work is hundreds to thousands of small launches, each paid on the host.
 Here a `ProgramCache` holds one `Program` per key: on the card, a
 `torch.cuda.CUDAGraph` replayed as one launch; on the CPU, the eager
-function itself (as the kernels' plain versions run there).
+function itself, run on every call (as the kernels' plain versions run
+there), so both take the same staged path.
 
 A program's inputs are static tensors: the caller writes into them (the
 decode state is updated in place anyway; the vocoder, the inserts and
 conditioning stage their host-built inputs with `upload`) and reads the
-outputs, which live in the cache's memory pool and are overwritten by the
-next replay. So a caller holds `program.lock` from staging through the call
-to the point where it has issued the copy of the outputs.
+outputs. All programs of a cache share its memory pool, so a replay's
+outputs are valid only until the next replay of any program of the same
+cache, whatever its key: one program's outputs may lie in blocks another
+uses for temporaries. Hence one lock per cache (`ProgramCache.lock`, which
+each of its programs hands out as `program.lock`): a caller holds it from
+staging the inputs until it has issued a device copy of the outputs into
+memory of its own (a non-blocking copy into a host tensor, issued under
+the lock, counts), and waits on the host only after releasing it. This
+holds because every caller of one cache issues to one stream, so a copy
+issued before the next replay runs before it.
 
 The first call of a key runs the function eagerly, and that run is the real
 one; only then is the key captured. A capture issues no work, so it moves no
@@ -136,22 +144,24 @@ class CudaGraph:
 
 
 class Program:
-    """One key's program. Call it with `lock` held: the first call runs `fn`
-    eagerly and captures it after; every later call replays the graph. The
-    result is fn's output (a tensor or a tuple of them); after a replay it
-    is the graph's static output, valid until the next call."""
+    """One key's program. Call it with `lock` (its cache's) held: on a
+    capturing cache the first call runs `fn` eagerly and captures it after,
+    and every later call replays the graph; otherwise every call runs `fn`.
+    The result is fn's output (a tensor or a tuple of them); after a replay
+    it is the graph's static output, valid until the next replay of any
+    program of the cache."""
 
-    def __init__(self, fn: Callable, inputs: dict, pool, generators: tuple, key):
+    def __init__(self, fn: Callable, inputs: dict, key, lock, graph_args: tuple | None):
         self.fn = fn
         self.key = key
         self.kind = kind_of(key)
         self.inputs = inputs  # static input tensors, staged by the caller
-        self.lock = threading.Lock()
+        self.lock = lock
         self.launches: dict = {}  # kernel wrapper -> launches per replay
         self.replays = 0
-        # the cache's pool and generators, not the cache: no reference
-        # cycle, so a dropped cache frees its graphs at once
-        self._pool, self._generators = pool, generators
+        # the cache's (pool, generators) if it captures, not the cache: no
+        # reference cycle, so a dropped cache frees its graphs at once
+        self._graph_args = graph_args
         self._graph: CudaGraph | None = None
 
     @property
@@ -161,7 +171,8 @@ class Program:
     def __call__(self):
         if self._graph is None:
             out = self.fn()
-            self._capture()
+            if self._graph_args is not None:
+                self._capture()
             return out
         for wrapper, n in self.launches.items():
             wrapper.launches += n
@@ -171,7 +182,7 @@ class Program:
         return self._graph.replay()
 
     def _capture(self) -> None:
-        graph = CudaGraph(self._pool, self._generators)
+        graph = CudaGraph(*self._graph_args)
         with _CAPTURE_LOCK, _build.tally_launches() as tally, _gc_paused():
             t0 = time.perf_counter()
             graph.capture(self.fn)
@@ -184,11 +195,24 @@ class Program:
 
 
 class ProgramCache:
-    """The programs of one owner (a decode state, an engine's vocoder), keyed
-    as the JAX package keys its jitted programs, sharing one memory pool.
-    Every program of a cache replays on the one stream its callers issue
-    to, so their temporaries may share the pool. On the CPU `captures` is
-    False and callers run the eager functions instead."""
+    """The programs of one owner (a decode state, an engine's vocoder, its
+    conditioning), keyed as the JAX package keys its jitted programs,
+    sharing one memory pool and one `lock`. The rule of the pool (the
+    module docstring): a replay's outputs are valid until the next replay
+    of any program of the cache, so a caller holds `lock` from staging its
+    inputs until it has issued a device copy of the outputs into memory of
+    its own, and waits on the host only after releasing it. Every caller of
+    one cache issues to one stream. The vocoder's and conditioning's caches
+    have callers on several threads at once (the batcher's and
+    conditioning's workers); a decode state's is called by one runner pass
+    at a time, under the runner's state lock. The dict of programs has a
+    lock of its own, so `get`, `keys()` and `replays()` never queue behind
+    a replay, and a caller's wait for `lock` is its wait for the pool. When
+    `captures` is False (the CPU) its programs run their functions eagerly
+    on every call, under the same lock; the cost of one path is that
+    concurrent callers of one cache run one at a time there too, and that
+    it keeps a program and its static inputs per key, as the card keeps a
+    graph per key."""
 
     def __init__(self, device, generators=(), capture: bool = True):
         # `capture=False` runs a card's programs eagerly too (a mesh over
@@ -198,6 +222,7 @@ class ProgramCache:
         self.pool = CudaGraph.new_pool() if self.captures else None
         self._programs: dict = {}
         self._lock = threading.Lock()
+        self.lock = threading.Lock()
 
     def get(self, key, build: Callable[[], tuple[Callable, dict]]) -> Program:
         """The program of `key`, made by `build() -> (fn, static inputs)` on
@@ -206,8 +231,9 @@ class ProgramCache:
             prog = self._programs.get(key)
             if prog is None:
                 fn, inputs = build()
-                prog = self._programs[key] = Program(fn, inputs, self.pool, self.generators,
-                                                     key)
+                prog = self._programs[key] = Program(
+                    fn, inputs, key, self.lock,
+                    (self.pool, self.generators) if self.captures else None)
             return prog
 
     def keys(self) -> list:

@@ -197,12 +197,12 @@ def test_replays_add_the_captured_launch_counts(monkeypatch):
 
     cache = graphs.ProgramCache("cpu")
     prog = cache.get("k", lambda: (fn, {}))
-    with prog.lock:
+    with cache.lock:
         prog()
     assert _FakeKernel.launches == 3 and prog.captured
     assert prog.launches == {_FakeKernel: 3}
     for i in range(4):
-        with prog.lock:
+        with cache.lock:
             prog()
         assert _FakeKernel.launches == 3 + 3 * (i + 1)
     _build.count_launch(_FakeKernel)
@@ -221,7 +221,7 @@ def test_captures_record_their_keys(monkeypatch):
     keys = [("row", 64, 2), (16, None, None), ("insert", 128)]
     for key in keys + keys:
         prog = cache.get(key, lambda: (lambda: torch.ones(1), {}))
-        with prog.lock:
+        with cache.lock:
             prog()
     assert graphs.captured_keys == keys
     assert [graphs.counts[f"{k}.captures"] for k in ("row", "decode", "insert")] == [1, 1, 1]
@@ -239,10 +239,41 @@ def test_a_failed_capture_raises(monkeypatch):
 
     monkeypatch.setattr(graphs, "CudaGraph", Failing)
     monkeypatch.setattr(graphs, "captures_on", lambda device: True)
-    prog = graphs.ProgramCache("cpu").get("k", lambda: (lambda: torch.zeros(1), {}))
-    with pytest.raises(RuntimeError, match="capture failed"), prog.lock:
+    cache = graphs.ProgramCache("cpu")
+    prog = cache.get("k", lambda: (lambda: torch.zeros(1), {}))
+    with pytest.raises(RuntimeError, match="capture failed"), cache.lock:
         prog()
     assert not prog.captured
+
+
+@pytest.mark.parametrize("capturing", [False, True])
+def test_programs_of_a_cache_share_its_lock(monkeypatch, capturing):
+    """Every program of a cache hands out the cache's one lock, and no
+    program makes a lock of its own; another cache has another lock. A
+    cache that does not capture (the CPU) still hands out programs, and
+    each call of one runs its function eagerly: it captures nothing and
+    counts no replay."""
+    if capturing:
+        monkeypatch.setattr(graphs, "CudaGraph", _RunningGraph)
+        monkeypatch.setattr(graphs, "captures_on", lambda device: True)
+    graphs.reset_counts()
+    calls = []
+    cache, other = graphs.ProgramCache("cpu"), graphs.ProgramCache("cpu")
+    assert cache.captures is capturing and cache.lock is not other.lock
+    progs = [cache.get(k, lambda: (lambda: calls.append(1) or torch.ones(1), {}))
+             for k in [("row", 64, 1), ("seg", None, 2), (16, None, None)]]
+    assert all(p.lock is cache.lock for p in progs)
+    assert other.get("k", lambda: (lambda: torch.ones(1), {})).lock is other.lock
+    for _ in range(3):
+        for p in progs:
+            with cache.lock:
+                p()
+    assert [p.captured for p in progs] == [capturing] * 3
+    # a capturing cache's capture runs the function once more (_RunningGraph)
+    assert len(calls) == 9 + 3 * capturing
+    assert graphs.counts["captures"] == 3 * capturing
+    assert graphs.counts["replays"] == cache.replays() == 6 * capturing
+    assert cache.keys() == ([p.key for p in progs] if capturing else [])
 
 
 # -------------------------------------------------- the runner, eager vs graphs vs JAX
@@ -396,7 +427,7 @@ def test_vocoder_programs_equal_eager(vocoder_engine, recording_graphs, monkeypa
 
 def test_two_threads_through_one_vocoder_program(vocoder_engine, recording_graphs, monkeypatch):
     """Two threads run batches of the same key (seg_first, B = 2) at once,
-    each with its own inputs, 6 times each: the program's lock covers the
+    each with its own inputs, 6 times each: the cache's lock covers the
     staging, the replay and the copy out, so each gets the PCM of its own
     inputs."""
     eng = vocoder_engine
@@ -423,6 +454,185 @@ def test_two_threads_through_one_vocoder_program(vocoder_engine, recording_graph
     assert not errors, errors
     assert eng._vocoder_programs.keys() == [("seg_first", None, 2)]
     assert graphs.counts["replays"] == 11
+
+
+class PoolGraph(RecordingGraph):
+    """RecordingGraph whose replays all return their output in one buffer
+    of their pool, from its first byte, as a real pool's blocks may alias:
+    a later replay of any program of the pool overwrites what an earlier
+    one returned. The output is a `_Watched` tensor, and `after_replay`
+    (set by a test) runs in the replaying thread after each replay."""
+
+    after_replay = None
+    BYTES = 1 << 22
+
+    @staticmethod
+    def new_pool():
+        return torch.empty(PoolGraph.BYTES, dtype=torch.uint8)
+
+    def __init__(self, pool, generators=()):
+        super().__init__(pool, generators)
+        self.pool = pool
+
+    def replay(self):
+        out = super().replay().contiguous()
+        nbytes = out.numel() * out.element_size()
+        assert nbytes <= self.BYTES
+        shared = self.pool[:nbytes].view(out.dtype).view(out.shape)
+        shared.copy_(out)
+        if PoolGraph.after_replay is not None:
+            PoolGraph.after_replay()
+        return shared.as_subclass(_Watched)
+
+
+class _Watched(torch.Tensor):
+    """A replay's output (or a tensor made from it): its host copies
+    (`cpu`, `numpy`) are logged in `log`, while a test sets it."""
+
+    log = None
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        if cls.log is not None and getattr(func, "__name__", "") in ("cpu", "numpy"):
+            cls.log.append("host copy")
+        return super().__torch_function__(func, types, args, kwargs or {})
+
+
+class _LoggedLock:
+    """A lock that logs its acquires and releases in `log`."""
+
+    def __init__(self, log: list):
+        self._lock, self.log = threading.Lock(), log
+
+    def __enter__(self):
+        self._lock.acquire()
+        self.log.append("acquire")
+
+    def __exit__(self, *exc):
+        self.log.append("release")
+        self._lock.release()
+
+
+@pytest.fixture()
+def pool_graphs(monkeypatch):
+    """Captured programs on the CPU through PoolGraph."""
+    monkeypatch.setattr(graphs, "CudaGraph", PoolGraph)
+    monkeypatch.setattr(graphs, "captures_on", lambda device: True)
+    monkeypatch.setattr(PoolGraph, "after_replay", None)
+    monkeypatch.setattr(_Watched, "log", None)
+    graphs.reset_counts()
+    yield
+    graphs.reset_counts()
+
+
+def _pool_calls(engine, which: str, monkeypatch) -> list:
+    """(cache, [(call, want)]): two calls of `which` ("vocoder":
+    `_vocode_batch`, a segment batch of 2 and a first segment;
+    "conditioning": `_conditioning`, "cond" and "speaker"), each with its
+    eager result, on a fresh cache that the engine uses."""
+    cache = graphs.ProgramCache("cpu")
+    if which == "vocoder":
+        monkeypatch.setattr(engine, "_vocoder_programs", cache)
+        calls = []
+        for kind, b, seed in (("seg", 2, 60), ("seg_first", 1, 61)):
+            rows, ns, spk = _lanes(engine, b, seed)
+            arg = _arg(engine, kind, ns, seed)
+            calls.append(((lambda k=kind, r=rows, n=ns, g=spk, a=arg:
+                           engine._vocode_batch(k, r, n, g, a)),
+                          _eager(engine, kind, rows, ns, spk, arg)))
+        return cache, calls
+    monkeypatch.setattr(engine, "_cond_programs", cache)
+    rng = np.random.default_rng(62)
+    wav22 = (0.3 * rng.standard_normal((1, 22050))).astype(np.float32)
+    wav16 = (0.3 * rng.standard_normal((1, 12000))).astype(np.float32)
+    with torch.no_grad():
+        want = [engine._cond_latents(torch.from_numpy(wav22)).numpy(),
+                engine._speaker_dvector(torch.from_numpy(wav16)).numpy()]
+    return cache, [(lambda: engine._conditioning("cond", wav22), want[0]),
+                   (lambda: engine._conditioning("speaker", wav16), want[1])]
+
+
+@pytest.mark.parametrize("first", [0, 1])
+@pytest.mark.parametrize("which", ["vocoder", "conditioning"])
+def test_a_replay_of_another_key_waits_for_the_copy_out(vocoder_engine, pool_graphs,
+                                                        monkeypatch, which, first):
+    """All programs of one cache share its pool: through PoolGraph, every
+    replay returns its output in the same bytes. Thread A replays one key
+    and then waits (up to 1 s) for thread B's replay of the other key,
+    before it copies its output out; B starts once A has replayed. Each
+    output must equal its own key's eager run. With one lock per program B
+    replays in between and A returns B's bytes; with the cache's lock B
+    waits until A has copied its output out, and both are right."""
+    _, calls = _pool_calls(vocoder_engine, which, monkeypatch)
+    (call_a, want_a), (call_b, want_b) = calls if first == 0 else calls[::-1]
+    call_a(), call_b()  # each key's first call runs eagerly and captures
+    a_replayed, b_replayed = threading.Event(), threading.Event()
+    got, errors = {}, []
+
+    def after_replay():
+        if threading.current_thread().name == "A":
+            a_replayed.set()
+            b_replayed.wait(1.0)
+        else:
+            b_replayed.set()
+
+    monkeypatch.setattr(PoolGraph, "after_replay", after_replay)
+
+    def worker(name, call):
+        try:
+            if name == "B":
+                assert a_replayed.wait(10.0)
+            got[name] = call()
+        except Exception as e:  # reported on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=("A", call_a), name="A"),
+               threading.Thread(target=worker, args=("B", call_b), name="B")]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=30)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors
+    assert a_replayed.is_set() and b_replayed.is_set()
+    np.testing.assert_array_equal(got["A"], want_a)
+    np.testing.assert_array_equal(got["B"], want_b)
+
+
+@pytest.mark.parametrize("which", ["vocoder", "conditioning"])
+def test_host_copies_wait_until_the_lock_is_released(vocoder_engine, pool_graphs, monkeypatch,
+                                                     which):
+    """With the cache's lock instrumented, each call of `_vocode_batch` and
+    `_conditioning` replays while it holds the lock and makes its host
+    copy only after releasing it: a host copy under the lock would wait
+    for the whole stream. Each vocoder batch records its wait for the lock
+    (`vocode.lock_wait`)."""
+    from auralis_tpu_torch.common import tracing
+
+    log = []
+    cache, calls = _pool_calls(vocoder_engine, which, monkeypatch)
+    cache.lock = _LoggedLock(log)
+    for call, want in calls:
+        np.testing.assert_array_equal(call(), want)  # eager, then captured
+    monkeypatch.setattr(PoolGraph, "after_replay", lambda: log.append("replay"))
+    monkeypatch.setattr(_Watched, "log", log)
+    waits = tracing.profile_summary().get("vocode.lock_wait", {"count": 0})["count"]
+    for _ in range(2):
+        for call, want in calls:
+            start = len(log)
+            np.testing.assert_array_equal(call(), want)
+            held, copies = False, 0
+            for event in log[start:]:
+                if event in ("acquire", "release"):
+                    held = event == "acquire"
+                elif event == "replay":
+                    assert held, log[start:]
+                else:
+                    assert not held, log[start:]
+                    copies += 1
+            assert log[start:].count("replay") == 1 and copies >= 1, log[start:]
+    waited = tracing.profile_summary().get("vocode.lock_wait", {"count": 0})["count"] - waits
+    assert waited == (4 if which == "vocoder" else 0)
 
 
 def test_precompile_vocoder_buckets_captures_every_batcher_key(vocoder_engine, recording_graphs,
