@@ -26,8 +26,11 @@ card, without tensor parallelism, int8 KV, the per-program W8A8 policy (at
 the card's KV-to-weight crossover), int8 prefill weights and slot
 bucketing each default to the value an H100 A/B set (the *_CUDA constants
 below, PERF.md §5): each lost there to its bf16 or unbucketed counterpart,
-so each is off; on the CPU they stay off, as the JAX engine has them off a
-TPU. An explicit argument always wins. The slot
+so each is off. A bf16 KV cache there decodes through K2 unless the config
+names a decode kernel: it reads each slot's rows up to that slot's own
+length, where the dense bf16 body reads every slot's up to the block's
+length bound. On the CPU all of these stay off, as the JAX engine has them
+off a TPU. An explicit argument always wins. The slot
 count is fitted to the card's free memory after the weights, less what the
 captured programs of `TTS.warmup()` will reserve (`_fit_slots_to_hbm`,
 `_program_pool_bytes`). Options the port lacks are dropped with a warning.
@@ -127,13 +130,19 @@ W8A8_KV_TO_WEIGHT_CROSSOVER_TPU = 3
 # prod_step_torch.py's step matrix and bench_torch.py --config default's A/B
 # (PERF.md §5, "Serving defaults on the H100"): the dense int8 body, W8A8
 # decode and int8 prefill were slower than bf16 in every cell, and slot
-# bucketing cost e-book RTF by more than the spread of its calls. W8A8 won
-# at no KV-to-weight ratio, so the card's crossover is 0.
+# bucketing cost e-book RTF by more than the spread of its calls, so those
+# four are off. W8A8 won at no KV-to-weight ratio, so the card's crossover
+# is 0. K2 (flash_decode) is on for a bf16 KV cache: on an H100 a captured
+# 64-step block of 64 slots at length bound 512 took 2.99 ms a step through
+# K2 against 4.1-4.3 ms through the dense bf16 body, which reads every
+# slot's rows up to the bound where K2 reads each slot's up to its own
+# length (PERF.md §6).
 KV_INT8_CUDA = False
 W8A8_AUTO_CUDA = False
 PREFILL_W8A8_CUDA = False
 SLOT_BUCKETING_CUDA = False
 W8A8_KV_TO_WEIGHT_CROSSOVER_CUDA = 0
+FLASH_DECODE_CUDA = True
 # headroom the slot fit leaves on the card for activations and the
 # allocator, as a share of its memory (the JAX engine's 8%)
 HBM_HEADROOM = 0.08
@@ -317,7 +326,7 @@ class _SpecFirstSeg:
 @dataclasses.dataclass(frozen=True)
 class ServingDefaults:
     """What `serving_defaults` resolves: the GPT config with kv_int8,
-    decode_w8a8 and prefill_w8a8 set, whether the per-program W8A8 policy is
+    flash_decode, decode_w8a8 and prefill_w8a8 set, whether the per-program W8A8 policy is
     armed and at which KV-to-weight crossover, and slot bucketing."""
 
     gpt_config: XTTSGPTConfig
@@ -336,6 +345,10 @@ def serving_defaults(device_type: str, tensor_parallel_size: int, gpt_config: XT
     constants for the values it measured on a TPU:
     - an explicit argument wins; `kv_int8` is resolved only without
       flash_decode, and defaults off under tensor parallelism;
+    - on one card a resolved bf16 KV cache (kv_int8 off) whose config sets
+      neither flash_decode nor ragged_decode takes flash_decode
+      (FLASH_DECODE_CUDA): K2 instead of the dense bf16 body, a step for
+      the card alone, which JAX does not take;
     - the W8A8 policy arms only when `decode_w8a8` is unset, the config's
       decode_w8a8 is off and neither flash_decode nor ragged_decode is on;
     - `prefill_w8a8` arms only when `decode_w8a8 is not False`;
@@ -348,6 +361,9 @@ def serving_defaults(device_type: str, tensor_parallel_size: int, gpt_config: XT
         kv_int8 = card and single and KV_INT8_CUDA
     if kv_int8 is not None and kv_int8 != gpt_config.kv_int8:
         gpt_config = dataclasses.replace(gpt_config, kv_int8=kv_int8)
+    if (card and single and FLASH_DECODE_CUDA and not gpt_config.kv_int8
+            and not gpt_config.flash_decode and not gpt_config.ragged_decode):
+        gpt_config = dataclasses.replace(gpt_config, flash_decode=True)
     if (decode_w8a8 or gpt_config.decode_w8a8) and not single:
         logger.warning(
             "decode_w8a8 is unsupported under tensor parallelism (int8 weights would "
@@ -608,7 +624,9 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         - Each key's first run is eager: the largest program's temporaries
           are needed once more, in the allocator's own cache.
         - Per slot, the decode blocks' share: K2/K4's split workspace, or
-          for the dense bodies the f32 copies of a slot's K and V rows."""
+          for the dense bodies the f32 size of a slot's K and V rows, the
+          copies the dense int8 body makes; the dense bf16 body reads its
+          rows in place, and its f32 scores take far less."""
         if self.device.type != "cuda":
             return 0, 0
         g = self.gpt_config

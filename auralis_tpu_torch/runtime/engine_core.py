@@ -60,8 +60,9 @@ eagerly (no captured program; JAX marks this path not latency-optimized).
 
 Tracing (common/tracing.py): each pass's inserts and compaction are one
 `decode.insert_device` device span and its decode block one
-`decode.block_device` span (attributes: steps, bounds, program, the trace
-ids of the chunks inserted or owned), resolved at the status read; the
+`decode.block_device` span (attributes: steps, bounds, program: its
+weights and decode attention, e.g. "bf16_k2"; the trace ids of the chunks
+inserted or owned), resolved at the status read; the
 runner's host turns (`decode.handoff`, `decode.dispatch`,
 `decode.status_wait`, `decode.snapshots`, `decode.hooks`,
 `decode.harvest`, `decode.idle_wait`) and each chunk's life from
@@ -889,8 +890,7 @@ class DecodeEngine:
             with device_span("decode.block_device", self.device,
                              counts={"decode.block_steps": n_steps}, steps=n_steps,
                              slot_bound=slot_bound, len_bound=len_bound,
-                             program=("w8a8" if cfg.decode_w8a8 else "bf16")
-                             + ("_fp" if cfg.decode_attn_fp else ""),
+                             program=self._program_name(cfg),
                              trace_ids=[p.trace_id for p in self._slot_owner.values()]):
                 self._decode_block(n_steps, len_bound, slot_bound, host)
             event = None
@@ -902,6 +902,15 @@ class DecodeEngine:
         st["slot_bound_blocks"] += slot_bound is not None
         interval("decode.dispatch", t0, t2)
         return _Status(host, event)
+
+    @staticmethod
+    def _program_name(cfg: XTTSGPTConfig) -> str:
+        """The block's program as its span names it: the weights ("w8a8" or
+        "bf16"), the decode attention ("_k2", "_k4", or none for the dense
+        bodies) and the dense int8 body's bf16 probabilities ("_fp")."""
+        route = "_k2" if cfg.flash_decode else "_k4" if cfg.ragged_decode else ""
+        return (("w8a8" if cfg.decode_w8a8 else "bf16") + route
+                + ("_fp" if cfg.decode_attn_fp else ""))
 
     def _count_rows(self, n_steps: int, slot_bound: int | None, len_bound: int | None) -> None:
         """Count the K/V rows the next block's program reads, summed over its

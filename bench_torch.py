@@ -15,9 +15,9 @@ Configurations (`--config`):
 - default: `XTTSConfig()` with no kernel flag and every engine flag left to
   the engine's own serving defaults (`serving_defaults`: on one card the
   values an H100 A/B set for int8 KV, the per-program W8A8 policy, int8
-  prefill and slot bucketing), as bench.py builds its engine; the dense
-  decode bodies and the prompt's attention in plain PyTorch, kernel K3
-  (MRF) in the vocoder.
+  prefill and slot bucketing, and K2 for a bf16 KV cache), as bench.py
+  builds its engine; the prompt's attention in plain PyTorch, kernel K2
+  (flash-decode append) in decode on one card and K3 (MRF) in the vocoder.
 - bf16: `prefill_flash` + `flash_decode`, bf16 weights and KV cache;
   kernels K1 (prefill attention), K2 (flash-decode append), K3.
 - int8: `prefill_flash` + `ragged_decode`, with `kv_int8`, `decode_w8a8`
@@ -159,9 +159,10 @@ CONFIGS = {
              {"kv_int8": True, "decode_w8a8": True, "prefill_w8a8": True,
               "slot_bucketing": False}),
 }
-# the kernels (chip_smoke's wrapper names) each configuration's path runs
+# the kernels (chip_smoke's wrapper names) each configuration's path runs on
+# one card
 CONFIG_KERNELS = {
-    "default": ("mrf_stage",),
+    "default": ("flash_decode_append", "mrf_stage"),
     "bf16": ("prefill_attention", "flash_decode_append", "mrf_stage"),
     "int8": ("prefill_attention", "ragged_decode", "mrf_stage"),
 }

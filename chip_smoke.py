@@ -183,7 +183,8 @@ Phases:
     decode key was captured with against the policy (W8A8 on one side of
     the crossover and bf16 weights on the other where it is armed; bf16
     weights everywhere on the H100); then 4 concurrent requests with no
-    capture, programs replaying and K3 launching; one short greedy request
+    capture, programs replaying and K2 (the card's default decode
+    attention on a bf16 cache) and K3 launching; one short greedy request
     bit-equal (tokens and PCM) to an engine given the same flags
     explicitly, lazily captured and replayed.
 
@@ -3231,7 +3232,7 @@ def run_bench_sections(dev, smi: str) -> dict:
 # the card's serving defaults as PERF.md §5's table ("Serving defaults on
 # the H100") sets them: what an engine built with no flag on one card must
 # resolve to
-DEFAULTS_TABLE = {"prefill_flash": False, "flash_decode": False, "ragged_decode": False,
+DEFAULTS_TABLE = {"prefill_flash": False, "flash_decode": True, "ragged_decode": False,
                   "kv_int8": False, "decode_w8a8": False, "prefill_w8a8": False,
                   "decode_attn_fp": False, "w8a8_policy": False, "w8a8_crossover": 0,
                   "slot_bucketing": False, "attn_fp_max_cells": 64 * 1280}
@@ -3249,8 +3250,8 @@ def run_defaults(dev, smi: str, tokenizer) -> dict:
     key was captured with against the W8A8 policy at its (length bound,
     slot bound), which must pick W8A8 on one side of the crossover and bf16
     weights on the other when it is armed; `TTS.warmup()`, then 4
-    concurrent requests with no capture, decode programs replaying and K3
-    launching; a short greedy request bit-equal (tokens and PCM) to an
+    concurrent requests with no capture, decode programs replaying and K2
+    and K3 launching; a short greedy request bit-equal (tokens and PCM) to an
     engine given the same flags explicitly. Returns the kernel launches of
     the drives."""
     import bench_torch
@@ -3343,8 +3344,9 @@ def run_defaults(dev, smi: str, tokenizer) -> dict:
             raise AssertionError(f"9: {graphs.counts['captures']} programs captured after "
                                  f"TTS.warmup(): {graphs.captured_keys}")
         must_replay("phase 9's requests", graphs.counts)
-        if launches["mrf_stage"] <= 0:
-            raise AssertionError("kernel mrf_stage was not launched by phase 9's requests")
+        for name in ("flash_decode_append", "mrf_stage"):
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched by phase 9's requests")
 
         # the same flags given explicitly: bit-equal greedy tokens and PCM
         text = "Hello world, this is a test of speech."

@@ -201,13 +201,14 @@ def test_main_without_a_card_exits_nonzero(monkeypatch, capsys):
 
 
 def test_configs_name_their_kernels():
-    """default sets no flag and runs K3 alone (bench.py's flagless engine);
+    """default sets no flag and runs K2 (the card's serving default on a
+    bf16 cache) and K3 (bench.py's flagless engine);
     bf16 runs K1/K2 (flash_decode), int8 K1/K4 (ragged_decode, int8 KV),
     each with every engine flag pinned: int8 prefill and the W8A8 policy off
     on bf16, forced W8A8 on int8, slot bucketing off on both."""
     bf16, int8 = bench_torch.CONFIGS["bf16"], bench_torch.CONFIGS["int8"]
     assert bench_torch.CONFIGS["default"] == ({}, {})
-    assert bench_torch.CONFIG_KERNELS["default"] == ("mrf_stage",)
+    assert bench_torch.CONFIG_KERNELS["default"] == ("flash_decode_append", "mrf_stage")
     assert bf16 == ({"prefill_flash": True, "flash_decode": True},
                     {"kv_int8": False, "decode_w8a8": False, "prefill_w8a8": False,
                      "slot_bucketing": False})

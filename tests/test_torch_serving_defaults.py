@@ -11,9 +11,14 @@ engine's accelerator branch, on the CPU.
   given the armed policy picks the program JAX's `_cfg_for` picks for every
   precompile key.
 - A replica takes its donor's resolved configuration as it is.
+- A CPU runner given the card's resolved config (K2's plain version) reads
+  each slot's own rows: with 4 of 16 slots owned, most rows it reads are
+  live, against a quarter under the dense body's config; both serve the
+  same greedy tokens, and each block's span names its route.
 - One prod_step_torch.py cell per variant and bench_torch.py's `default`
   configuration build and run at tiny width (untimed: there is no CPU
   timing)."""
+import asyncio
 import dataclasses
 import json
 import subprocess
@@ -23,6 +28,7 @@ from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -36,6 +42,7 @@ from helpers import build_tiny_engine  # noqa: E402
 from auralis_tpu.models.xttsv2 import gpt as jgpt  # noqa: E402
 from auralis_tpu.models.xttsv2.engine import XTTSv2Engine as JaxEngine  # noqa: E402
 from auralis_tpu.runtime import engine_core as jcore  # noqa: E402
+from auralis_tpu_torch.common import tracing  # noqa: E402
 from auralis_tpu_torch.models.xttsv2 import engine as tengine  # noqa: E402
 from auralis_tpu_torch.models.xttsv2 import gpt as tgpt  # noqa: E402
 from auralis_tpu_torch.models.xttsv2 import weights as tw  # noqa: E402
@@ -49,9 +56,9 @@ from auralis_tpu_torch.parallel.replica import ReplicatedTTSEngine  # noqa: E402
 from auralis_tpu_torch.runtime import engine_core as tcore  # noqa: E402
 
 # PERF.md §5's table: what one card without tensor parallelism resolves an
-# engine built with no flag to
-CARD = {"kv_int8": False, "w8a8_auto": False, "prefill_w8a8": False, "slot_bucketing": False,
-        "crossover": 0, "attn_fp_max_cells": 64 * 1280}
+# engine built with no flag to (K2 on its bf16 cache, PERF.md §6)
+CARD = {"kv_int8": False, "flash_decode": True, "w8a8_auto": False, "prefill_w8a8": False,
+        "slot_bucketing": False, "crossover": 0, "attn_fp_max_cells": 64 * 1280}
 # PERF.md §5's policy table at full width on the card: the (slots, length
 # bound) blocks of the grid below that run the int8 decode weights, by KV
 # cache
@@ -81,8 +88,9 @@ def _cases():
 
 def _resolved(defaults: ServingDefaults) -> dict:
     g = defaults.gpt_config
-    return {"kv_int8": g.kv_int8, "decode_w8a8": g.decode_w8a8, "prefill_w8a8": g.prefill_w8a8,
-            "w8a8_auto": defaults.w8a8_auto, "slot_bucketing": defaults.slot_bucketing}
+    return {"kv_int8": g.kv_int8, "flash_decode": g.flash_decode, "decode_w8a8": g.decode_w8a8,
+            "prefill_w8a8": g.prefill_w8a8, "w8a8_auto": defaults.w8a8_auto,
+            "slot_bucketing": defaults.slot_bucketing}
 
 
 @pytest.fixture(scope="module")
@@ -96,7 +104,8 @@ def test_cpu_defaults_equal_jax_cpu_engine(jax_tiny, name, flags):
     cfg = dataclasses.replace(jax_tiny.gpt_config, **KERNEL_CONFIGS[name])
     je = JaxEngine(jax_tiny.hifi_config, cfg, params=jax_tiny.params, core=jax_tiny.core,
                    max_concurrency=1, **flags)
-    want = {"kv_int8": je.gpt_config.kv_int8, "decode_w8a8": je.gpt_config.decode_w8a8,
+    want = {"kv_int8": je.gpt_config.kv_int8, "flash_decode": je.gpt_config.flash_decode,
+            "decode_w8a8": je.gpt_config.decode_w8a8,
             "prefill_w8a8": je.gpt_config.prefill_w8a8, "w8a8_auto": je._w8a8_auto,
             "slot_bucketing": je.decode_engine.slot_bucketing}
     port_cfg = dataclasses.replace(tiny_test_config().gpt, **KERNEL_CONFIGS[name])
@@ -107,13 +116,15 @@ def test_cpu_defaults_equal_jax_cpu_engine(jax_tiny, name, flags):
 
 def test_cuda_defaults_are_the_card_table():
     """One card, no tensor parallelism: the flagless config resolves to the
-    table; flash_decode keeps its bf16 cache and ragged_decode its int8 one,
-    neither arms the policy; an explicit argument wins; the caller's config
-    is never mutated."""
+    table, K2 armed on its bf16 cache; flash_decode keeps its bf16 cache and
+    ragged_decode its int8 one, neither arms the policy; an explicit
+    argument wins (kv_int8=True keeps the int8 paths, without K2); the
+    caller's config is never mutated."""
     cfg = XTTSGPTConfig()
     before = dataclasses.asdict(cfg)
     got = serving_defaults("cuda", 1, cfg)
-    assert _resolved(got) == {"kv_int8": CARD["kv_int8"], "decode_w8a8": False,
+    assert _resolved(got) == {"kv_int8": CARD["kv_int8"], "flash_decode": CARD["flash_decode"],
+                              "decode_w8a8": False,
                               "prefill_w8a8": CARD["prefill_w8a8"],
                               "w8a8_auto": CARD["w8a8_auto"],
                               "slot_bucketing": CARD["slot_bucketing"]}
@@ -121,17 +132,30 @@ def test_cuda_defaults_are_the_card_table():
     assert tcore.ATTN_FP_MAX_CELLS_CUDA == CARD["attn_fp_max_cells"]
     changed = serving_defaults("cuda", 1, cfg, kv_int8=True, prefill_w8a8=True)
     assert changed.gpt_config.kv_int8 and changed.gpt_config.prefill_w8a8
+    assert not changed.gpt_config.flash_decode  # the dense int8 body
     assert dataclasses.asdict(cfg) == before  # a replaced copy, never the caller's config
+    assert not cfg.flash_decode
     flash = serving_defaults("cuda", 1, dataclasses.replace(cfg, flash_decode=True))
     assert not flash.gpt_config.kv_int8 and not flash.w8a8_auto
+    assert flash.gpt_config.flash_decode and not flash.gpt_config.ragged_decode
     assert flash.gpt_config.prefill_w8a8 == CARD["prefill_w8a8"]
     ragged = serving_defaults("cuda", 1, dataclasses.replace(cfg, ragged_decode=True),
                               kv_int8=True)
     assert ragged.gpt_config.kv_int8 and not ragged.w8a8_auto
+    assert not ragged.gpt_config.flash_decode  # K4
+    # ragged_decode names a decode kernel: K2 is not armed beside it, even
+    # where kv_int8 resolves off (the engine then refuses the config)
+    assert not serving_defaults("cuda", 1, dataclasses.replace(
+        cfg, ragged_decode=True)).gpt_config.flash_decode
     off = serving_defaults("cuda", 1, cfg, kv_int8=False, decode_w8a8=False,
                            slot_bucketing=False)
-    assert _resolved(off) == {"kv_int8": False, "decode_w8a8": False, "prefill_w8a8": False,
-                              "w8a8_auto": False, "slot_bucketing": False}
+    assert _resolved(off) == {"kv_int8": False, "flash_decode": True, "decode_w8a8": False,
+                              "prefill_w8a8": False, "w8a8_auto": False,
+                              "slot_bucketing": False}
+    # the CPU and tensor parallelism keep the dense bodies
+    assert not serving_defaults("cpu", 1, cfg).gpt_config.flash_decode
+    assert not serving_defaults("cuda", 2, cfg).gpt_config.flash_decode
+    assert dataclasses.asdict(cfg) == before
     forced = serving_defaults("cuda", 1, cfg, decode_w8a8=True)
     assert forced.gpt_config.decode_w8a8 and not forced.w8a8_auto
     assert serving_defaults("cuda", 1, cfg, prefill_w8a8=False).gpt_config.prefill_w8a8 is False
@@ -147,14 +171,15 @@ def test_tensor_parallelism_refuses_int8_weights(jax_tiny, monkeypatch, device_t
     for flags in ({"decode_w8a8": True, "prefill_w8a8": True}, {}):
         je = JaxEngine(jax_tiny.hifi_config, jax_tiny.gpt_config, params=jax_tiny.params,
                        core=jax_tiny.core, max_concurrency=1, tensor_parallel_size=2, **flags)
-        want = {"kv_int8": je.gpt_config.kv_int8, "decode_w8a8": je.gpt_config.decode_w8a8,
+        want = {"kv_int8": je.gpt_config.kv_int8, "flash_decode": je.gpt_config.flash_decode,
+                "decode_w8a8": je.gpt_config.decode_w8a8,
                 "prefill_w8a8": je.gpt_config.prefill_w8a8, "w8a8_auto": je._w8a8_auto,
                 "slot_bucketing": je.decode_engine.slot_bucketing}
         got = serving_defaults(device_type, 2, tiny_test_config().gpt, **flags)
         assert {k: v for k, v in _resolved(got).items() if k != "slot_bucketing"} == {
             k: v for k, v in want.items() if k != "slot_bucketing"}
         assert not (got.gpt_config.decode_w8a8 or got.gpt_config.prefill_w8a8 or got.w8a8_auto
-                    or got.gpt_config.kv_int8)
+                    or got.gpt_config.kv_int8 or got.gpt_config.flash_decode)
         if device_type == "cpu":
             assert got.slot_bucketing == want["slot_bucketing"]
     # the config's own flags are refused too
@@ -273,6 +298,89 @@ def test_engine_arms_the_resolved_policy_and_replicas_copy_it():
                          vocoder_dtype=torch.float32)
     assert not plain._w8a8_auto and plain.decode_engine._w8a8_policy is None
     assert "blocks_q8" not in plain.params and not plain.decode_engine.slot_bucketing
+
+
+# ------------------------------------------------ the card's decode route
+ROUTE_SLOTS, ROUTE_OWNED, ROUTE_STEPS = 16, 4, 16
+
+
+def _route_run(cfg: XTTSGPTConfig) -> dict:
+    """A CPU runner with 16 slots serving 4 greedy chunks of one 16-step
+    block (tiny weights whose stop token never wins, prompts of 30 ids):
+    what its row counters add for each block as it dispatches it, with the
+    slots it owns then, the chunks' tokens and the programs its block spans
+    name. The runner dispatches a second block before it reads the first's
+    status; no chunk is live in it."""
+    p = tw.init_gpt_params(cfg, 5)
+    p["mel_head_b"][cfg.stop_audio_token] = -1e4
+    engine = tcore.DecodeEngine(tw.tree_to_torch(p, "cpu"), cfg, num_slots=ROUTE_SLOTS,
+                                cache_dtype=torch.float32, steps_per_sync=ROUTE_STEPS,
+                                device="cpu")
+    rng = np.random.default_rng(5)
+    prompts = [tcore.TokenPrompt(
+        cond=torch.from_numpy((0.5 * rng.standard_normal(
+            (cfg.num_cond_latents, cfg.hidden_size))).astype(np.float32)),
+        ids=rng.integers(5, 300, 30).astype(np.int64)) for _ in range(ROUTE_OWNED)]
+    opts = tcore.SamplingOptions(do_sample=False, max_new_tokens=ROUTE_STEPS)
+    counted, count_rows = [], engine._count_rows
+
+    def counting(*args):
+        s0 = tracing.profile_summary()
+        count_rows(*args)
+        s1 = tracing.profile_summary()
+        counted.append({k: s1[f"decode.rows_{k}"]["total_s"]
+                        - s0.get(f"decode.rows_{k}", {"total_s": 0.0})["total_s"]
+                        for k in ("read", "live")} | {"owned": len(engine._slot_owner)})
+
+    engine._count_rows = counting
+
+    async def serve():
+        out = await asyncio.gather(*(engine.generate(pr, opts) for pr in prompts))
+        await engine.shutdown()
+        return out
+
+    tracing.clear()
+    tracing.enable()
+    try:
+        out = asyncio.run(serve())
+        blocks = [e for e in tracing.events() if e.name == "decode.block_device"]
+    finally:
+        tracing.disable()
+        tracing.clear()
+    return {"blocks": counted, "n": [n for _, _, n in out],
+            "tokens": [np.asarray(t).reshape(-1)[:n].tolist() for t, _, n in out],
+            "programs": [e.attrs["program"] for e in blocks]}
+
+
+@pytest.fixture(scope="module")
+def route_runs():
+    base = tiny_test_config().gpt
+    card = serving_defaults("cuda", 1, base).gpt_config
+    dense = serving_defaults("cpu", 1, base).gpt_config
+    assert card.flash_decode and not dense.flash_decode
+    return {"k2": _route_run(card), "dense": _route_run(dense)}
+
+
+@pytest.mark.parametrize("route, program, live_share",
+                         [("k2", "bf16_k2", (0.8, 1.0)), ("dense", "bf16", (0.0, 0.3))])
+def test_card_route_reads_each_slots_own_rows(route_runs, route, program, live_share):
+    """Under the card's resolved config the runner reads each slot's rows up
+    to its own length, so with 4 of 16 slots owned at least 80% of the rows
+    its block reads are live; under the dense body's config every slot's
+    rows up to the block's length bound, so a quarter. One block serves the
+    chunks, and each block's span names its route."""
+    run = route_runs[route]
+    assert run["n"] == [ROUTE_STEPS] * ROUTE_OWNED
+    first = run["blocks"][0]
+    assert first["owned"] == ROUTE_OWNED
+    share = first["live"] / first["read"]
+    assert live_share[0] <= share <= live_share[1], share
+    assert run["programs"] and set(run["programs"]) == {program}
+    assert len(run["programs"]) == len(run["blocks"])
+
+
+def test_card_route_serves_the_dense_bodys_greedy_tokens(route_runs):
+    assert route_runs["k2"]["tokens"] == route_runs["dense"]["tokens"]
 
 
 # ------------------------------------------------ prod_step_torch.py
