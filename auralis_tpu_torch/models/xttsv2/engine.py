@@ -95,7 +95,7 @@ from ...runtime.engine_core import DecodeEngine, SamplingOptions, TokenPrompt
 from ...runtime.graphs import Program, ProgramCache, upload
 from ..base import BaseAsyncTTSEngine, ConditioningConfig
 from .config import XTTSConfig, XTTSGPTConfig, tiny_test_config
-from .gpt import quantize_decode_weights
+from .gpt import READS_BY_LENGTH, decode_route, quantize_decode_weights
 from .hifigan import (
     RESBLOCK_KERNELS,
     UPSAMPLE_RATES,
@@ -639,7 +639,7 @@ class XTTSv2Engine(BaseAsyncTTSEngine):
         eager = max(self._vocoder_peak_bytes(*keys[0]), inserts)
         t_pad = -(-g.max_seq_len // CHUNK) * CHUNK
         lanes = g.hidden_size // max(1, self._tp)
-        if g.flash_decode or g.ragged_decode:
+        if decode_route(g) in READS_BY_LENGTH:
             per_slot = g.num_attention_heads * (t_pad // DECODE_SPLIT) * PARTIAL_FLOATS * 4
         else:
             per_slot = 2 * t_pad * lanes * 4

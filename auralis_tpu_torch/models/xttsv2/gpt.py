@@ -14,11 +14,11 @@ Differences from the JAX module:
   return a new cache);
 - layers run as a Python loop (what `unroll_layers` asked XLA for);
 - `prefill_flash` routes prefill attention through kernel K1
-  (ops/prefill_attention.py), `flash_decode` routes decode attention through
-  kernel K2 and `kv_int8` + `ragged_decode` through kernel K4
-  (ops/experimental/attention.py); otherwise the dense masked bodies below
-  run, in the cache dtype or, under `kv_int8`, on int8 rows with per-token
-  scales;
+  (ops/prefill_attention.py); `decode_route` routes decode attention:
+  `flash_decode` through kernel K2 and `kv_int8` + `ragged_decode` through
+  kernel K4 (ops/experimental/attention.py), otherwise the dense masked
+  bodies below, in the cache dtype or, under `kv_int8`, on int8 rows with
+  per-token scales;
 - the int8 x int8 products that XLA runs as int32 dots are `torch._int_mm`
   (ops/quant.py) for the W8A8 matmuls and exact f32/f64 sums of integers in
   the dense int8 attention body;
@@ -92,6 +92,23 @@ class KVCache:
         return [t for t in (self.k, self.v, self.k_scale, self.v_scale) if t is not None]
 
 
+# the routes that read each slot's rows to its own length, not to the bound
+READS_BY_LENGTH = frozenset({"k2", "k4"})
+
+
+def decode_route(cfg: XTTSGPTConfig) -> str:
+    """The decode attention the flags pick, the one reader of flash_decode
+    and ragged_decode: "k2", "k4" (kv_int8 + ragged_decode), "int8" (the
+    dense int8 body) or "dense". Raises on flags no cache serves."""
+    if cfg.ragged_decode and not cfg.kv_int8:
+        raise ValueError("ragged_decode composes with (requires) kv_int8")
+    if cfg.kv_int8:
+        if cfg.flash_decode:
+            raise ValueError("kv_int8 and flash_decode are exclusive")
+        return "k4" if cfg.ragged_decode else "int8"
+    return "k2" if cfg.flash_decode else "dense"
+
+
 def make_kv_cache(cfg: XTTSGPTConfig, num_slots: int, dtype=torch.bfloat16,
                   device="cuda") -> KVCache:
     """Zeroed cache in `dtype` on `device` (the card unless the caller names
@@ -99,11 +116,8 @@ def make_kv_cache(cfg: XTTSGPTConfig, num_slots: int, dtype=torch.bfloat16,
     initialised to ones (`dtype` is then unused)."""
     t_pad = -(-cfg.max_seq_len // CHUNK) * CHUNK
     shape = (cfg.num_hidden_layers, num_slots, t_pad, cfg.num_attention_heads * cfg.head_dim)
-    if cfg.ragged_decode and not cfg.kv_int8:
-        raise ValueError("ragged_decode composes with (requires) kv_int8")
+    decode_route(cfg)
     if cfg.kv_int8:
-        if cfg.flash_decode:
-            raise ValueError("kv_int8 and flash_decode are exclusive")
         return KVCache(torch.zeros(shape, dtype=torch.int8, device=device),
                        torch.zeros(shape, dtype=torch.int8, device=device),
                        torch.ones(shape[:3], dtype=torch.float32, device=device),
@@ -230,20 +244,10 @@ def _mlp(params: dict, layer: int, x: torch.Tensor, w8: bool) -> torch.Tensor:
 # --------------------------------------------------------- attention bodies
 
 
-def _prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
-                       dtype: torch.dtype) -> torch.Tensor:
-    """Dense masked prompt attention: q/k/v [T, H, Dh], mask [T, T] ->
-    ctx [T, H, Dh] f32 (probabilities rounded to `dtype`)."""
-    scores = torch.einsum("qhd,khd->hqk", q.float(), k.float()) * (1.0 / math.sqrt(q.shape[-1]))
-    scores = scores.masked_fill(~mask[None], torch.finfo(torch.float32).min)
-    probs = torch.softmax(scores, dim=-1).to(dtype)
-    return torch.einsum("hqk,khd->qhd", probs.float(), v.float())
-
-
 def _prefill_attention_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """`_prefill_attention` per lane: q/k/v [K, T, H, Dh], mask [K, T, T]
-    -> ctx [K, T, H, Dh] f32."""
+    """Dense masked prompt attention of K lanes (one for a single prompt): q/k/v
+    [K, T, H, Dh], mask [K, T, T] -> ctx [K, T, H, Dh] f32, probabilities in `dtype`."""
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(q.shape[-1]))
     scores = scores.masked_fill(~mask[:, None], torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1).to(dtype)
@@ -330,7 +334,7 @@ def gpt_prefill(params: dict, cfg: XTTSGPTConfig, embeds: torch.Tensor,
         if cfg.prefill_flash:
             ctx = prefill_flash_attention(q, k, v, length32)  # [T, H, Dh] f32
         else:
-            ctx = _prefill_attention(q, k, v, mask, x.dtype)
+            ctx = _prefill_attention_batched(q[None], k[None], v[None], mask[None], x.dtype)
         ctx = ctx.reshape(t_pad, d).to(x.dtype)
         x = x + _mm(params, layer, "attn_proj_w", ctx, w8)
         x = _mlp(params, layer, x, w8)
@@ -413,7 +417,7 @@ def gpt_prefill_batched(params: dict, cfg: XTTSGPTConfig, embeds: torch.Tensor,
 
 
 def _int8_attention(cfg: XTTSGPTConfig, cache: KVCache, layer: int, q: torch.Tensor,
-                    k: torch.Tensor, v: torch.Tensor, lens: torch.Tensor,
+                    k: torch.Tensor, v: torch.Tensor, slot_idx: torch.Tensor, lens: torch.Tensor,
                     live: torch.Tensor, new_rows: tuple | None = None) -> torch.Tensor:
     """The dense int8 body of the JAX decode step (gpt.py:505-573): scatter
     this step's quantised rows and scales, int8 scores x k-scale x q-scale,
@@ -426,7 +430,6 @@ def _int8_attention(cfg: XTTSGPTConfig, cache: KVCache, layer: int, q: torch.Ten
     s, t = live.shape
     hd = cfg.head_dim
     nh = q.shape[-1] // hd
-    slot_idx = torch.arange(s, device=q.device)
     if new_rows is None:
         new_rows = (_quantize_rows(k), _quantize_rows(v))
     for rows, scales, (q8, sc) in ((cache.k, cache.k_scale, new_rows[0]),
@@ -454,6 +457,36 @@ def _int8_attention(cfg: XTTSGPTConfig, cache: KVCache, layer: int, q: torch.Ten
     return ctx_i.float() * p_s[:, :, None]
 
 
+def _dense_masks(route: str, seq_lens: torch.Tensor, len_bound: int | None, max_len: int,
+                 d: int, hd: int) -> tuple | None:
+    """The dense bodies' per-step (slot_idx, lens, live [S, bound], onehot
+    [d, d/hd]) for q of d lanes, on seq_lens' device; None for K2 and K4."""
+    if route in READS_BY_LENGTH:
+        return None
+    dev, lens = seq_lens.device, seq_lens.long()
+    live = torch.arange(min(len_bound or max_len, max_len), device=dev)[None, :] <= lens[:, None]
+    onehot = torch.arange(d, device=dev)[:, None] // hd == torch.arange(d // hd, device=dev)
+    return torch.arange(lens.shape[0], device=dev), lens, live, onehot.float()
+
+
+def _decode_attention(route: str, cfg: XTTSGPTConfig, cache: KVCache, layer: int,
+                      q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seq_lens: torch.Tensor,
+                      masks: tuple | None, row_scales=None, new_rows=None) -> torch.Tensor:
+    """One step's attention over q's heads by `route`, appending this step's
+    k/v rows IN PLACE at seq_lens; ctx is [S, H*Dh] once reshaped. A model
+    shard passes K4 its new rows' `row_scales` over all shards' lanes, or the
+    dense int8 body its `new_rows` quantised at them."""
+    qh, scale = q.reshape(q.shape[0], -1, cfg.head_dim), 1.0 / math.sqrt(cfg.head_dim)
+    if route == "k2":
+        return flash_decode_append_attention(qh, k, v, cache.k, cache.v, layer, seq_lens)
+    if route == "k4":
+        return ragged_decode_attention(qh, k, v, scale, layer, seq_lens, cache.k, cache.v,
+                                       cache.k_scale, cache.v_scale, row_scales=row_scales)
+    if route == "int8":
+        return _int8_attention(cfg, cache, layer, q, k, v, *masks[:3], new_rows=new_rows)
+    return _dense_attention(cache, layer, q, k, v, *masks, scale)
+
+
 @torch.no_grad()
 def gpt_decode_step(params: dict, cfg: XTTSGPTConfig, tokens: torch.Tensor,
                     audio_pos: torch.Tensor, seq_lens: torch.Tensor,
@@ -463,11 +496,11 @@ def gpt_decode_step(params: dict, cfg: XTTSGPTConfig, tokens: torch.Tensor,
     seq_lens [S] int32, S at most the cache's slot count (a slot-bounded
     step covers the live low slots only). Appends this step's K/V at
     `seq_lens` IN PLACE and returns the hidden state (pre-ln_f) [S, D].
-    `len_bound` caps the rows the dense bodies read (cache[:, :S, :bound]);
-    the caller guarantees max(seq_lens) < bound. Kernels K2 and K4 read only
-    live rows, so it changes nothing for them. Activations are bf16 under
-    cfg.kv_int8, else in the cache dtype; with cfg.decode_w8a8 and
-    `blocks_q8` in params the four matmuls run W8A8.
+    `len_bound` caps the rows the dense bodies (`decode_route`) read
+    (cache[:, :S, :bound]); the caller guarantees max(seq_lens) < bound.
+    Kernels K2 and K4 read only live rows, so it changes nothing for them.
+    Activations are bf16 under cfg.kv_int8, else in the cache dtype; with
+    cfg.decode_w8a8 and `blocks_q8` in params the four matmuls run W8A8.
 
     The row-wise work (LayerNorms, matmuls, gelu) runs on the cache's slot
     count of rows, the step's S rows zero-padded: cuBLAS picks a product's
@@ -481,39 +514,21 @@ def gpt_decode_step(params: dict, cfg: XTTSGPTConfig, tokens: torch.Tensor,
     if isinstance(params, ShardedParams):
         return _gpt_decode_step_tp(params, cfg, tokens, audio_pos, seq_lens, cache, len_bound,
                                    rows)
+    route = decode_route(cfg)
     s = tokens.shape[0]
     rows = rows or cache.num_slots
     bp = params["blocks"]
-    hd = cfg.head_dim
     d = bp["attn_w"].shape[-1] // 3
-    nh = d // hd
-    scale = 1.0 / math.sqrt(hd)
     w8 = cfg.decode_w8a8 and "blocks_q8" in params
     pos = torch.clamp(audio_pos.long(), 0, cfg.audio_position_table - 1)
     x = pad_rows((params["wte"][tokens.long()] + params["wpe"][pos]).to(
         torch.bfloat16 if cfg.kv_int8 else cache.k.dtype), rows)
-    if not (cfg.flash_decode or cfg.ragged_decode):
-        slot_idx = torch.arange(s, device=x.device)
-        lens = seq_lens.long()
-        bound = min(len_bound or cache.max_len, cache.max_len)
-        live = torch.arange(bound, device=x.device)[None, :] <= lens[:, None]
-        onehot = (torch.arange(d, device=x.device)[:, None] // hd
-                  == torch.arange(nh, device=x.device)[None, :]).float()  # [HD, H]
+    masks = _dense_masks(route, seq_lens, len_bound, cache.max_len, d, cfg.head_dim)
     for layer in range(cfg.num_hidden_layers):
         xn = layer_norm(x, bp["ln1_scale"][layer], bp["ln1_bias"][layer])
         qkv = _mm(params, layer, "attn_w", xn, w8)
         q, k, v = qkv[:s].split(d, dim=-1)  # each [S, D]
-        if cfg.flash_decode:
-            ctx = flash_decode_append_attention(
-                q.reshape(s, nh, hd), k, v, cache.k, cache.v, layer, seq_lens)
-        elif cfg.kv_int8 and cfg.ragged_decode:
-            ctx = ragged_decode_attention(
-                q.reshape(s, nh, hd), k, v, scale, layer, seq_lens, cache.k, cache.v,
-                cache.k_scale, cache.v_scale)
-        elif cfg.kv_int8:
-            ctx = _int8_attention(cfg, cache, layer, q, k, v, lens, live)
-        else:
-            ctx = _dense_attention(cache, layer, q, k, v, slot_idx, lens, live, onehot, scale)
+        ctx = _decode_attention(route, cfg, cache, layer, q, k, v, seq_lens, masks)
         ctx = pad_rows(ctx.reshape(s, d).to(x.dtype), rows)
         x = x + _mm(params, layer, "attn_proj_w", ctx, w8)
         x = _mlp(params, layer, x, w8)
@@ -723,7 +738,8 @@ def _gpt_prefill_tp(params: ShardedParams, cfg: XTTSGPTConfig, embeds: torch.Ten
                     if cfg.prefill_flash:
                         ctx = prefill_flash_attention(qh, kh, vh, masks[dev])
                     else:
-                        ctx = _prefill_attention(qh, kh, vh, masks[dev], embeds.dtype)
+                        ctx = _prefill_attention_batched(qh[None], kh[None], vh[None],
+                                                         masks[dev][None], embeds.dtype)
                 ctxs.append(ctx.reshape(t_pad, -1).to(embeds.dtype))
             _tp_write_rows(params, cfg, cache, layer, slot_idx, [t[1] for t in qkv],
                            [t[2] for t in qkv], t_pad)
@@ -782,56 +798,35 @@ def _gpt_decode_step_tp(params: ShardedParams, cfg: XTTSGPTConfig, tokens: torch
                         audio_pos: torch.Tensor, seq_lens: torch.Tensor,
                         cache: ShardedKVCache, len_bound: int | None,
                         rows: int | None = None) -> torch.Tensor:
-    """`gpt_decode_step` over the model shards: K2 per shard under
-    cfg.flash_decode, K4 per shard under cfg.kv_int8 + cfg.ragged_decode
-    (given the new rows' scales over all shards' lanes), else the dense
-    bf16 or int8 body per shard (new int8 rows at the whole row's scale).
-    Returns [S, D] on the mesh's first device."""
-    ragged = cfg.kv_int8 and cfg.ragged_decode
+    """`gpt_decode_step` over the model shards, each attending over its heads
+    (K4 and the dense int8 body at the new rows' scales over all shards'
+    lanes). Returns [S, D] on the mesh's first device."""
+    route = decode_route(cfg)
     s, rows, hd = tokens.shape[0], rows or cache.num_slots, cfg.head_dim
-    scale = 1.0 / math.sqrt(hd)
     pos = torch.clamp(audio_pos.long(), 0, cfg.audio_position_table - 1)
     x = pad_rows((params["wte"][tokens.long()] + params["wpe"][pos]).to(
         torch.bfloat16 if cfg.kv_int8 else cache.dtype), rows)
     xs = _tp_copies(params, x)
     wpos = {dev: seq_lens.to(dev) for dev in params.lead}
-    if not (cfg.flash_decode or ragged):
-        bound = min(len_bound or cache.max_len, cache.max_len)
-        lens = {dev: w.long() for dev, w in wpos.items()}
-        live = {dev: torch.arange(bound, device=dev)[None, :] <= n[:, None]
-                for dev, n in lens.items()}
-        slot_idx = {dev: torch.arange(s, device=dev) for dev in params.lead}
-        d_r = params.shards[0]["blocks"]["attn_w"].shape[-1] // 3
-        onehot = {dev: (torch.arange(d_r, device=dev)[:, None] // hd
-                        == torch.arange(d_r // hd, device=dev)[None, :]).float()
-                  for dev in params.lead}
+    d_r = params.shards[0]["blocks"]["attn_w"].shape[-1] // 3
+    masks = {dev: _dense_masks(route, w, len_bound, cache.max_len, d_r, hd)
+             for dev, w in wpos.items()}
 
     for layer in range(cfg.num_hidden_layers):
         def attend(qkv):
             qkv = [(q[:s], k[:s], v[:s]) for q, k, v in qkv]
-            if ragged:
-                k_s = _tp_row_scales(params, [t[1] for t in qkv])
-                v_s = _tp_row_scales(params, [t[2] for t in qkv])
-            elif cfg.kv_int8:
-                new_k = _tp_quantize(params, [t[1] for t in qkv])
-                new_v = _tp_quantize(params, [t[2] for t in qkv])
+            row_scales = new_rows = [None] * len(qkv)
+            if route == "k4":
+                k_s, v_s = (_tp_row_scales(params, [t[i] for t in qkv]) for i in (1, 2))
+                row_scales = [(k_s[dev], v_s[dev]) for dev in params.devices]
+            elif route == "int8":
+                new_rows = list(zip(*(_tp_quantize(params, [t[i] for t in qkv]) for i in (1, 2))))
             ctxs = []
             for r, (q, k, v) in enumerate(qkv):
-                dev, c = params.devices[r], cache.shards[r]
+                dev = params.devices[r]
                 with params.on(r):
-                    if cfg.flash_decode:
-                        ctx = flash_decode_append_attention(
-                            q.reshape(s, -1, hd), k, v, c.k, c.v, layer, wpos[dev])
-                    elif ragged:
-                        ctx = ragged_decode_attention(
-                            q.reshape(s, -1, hd), k, v, scale, layer, wpos[dev], c.k, c.v,
-                            c.k_scale, c.v_scale, row_scales=(k_s[dev], v_s[dev]))
-                    elif cfg.kv_int8:
-                        ctx = _int8_attention(cfg, c, layer, q, k, v, lens[dev], live[dev],
-                                              new_rows=(new_k[r], new_v[r]))
-                    else:
-                        ctx = _dense_attention(c, layer, q, k, v, slot_idx[dev], lens[dev],
-                                               live[dev], onehot[dev], scale)
+                    ctx = _decode_attention(route, cfg, cache.shards[r], layer, q, k, v,
+                                            wpos[dev], masks[dev], row_scales[r], new_rows[r])
                 ctxs.append(pad_rows(ctx.reshape(s, -1).to(x.dtype), rows))
             return ctxs
 

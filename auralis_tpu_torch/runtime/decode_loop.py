@@ -12,10 +12,10 @@ state's torch.Generator unless a caller injects it.
 
 Ported: the single insert (`_insert_body`), the burst insert
 (`_insert_batch_body`: K prompts through one batched prefill), N-step decode
-blocks with `len_bound` (the dense bodies' read bound) and `slot_bound`
-(the step covers the first `slot_bound` slots only), the block with its
-packed status left on the device, slot migration, status packing, release
-and harvest, with a bf16/f32 or an int8 KV cache.
+blocks with `len_bound` (the dense bodies' read bound, keying only their
+programs) and `slot_bound` (the step covers the first `slot_bound` slots
+only), the block with its packed status left on the device, slot migration,
+status packing, release and harvest, with a bf16/f32 or an int8 KV cache.
 
 The per-call values of an insert (slot or slots, id counts, lengths and
 the sampling options) and of a migration (source and destination) may be

@@ -16,7 +16,7 @@ What the runner does, as the JAX one does:
   quarter or half of the slots when every live slot sits below that bound,
   and `_compact_slots` migrates drain stragglers down so the bound narrows;
 - a length bound per block (`_len_bucket`), the read bound of the dense
-  attention bodies;
+  attention bodies (None under K2/K4 unless the W8A8 policy reads it);
 - the per-program W8A8 policy (`w8a8_policy`): a block runs the int8 decode
   weights or the bf16 ones by its (length bound, slot bound);
 - a pipelined loop: block k+1 is dispatched before block k's packed status
@@ -100,6 +100,7 @@ import torch
 from ..common.logger import setup_logger
 from ..common.tracing import TRACE_ID, count, device_span, interval, record, resolve
 from ..models.xttsv2.config import XTTSGPTConfig
+from ..models.xttsv2.gpt import READS_BY_LENGTH, decode_route
 from .decode_loop import (
     PREFILL_BUCKETS,
     DecodeState,
@@ -287,7 +288,10 @@ class DecodeEngine:
         # a free slot (its leftover length), assumed still generating for an
         # owned one until its status settles it (the rows counters' input)
         self._host_lens = np.zeros((num_slots,), np.int64)
-        self._reads_by_length = cfg.flash_decode or cfg.ragged_decode
+        # K2/K4 ignore the length bound: it keys their blocks only for the W8A8 policy
+        self._route = decode_route(cfg)
+        self._len_buckets = (self.LEN_BUCKETS if self._route not in READS_BY_LENGTH
+                             or self._w8a8_policy is not None else ())
         cache = (self.state.shards[0] if isinstance(self.state, DataShardedState)
                  else self.state).cache
         self._cache_len = cache.max_len
@@ -544,15 +548,15 @@ class DecodeEngine:
         return self._cfg_w8a8
 
     def _len_bucket(self) -> int | None:
-        """Attention-read bound of the next block: the smallest bucket above
-        every owned slot's possible length after it, or None (full length)."""
+        """Attention-read bound of the next block: the smallest of `_len_buckets`
+        above every owned slot's possible length after it, or None (full length)."""
         if not self._slot_owner:
-            return self.LEN_BUCKETS[0]
+            return self._len_buckets[0] if self._len_buckets else None
         worst = max(
             info["prompt_len"] + (self._steps_total - info["steps_at_insert"])
             for info in self._slot_meta.values()
         ) + self.steps_per_sync + 1
-        for b in self.LEN_BUCKETS:
+        for b in self._len_buckets:
             if worst < b:
                 return b
         return None  # full length
@@ -560,12 +564,12 @@ class DecodeEngine:
     def precompile_keys(self) -> list[tuple]:
         """(n_steps, slot_bound, len_bound) of every decode block the runner
         can dispatch, the JAX `DecodeEngine.precompile` set: the young and
-        the steady block lengths x (full width and, with slot bucketing, the
-        slot buckets) x (every LEN_BUCKET and full length)."""
+        steady block lengths x (full width and, bucketing, the slot buckets)
+        x (every one of `_len_buckets` and full length)."""
         step_set = sorted({min(self.stream_block_steps, self.steps_per_sync),
                            self.steps_per_sync})
         slot_set = [None] + (list(self._slot_buckets()) if self.slot_bucketing else [])
-        len_set = list(self.LEN_BUCKETS) + [None]
+        len_set = list(self._len_buckets) + [None]
         return [(n, sb, lb) for n in step_set for sb in slot_set for lb in len_set]
 
     def precompile(self) -> None:
@@ -593,8 +597,9 @@ class DecodeEngine:
                       host: torch.Tensor) -> None:
         """Issue one decode block and the non-blocking copy of its packed
         status into `host`: on the card the captured program of (n_steps,
-        len_bound, slot_bound), held under its lock until the copy is
-        issued; on the CPU `decode_steps_status` itself."""
+        len_bound or None without `_len_buckets`, slot_bound), held under its
+        lock until the copy is issued; on the CPU `decode_steps_status`."""
+        len_bound = len_bound if self._len_buckets else None
         cfg, state = self._cfg_for(len_bound, slot_bound), self.state
 
         def block():
@@ -903,12 +908,11 @@ class DecodeEngine:
         interval("decode.dispatch", t0, t2)
         return _Status(host, event)
 
-    @staticmethod
-    def _program_name(cfg: XTTSGPTConfig) -> str:
-        """The block's program as its span names it: the weights ("w8a8" or
-        "bf16"), the decode attention ("_k2", "_k4", or none for the dense
-        bodies) and the dense int8 body's bf16 probabilities ("_fp")."""
-        route = "_k2" if cfg.flash_decode else "_k4" if cfg.ragged_decode else ""
+    def _program_name(self, cfg: XTTSGPTConfig) -> str:
+        """A block's program, of `_cfg_for`'s `cfg`, as its span names it: the
+        weights ("w8a8" or "bf16"), the decode attention ("_k2", "_k4", or
+        none for the dense bodies) and the int8 body's bf16 probabilities."""
+        route = "_" + self._route if self._route in READS_BY_LENGTH else ""
         return (("w8a8" if cfg.decode_w8a8 else "bf16") + route
                 + ("_fp" if cfg.decode_attn_fp else ""))
 
@@ -925,7 +929,7 @@ class DecodeEngine:
         stepped = slot_bound or self.num_slots
         owned = list(self._slot_owner)  # all below the slot bound
         n, tri = n_steps, n_steps * (n_steps - 1) // 2
-        if self._reads_by_length:
+        if self._route in READS_BY_LENGTH:
             lens = self._host_lens
             read = n * int(lens[:stepped].sum() + stepped) + tri * len(owned)
             live = n * int(lens[owned].sum() + len(owned)) + tri * len(owned)
@@ -946,7 +950,7 @@ class DecodeEngine:
         extra = pending.n_host - n
         if extra <= 0:
             return
-        if self._reads_by_length:
+        if self._route in READS_BY_LENGTH:
             final = int(self._host_lens[slot]) - extra
             self._host_lens[slot] = final
             tri = extra * (extra - 1) // 2

@@ -1935,12 +1935,6 @@ def check_runner(engine, smi: str, must_launch: tuple, facade_wav: str | None) -
     return launches
 
 
-def program_name(c) -> str:
-    """The decode program a config runs: its weights and attention variant."""
-    return {(False, False): "bf16 weights", (True, True): "W8A8 + bf16 probabilities",
-            (True, False): "W8A8"}[(c.decode_w8a8, c.decode_attn_fp)]
-
-
 # the W8A8 policy's crossover in phase 4e's drive: it flips inside the
 # 16-slot grid (the TPU's 3 picks W8A8 for every block of 16 int8 slots, and
 # the card's attn_fp region gives every W8A8 block of the dense int8 body
@@ -1957,7 +1951,7 @@ def check_policy(engine, smi: str) -> None:
     g = dataclasses.replace(engine.gpt_config, ragged_decode=False, decode_w8a8=False)
     de = DecodeEngine(engine.params, g, num_slots=CONC_SLOTS, slot_bucketing=True,
                       w8a8_policy=engine.w8a8_policy(POLICY_CROSSOVER), device=engine.device)
-    name = program_name
+    name = de._program_name
     table = {f"len={lb} slots={sb or CONC_SLOTS}": name(de._cfg_for(lb, sb))
              for lb in (*de.LEN_BUCKETS, None) for sb in (*de._slot_buckets(), None)}
     ran = []
@@ -3273,7 +3267,7 @@ def run_defaults(dev, smi: str, tokenizer) -> dict:
         step = engine_core.decode_steps_status
 
         def recorded(params, cfg, state, n_steps, len_bound=None, slot_bound=None, **kw):
-            ran[(n_steps, len_bound, slot_bound)] = program_name(cfg)
+            ran[(n_steps, len_bound, slot_bound)] = de._program_name(cfg)
             return step(params, cfg, state, n_steps, len_bound, slot_bound, **kw)
 
         tts = TTS(scheduler_max_concurrency=4).with_engine(engine)
@@ -3306,11 +3300,11 @@ def run_defaults(dev, smi: str, tokenizer) -> dict:
         want = {}
         for n, sb, lb in keys:
             c = de._cfg_for(lb, sb)
-            want[(n, lb, sb)] = program_name(c)
+            want[(n, lb, sb)] = de._program_name(c)
             if policy is not None:
                 w8 = policy(lb or de.cfg.max_seq_len, sb or de.num_slots)
                 if c.decode_w8a8 != w8:
-                    raise AssertionError(f"9: _cfg_for({lb}, {sb}) is {program_name(c)}, the "
+                    raise AssertionError(f"9: _cfg_for({lb}, {sb}) is {de._program_name(c)}, the "
                                          f"policy says W8A8={w8}")
         table = {f"steps={n} len={lb} slots={sb or de.num_slots}": ran.get((n, lb, sb))
                  for n, sb, lb in keys}
@@ -3319,7 +3313,7 @@ def run_defaults(dev, smi: str, tokenizer) -> dict:
         if any(ran.get(k) != v for k, v in want.items()):
             raise AssertionError(f"9: captured programs {ran}, the policy picks {want}")
         names = set(want.values())
-        if policy is not None and not ({"bf16 weights"} < names):
+        if policy is not None and not ({de._program_name(de.cfg)} < names):
             raise AssertionError(f"9: the armed policy picked {names} over the keys: no block "
                                  "on both sides of the crossover")
 

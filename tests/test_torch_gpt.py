@@ -3,6 +3,7 @@ the tiny config (2 layers, width 64, 4 heads), same numpy weights and inputs,
 f32 on CPU. Hidden states and cache rows agree to f32 summation-order noise
 (bound 1e-4); tokens must match exactly."""
 import dataclasses
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -83,6 +84,32 @@ def test_gpt_decode_step_matches_jax(flash_decode):
     np.testing.assert_allclose(h_t.numpy(), np.asarray(h_j), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(cache_t.k.numpy(), np.asarray(cache_j.k), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(cache_t.v.numpy(), np.asarray(cache_j.v), rtol=1e-4, atol=1e-4)
+
+
+ROUTES = {(False, False, False): "dense", (True, False, False): "k2",
+          (False, True, False): "int8", (False, True, True): "k4"}
+
+
+@pytest.mark.parametrize("flash_decode,kv_int8,ragged_decode",
+                         list(itertools.product([False, True], repeat=3)))
+def test_decode_route_over_every_flag_combination(flash_decode, kv_int8, ragged_decode):
+    """decode_route maps the three flags to the four decode bodies, K2 and
+    K4 being the routes that read by length; the two refused combinations
+    (ragged_decode without kv_int8, kv_int8 with flash_decode) raise the
+    ValueError that make_kv_cache raises for them."""
+    _, tc = _cfgs(flash_decode=flash_decode, kv_int8=kv_int8, ragged_decode=ragged_decode)
+    flags = (flash_decode, kv_int8, ragged_decode)
+    assert tgpt.READS_BY_LENGTH == {"k2", "k4"}
+    if flags in ROUTES:
+        assert tgpt.decode_route(tc) == ROUTES[flags]
+        assert tgpt.make_kv_cache(tc, 1, device="cpu").quantized == kv_int8
+        return
+    with pytest.raises(ValueError) as route_error:
+        tgpt.decode_route(tc)
+    with pytest.raises(ValueError) as cache_error:
+        tgpt.make_kv_cache(tc, 1, device="cpu")
+    assert str(route_error.value) == str(cache_error.value)
+    assert ("exclusive" if kv_int8 else "requires") in str(route_error.value)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

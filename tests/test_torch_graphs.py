@@ -25,13 +25,21 @@ import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from test_torch_runner import _both, _cfgs, _params_run_to_cap
+from test_torch_runner import (
+    STATE_INTS,
+    _both,
+    _burst_args,
+    _cfgs,
+    _params_run_to_cap,
+    _set_tables,
+)
 
 from auralis_tpu.runtime import engine_core as jcore
 from auralis_tpu.runtime import sampler as jsamp
 from auralis_tpu_torch.models.xttsv2.config import tiny_test_config
 from auralis_tpu_torch.models.xttsv2.engine import XTTSv2Engine
 from auralis_tpu_torch.ops import _build
+from auralis_tpu_torch.runtime import decode_loop as tloop
 from auralis_tpu_torch.runtime import engine_core as tcore
 from auralis_tpu_torch.runtime import graphs
 from auralis_tpu_torch.runtime import sampler as tsamp
@@ -162,6 +170,64 @@ def test_precompile_captures_the_key_set_and_restores_the_generator(recording_gr
     te._slot_owner[0] = object()
     with pytest.raises(RuntimeError, match="before serving"):
         te.precompile()
+
+
+def _sampled_state(tc, tp, seed):
+    """A 4-slot state with sampled prompts in slots 0 and 1."""
+    st = tloop.init_decode_state(tc, 4, seed=seed, dtype=torch.float32, device="cpu")
+    cond, ids, n_ids = _burst_args(tc, 2, 2, seed)
+    for slot in range(2):
+        tloop.insert_sequence_tokens(tp, tc, st, torch.from_numpy(cond[slot]),
+                                     torch.from_numpy(ids[slot]), int(n_ids[slot]), slot,
+                                     0.75, 0.85, 50, 5.0, True, 0)
+    return st
+
+
+@pytest.mark.parametrize("route,flags", [("k2", {"flash_decode": True}),
+                                         ("k4", {"kv_int8": True, "ragged_decode": True})])
+def test_by_length_routes_key_no_length_bound(recording_graphs, monkeypatch, route, flags):
+    """K2 and K4 (their plain versions here) read each slot's rows up to its
+    own length, so the runner keys their blocks by no length bound:
+    precompile_keys() is the block lengths x the slot bounds x {None} and
+    precompile() captures those alone; _len_bucket() is None with slots
+    owned (a dense engine's is a bucket); a block given len_bound 256
+    replays the unbounded program. And the bound changes nothing: a sampled
+    block at len_bound 256 leaves the state bit-equal to one at None."""
+    _, tc = _cfgs(**flags)
+    _, tp = _both(_params_run_to_cap(6))
+    kw = dict(num_slots=8, cache_dtype=torch.float32, steps_per_sync=4, stream_block_steps=3,
+              slot_bucketing=True, device="cpu")
+    te = tcore.DecodeEngine(tp, tc, **kw)
+    assert te._route == route
+    keys = {(n, sb, None) for n in (3, 4) for sb in (None, 2, 4)}
+    assert set(te.precompile_keys()) == keys and len(te.precompile_keys()) == len(keys)
+    te.precompile()
+    assert set(te._programs.keys()) == {(n, lb, sb) for n, sb, lb in keys}
+    assert graphs.counts["captures"] == len(keys)
+    seen = []
+    real = tcore.decode_steps_status
+    monkeypatch.setattr(tcore, "decode_steps_status",
+                        lambda *a: seen.append(a[4]) or real(*a))
+    te._decode_block(4, 256, None, te._status_bufs[0])
+    assert seen == [None] and graphs.counts["captures"] == len(keys)
+
+    dense = tcore.DecodeEngine(tp, _cfgs()[1], **kw)
+    meta = {0: {"prompt_len": 40, "steps_at_insert": 0},
+            1: {"prompt_len": 64, "steps_at_insert": 8}}
+    for e in (te, dense):
+        _set_tables(e, {0: object(), 1: object()}, meta, 16)
+    assert te._len_bucket() is None and dense._len_bucket() == 256
+
+    bounded, unbounded = _sampled_state(tc, tp, 3), _sampled_state(tc, tp, 3)
+    packed = tloop.decode_steps_status(tp, tc, bounded, 5, len_bound=256)
+    assert torch.equal(packed, tloop.decode_steps_status(tp, tc, unbounded, 5))
+    for name in (*STATE_INTS, "last_token", "latents_buf"):
+        assert torch.equal(getattr(bounded, name), getattr(unbounded, name)), name
+    assert torch.equal(bounded.sampling.seen, unbounded.sampling.seen)
+    assert all(torch.equal(a, b) for a, b in zip(bounded.cache.tensors(),
+                                                 unbounded.cache.tensors()))
+    assert torch.equal(bounded.generator.get_state(), unbounded.generator.get_state())
+    assert int(bounded.n_generated[:2].min()) == 6
 
 
 # ------------------------------------------------------------- launches
