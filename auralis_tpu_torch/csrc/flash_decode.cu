@@ -28,6 +28,10 @@
 //   16-byte cp.async copies in two groups, so V is in flight while QK runs.
 //   Neighbouring threads copy neighbouring 16 bytes of a row's head slice.
 //   Row write_pos is staged from k_new/v_new, never read back from the cache.
+// - Inputs in place: q, k_new and v_new are read at one row stride of their
+//   own (in_stride), so the three column blocks of the step's fused QKV
+//   product are read where the product left them, and no copy runs before
+//   the launch. Only the caches and ctx are addressed by width = H * 64.
 // - QK: CPR lanes (one 16-byte chunk each) per row, the row's dot reduced
 //   over them with xor shuffles. Softmax: thread t owns row t; the split's
 //   max and sum are block reductions in a fixed order (f32). PV: warp w takes
@@ -77,7 +81,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                           const T* __restrict__ v_new, T* k_cache, T* v_cache,
                           const int* __restrict__ write_pos, T* __restrict__ ctx,
                           float* partials, int* tickets, int cache_slots, int n_heads,
-                          int t_max, int layer, float scale) {
+                          int in_stride, int t_max, int layer, float scale) {
   constexpr int EPC = 16 / sizeof(T);   // lanes per 16-byte chunk
   constexpr int CPR = kHeadDim / EPC;   // chunks per row's head slice
   constexpr int RPP = kSplitThreads / CPR;  // rows per QK pass
@@ -101,8 +105,8 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   const int n_rows = min(kSplitRows, wp + 1 - base);
   const int n_live = wp / kSplitRows + 1;
   const size_t head = (size_t)h * kHeadDim;
-  const T* kn = k_new + (size_t)s * width + head;
-  const T* vn = v_new + (size_t)s * width + head;
+  const T* kn = k_new + (size_t)s * in_stride + head;
+  const T* vn = v_new + (size_t)s * in_stride + head;
   T* kc = k_cache + ((size_t)layer * cache_slots + s) * (size_t)t_max * width + head;
   T* vc = v_cache + ((size_t)layer * cache_slots + s) * (size_t)t_max * width + head;
 
@@ -128,7 +132,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
 
   const int sub = tid % CPR, rq = tid / CPR;
   float qv[EPC];
-  const T* qp = q + (size_t)s * width + head + sub * EPC;
+  const T* qp = q + (size_t)s * in_stride + head + sub * EPC;
 #pragma unroll
   for (int e = 0; e < EPC; ++e) qv[e] = to_f32(qp[e]) * scale;
 
@@ -175,8 +179,13 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
 template <typename T>
 int launch(const void* q, const void* k_new, const void* v_new, void* k_cache, void* v_cache,
            const void* write_pos, void* ctx, void* partials, void* tickets, int n_slots,
-           int cache_slots, int n_heads, int t_max, int layer, float scale,
+           int cache_slots, int n_heads, int in_stride, int t_max, int layer, float scale,
            cudaStream_t stream) {
+  // k_new and v_new are staged 16 bytes at a time: a row that does not start
+  // on 16 bytes would fault inside the kernel, so the launch is refused
+  if ((reinterpret_cast<uintptr_t>(k_new) | reinterpret_cast<uintptr_t>(v_new)) % 16 ||
+      (size_t)in_stride * sizeof(T) % 16)
+    return (int)cudaErrorMisalignedAddress;
   const int smem = 2 * kSplitRows * kHeadDim * (int)sizeof(T);  // 32 KB bf16, 64 KB f32
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -188,29 +197,33 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_cache, v
       static_cast<const T*>(q), static_cast<const T*>(k_new), static_cast<const T*>(v_new),
       static_cast<T*>(k_cache), static_cast<T*>(v_cache), static_cast<const int*>(write_pos),
       static_cast<T*>(ctx), static_cast<float*>(partials), static_cast<int*>(tickets),
-      cache_slots, n_heads, t_max, layer, scale);
+      cache_slots, n_heads, in_stride, t_max, layer, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q [S, H, 64], k_new/v_new [S, H*64], caches [L, S_cache, T, H*64] with
-// S <= S_cache (updated in place; the step covers cache slots 0..S-1 and
-// leaves the others untouched), write_pos [S], ctx [S, H, 64], all of one
-// dtype (is_bf16: bf16, else f32); partials [S, H, T / split,
-// kPartialFloats] f32 and tickets [S, H] int32 (zero) are the workspace;
-// split must be kSplitRows
+// q [S, H, 64] and k_new/v_new [S, H*64], each at row stride in_stride
+// (elements; q's heads 64 apart, every row's lanes unit-stride, so the
+// column blocks of one [S, 3*H*64] QKV product qualify at 3*H*64; contiguous
+// rows at H*64); k_new, v_new and the stride in bytes on 16 bytes, or the
+// launch is refused (cudaErrorMisalignedAddress). Caches [L, S_cache, T,
+// H*64] with S <= S_cache (updated in place; the step covers cache slots
+// 0..S-1 and leaves the others untouched), write_pos [S], ctx [S, H, 64]
+// (contiguous), all of one dtype (is_bf16: bf16, else f32); partials [S, H,
+// T / split, kPartialFloats] f32 and tickets [S, H] int32 (zero) are the
+// workspace; split must be kSplitRows
 extern "C" int flash_decode_append(const void* q, const void* k_new, const void* v_new,
                                    void* k_cache, void* v_cache, const void* write_pos,
                                    void* ctx, void* partials, void* tickets, int n_slots,
-                                   int cache_slots, int n_heads, int t_max, int layer, int split,
-                                   float scale, int is_bf16, void* stream) {
+                                   int cache_slots, int n_heads, int in_stride, int t_max,
+                                   int layer, int split, float scale, int is_bf16, void* stream) {
   if (split != kSplitRows || t_max % kSplitRows || n_slots > cache_slots)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch<bf16>(q, k_new, v_new, k_cache, v_cache, write_pos, ctx, partials, tickets,
-                        n_slots, cache_slots, n_heads, t_max, layer, scale, st);
+                        n_slots, cache_slots, n_heads, in_stride, t_max, layer, scale, st);
   return launch<float>(q, k_new, v_new, k_cache, v_cache, write_pos, ctx, partials, tickets,
-                       n_slots, cache_slots, n_heads, t_max, layer, scale, st);
+                       n_slots, cache_slots, n_heads, in_stride, t_max, layer, scale, st);
 }

@@ -527,7 +527,7 @@ def gpt_decode_step(params: dict, cfg: XTTSGPTConfig, tokens: torch.Tensor,
     for layer in range(cfg.num_hidden_layers):
         xn = layer_norm(x, bp["ln1_scale"][layer], bp["ln1_bias"][layer])
         qkv = _mm(params, layer, "attn_w", xn, w8)
-        q, k, v = qkv[:s].split(d, dim=-1)  # each [S, D]
+        q, k, v = qkv[:s].split(d, dim=-1)  # each [S, D] at row stride 3D; K2 reads them there
         ctx = _decode_attention(route, cfg, cache, layer, q, k, v, seq_lens, masks)
         ctx = pad_rows(ctx.reshape(s, d).to(x.dtype), rows)
         x = x + _mm(params, layer, "attn_proj_w", ctx, w8)

@@ -38,10 +38,10 @@ SIGNATURES = {
     # is_bf16, stream
     "prefill_attention": [_P, _P, _P, _P, _I, _I, _I, _P, _F, _I, _P],
     # q, k_new, v_new, k_cache, v_cache, write_pos, ctx, partials, tickets,
-    # S (the step's), S_cache, H, T, layer, split, scale, is_bf16 (q, rows and
-    # caches), stream
-    "flash_decode_append": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                            _I, _P],
+    # S (the step's), S_cache, H, the row stride of q, k_new and v_new, T,
+    # layer, split, scale, is_bf16 (q, rows and caches), stream
+    "flash_decode_append": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _F, _I, _P],
     # q, k_new, v_new (bf16), k_cache, v_cache, k_scale, v_scale, write_pos, ctx,
     # partials, tickets, k_row_scale, v_row_scale (f32 [S] or both NULL), S (the
     # step's), S_cache, H, T, layer, split, attn_scale, stream

@@ -33,6 +33,10 @@ depend on the order in which blocks finish. Both kernels are bound by
 device-memory bandwidth: per layer, the live rows' K and V (~4 KB a row in
 bf16, ~2 KB in int8 at H*D = 1024), from HBM on a real step, since each
 layer's slab is a different one.
+
+K2 reads q, k_new and v_new at one row stride of their own
+(`k2_row_stride`), so a decode step hands it the column blocks of its fused
+QKV product where they lie, with no copy before the launch.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ import math
 
 import torch
 
+from ...common import tracing
 from .. import _build
 from ..quant import quantize_rows
 
@@ -114,6 +119,32 @@ def flash_decode_plain(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor
     return torch.einsum("sht,sthd->shd", probs, vh).to(q.dtype)
 
 
+def k2_row_stride(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor) -> int | None:
+    """The row stride, in elements, at which K2 reads q [S, H, 64] and
+    k_new/v_new [S, H*64] where they lie, or None where their layout does
+    not allow it. It allows it when the three share one dtype and one row
+    stride, each row's lanes are unit-stride, q's heads lie 64 apart, and
+    the stride in bytes and each tensor's address are multiples of 16 (the
+    kernel stages k_new and v_new in 16-byte copies). The column blocks of a
+    [S, 3*H*64] product, `qkv.split(H*64, -1)`, qualify at 3*H*64, and
+    contiguous rows at H*64. The stride of a dim of length 1 is never used
+    (PyTorch sets it freely in a reshape), so it is not compared; one row
+    is read at H*64."""
+    s, h, _ = q.shape
+    rs = k_new.stride(0) if s > 1 else h * 64
+
+    def fits(t: torch.Tensor, want: tuple) -> bool:
+        return all(n == 1 or st == w for n, st, w in zip(t.shape, t.stride(), want))
+
+    if not q.dtype == k_new.dtype == v_new.dtype:
+        return None
+    if not (fits(q, (rs, 64, 1)) and fits(k_new, (rs, 1)) and fits(v_new, (rs, 1))):
+        return None
+    if rs * q.element_size() % 16 or any(t.data_ptr() % 16 for t in (q, k_new, v_new)):
+        return None
+    return rs
+
+
 def flash_decode_append_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                                   k_cache: torch.Tensor, v_cache: torch.Tensor, layer: int,
                                   write_pos: torch.Tensor) -> torch.Tensor:
@@ -124,7 +155,14 @@ def flash_decode_append_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: t
     index), each in [0, T). Returns ctx [S, H, D] in q's dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise. The kernel takes q and caches of one dtype, bf16 or f32. It reads
+    raise. The kernel takes q and caches of one dtype, bf16 or f32, and
+    reads q, k_new and v_new where they lie when `k2_row_stride` allows it,
+    as it does for the column blocks of a decode step's QKV product. Where
+    it does not (other dtypes or row strides, lanes or heads not packed,
+    an address or stride off 16 bytes), the wrapper copies the three into
+    fresh contiguous rows first and counts the launch under the tracing
+    counter `k2.input_copies` (a call inside a CUDA-graph capture counts
+    once, at its capture). It reads
     write_pos on the device, so an out-of-range position is not caught here
     (that would cost a host sync per layer): the kernel traps, and the next
     synchronising call raises. Unlike the JAX function, which returns the
@@ -148,9 +186,17 @@ def flash_decode_append_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: t
                          f"got q={q.dtype} cache={k_cache.dtype}")
     if write_pos.dtype != torch.int32 or write_pos.shape != (s,):
         raise ValueError("write_pos must be int32 [S]")
-    q = q.contiguous()
-    k_new = k_new.to(k_cache.dtype).contiguous()
-    v_new = v_new.to(k_cache.dtype).contiguous()
+    if k_new.shape != (s, hd) or v_new.shape != (s, hd):
+        raise ValueError(f"k_new/v_new must be [S, H*D] = {(s, hd)}; got {tuple(k_new.shape)}, "
+                         f"{tuple(v_new.shape)}")
+    stride = k2_row_stride(q, k_new, v_new)
+    if stride is None:
+        # fresh allocations: .contiguous() would keep a contiguous tensor
+        # that starts off 16 bytes
+        q, k_new, v_new = (x.to(q.dtype, memory_format=torch.contiguous_format, copy=True)
+                           for x in (q, k_new, v_new))
+        stride = hd
+        tracing.count("k2.input_copies")
     write_pos = write_pos.contiguous()
     ctx = torch.empty((s, h, d), dtype=q.dtype, device=q.device)
     partials, tickets = _split_workspace(q.device, s, h, n_splits)
@@ -159,8 +205,8 @@ def flash_decode_append_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: t
         lib.flash_decode_append(
             q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), write_pos.data_ptr(), ctx.data_ptr(), partials.data_ptr(),
-            tickets.data_ptr(), s, n_slots, h, t, int(layer), DECODE_SPLIT, 1.0 / math.sqrt(d),
-            int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device),
+            tickets.data_ptr(), s, n_slots, h, stride, t, int(layer), DECODE_SPLIT,
+            1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device),
         ),
         "flash_decode_append",
     )

@@ -746,13 +746,54 @@ WRITE_POS_64 = {
 }
 
 
+def check_decode_in_place(q, kn, vn, kc, vc, kc2, vc2) -> dict:
+    """K2 as a decode step launches it on the [30, 64, 1280, 1024] cache at
+    WRITE_POS_64's mixed set: q, k_new and v_new are the column blocks of
+    one [64, 3 x 1024] product, read at its row stride, against the path
+    before the kernel took a row stride, on the same rows: three strided
+    copies, then K2 on contiguous rows. ctx and both caches (each side on
+    its own copy) bit-equal, and the in-place launch counts no
+    `k2.input_copies`. Timed cold and hot, each way."""
+    s, hd = q.shape[0], HEADS * HEAD_DIM
+    name = f"S={s} mixed"
+    wp = torch.tensor(WRITE_POS_64[name], dtype=torch.int32, device=q.device)
+    qv, kv, vv = torch.cat([q.reshape(s, hd), kn, vn], dim=-1).split(hd, dim=-1)
+    qv = qv.reshape(s, HEADS, HEAD_DIM)
+    kc2.copy_(kc)
+    vc2.copy_(vc)
+    copies = profile_summary().get("k2.input_copies")
+    got = flash_decode_append_attention(qv, kv, vv, kc, vc, HOT_LAYER, wp)
+    in_place = profile_summary().get("k2.input_copies") == copies
+    want = flash_decode_append_attention(qv.contiguous(), kv.contiguous(), vv.contiguous(), kc2,
+                                         vc2, HOT_LAYER, wp)
+    torch.cuda.synchronize()
+    if not (in_place and torch.equal(got, want) and torch.equal(kc, kc2)
+            and torch.equal(vc, vc2)):
+        raise AssertionError(f"K2 on the product's q/k/v views: copies counted {not in_place}, "
+                             f"ctx equal {torch.equal(got, want)}, caches equal "
+                             f"{torch.equal(kc, kc2) and torch.equal(vc, vc2)}")
+    ms, ms_hot = cold_hot_ms(
+        lambda layer: flash_decode_append_attention(qv, kv, vv, kc, vc, layer, wp))
+    copied_ms, copied_hot = cold_hot_ms(lambda layer: flash_decode_append_attention(
+        qv.contiguous(), kv.contiguous(), vv.contiguous(), kc, vc, layer, wp))
+    say(f"  K2 decode S={s} T={T_MAX} {name}, q/k/v views of one [{s}, {3 * hd}] product: ctx "
+        f"and caches bit-equal to the launch on contiguous copies, no k2.input_copies; kernel "
+        f"on the views cold {ms:.4f} ms, hot {ms_hot:.4f} ms; three copies + K2 cold "
+        f"{copied_ms:.4f} ms, hot {copied_hot:.4f} ms per layer (saved {copied_ms - ms:.4f} / "
+        f"{copied_hot - ms_hot:.4f} ms a layer)")
+    return {f"{name}, q/k/v in place": {"write_pos": WRITE_POS_64[name], "ms": ms,
+                                         "ms_hot": ms_hot, "copied_ms": copied_ms,
+                                         "copied_ms_hot": copied_hot}}
+
+
 def check_decode(dev, results) -> None:
     """K2 on a [30, 8, 1280, 1024] bf16 cache at every write-position set of
     decode_bench.WRITE_POS_SETS, and on a [30, 64, 1280, 1024] one at
     WRITE_POS_64. Both sides update their own copy of the cache, which must
     stay bit-equal; ctx must be within its bounds, and two launches on the
     same inputs must give the same bits. Timed cold (call i on layer i % 30,
-    `ms`) and hot (layer 17, `ms_hot`); the plain version cold."""
+    `ms`) and hot (layer 17, `ms_hot`); the plain version cold. At 64
+    slots also on q/k/v views of one product (`check_decode_in_place`)."""
     rows = {}
     for slots, sets in ((SLOTS, WRITE_POS_SETS), (BENCH_SLOTS, WRITE_POS_64)):
         q, kn, vn, kc, vc = k2_inputs(dev, slots=slots)
@@ -805,6 +846,8 @@ def check_decode(dev, results) -> None:
                 lambda sb, wp: flash_decode_plain(q[:sb], kn[:sb], vn[:sb], kc2, vc2, HOT_LAYER,
                                                   wp),
                 (kc, vc), (kc2, vc2), 2.0 ** -7, 1e-5, dev))
+        else:
+            rows.update(check_decode_in_place(q, kn, vn, kc, vc, kc2, vc2))
         del q, kn, vn, kc, vc, kc2, vc2
         torch.cuda.empty_cache()
     main = rows["ragged"]

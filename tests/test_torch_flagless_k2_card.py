@@ -22,6 +22,9 @@ slot's rows up to the block's length bound.
   never held a chunk.
 - It prints each route's device ms a step at both occupancies: K2's block
   and the dense body's at the length bound the runner gives it.
+- A full-width engine's precompile (64 slots, every decode key's eager
+  first block and its capture) launches K2 on the QKV product's rows where
+  they lie: the tracing counter `k2.input_copies` does not move.
 """
 import asyncio
 import dataclasses
@@ -124,6 +127,26 @@ def test_flagless_engine_resolves_and_launches_k2(card):
     assert n == steps
     assert launched[0] >= g.num_hidden_layers * steps
     assert programs and set(programs) == {"bf16_k2"}
+
+
+def test_flagless_precompile_copies_no_k2_rows(card):
+    base = XTTSConfig()
+    base.gpt = dataclasses.replace(base.gpt, num_hidden_layers=2)
+    engine = XTTSv2Engine.random_init(base, dtype=torch.bfloat16, device=card,
+                                      decode_slots=SLOTS, max_concurrency=1)
+    de = engine.decode_engine
+    assert de.cfg.flash_decode and not de.slot_bucketing
+    summary = tracing.profile_summary
+    before = summary().get("k2.input_copies", {"count": 0})["count"]
+    launches = flash_decode_append_attention.launches
+    de.precompile()
+    torch.cuda.synchronize()
+    launched = flash_decode_append_attention.launches - launches
+    print(f"\nprecompile of {de.precompile_keys()}: K2 launches {launched}, k2.input_copies "
+          f"{summary().get('k2.input_copies')}")
+    assert launched > 0
+    assert summary().get("k2.input_copies", {"count": 0})["count"] == before
+    asyncio.run(de.shutdown())
 
 
 def _params(cfg, dev, seed=0) -> dict:

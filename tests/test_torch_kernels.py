@@ -24,6 +24,7 @@ from auralis_tpu_torch.ops.experimental.attention import (
     DECODE_SPLIT,
     combine_splits_plain,
     flash_decode_append_attention,
+    k2_row_stride,
     split_plan,
 )
 from auralis_tpu_torch.ops.mrf import PackedMRFStage, _conv, pack_conv_weight, run_fused_stage
@@ -254,6 +255,67 @@ def test_flash_decode_rejects_write_pos_outside_cache(bad):
     with pytest.raises(IndexError):
         flash_decode_append_attention(q, kn, vn, kc, vc, 0, torch.tensor([3, bad], dtype=torch.int32))
     assert not kc[0, 1].any() and not vc[0, 1].any()
+
+
+def _qkv_views(s: int, h: int, dtype: torch.dtype) -> tuple:
+    """q [S, H, 64], k and v [S, H*64]: the column blocks of one [S, 3*H*64]
+    product, as a decode step splits it."""
+    qkv = torch.randn((s, 3 * h * 64)).to(dtype)
+    q, k, v = qkv.split(h * 64, dim=-1)
+    return q.reshape(s, h, 64), k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s", [1, 8, 64])
+def test_k2_reads_qkv_split_views_in_place(s, dtype):
+    """A decode step's q/k/v views of its [S, 3D] product: K2 reads them at
+    the product's row stride (one row at H*64, whose stride is never used);
+    contiguous rows at H*64."""
+    h = 16
+    assert k2_row_stride(*_qkv_views(s, h, dtype)) == (3 if s > 1 else 1) * h * 64
+    contiguous = (torch.randn((s, h, 64)).to(dtype), torch.randn((s, h * 64)).to(dtype),
+                  torch.randn((s, h * 64)).to(dtype))
+    assert k2_row_stride(*contiguous) == h * 64
+
+
+def _lanes_strided(s, h):
+    """k's lanes two elements apart (every other column of a wider row)."""
+    q, k, v = _qkv_views(s, h, torch.bfloat16)
+    wide = torch.randn((s, 2 * h * 64)).to(torch.bfloat16)
+    return q, wide[:, ::2], v
+
+
+def _heads_128_apart(s, h):
+    """q's heads 128 apart at the shared row stride (a [S, H, 128] block's
+    first 64 lanes of each head)."""
+    buf = torch.randn((s, 4 * h * 128)).to(torch.bfloat16)
+    q = buf[:, :h * 128].reshape(s, h, 128)[..., :64]
+    return q, buf[:, 2 * h * 128:2 * h * 128 + h * 64], buf[:, 3 * h * 128:3 * h * 128 + h * 64]
+
+
+def _row_strides_differ(s, h):
+    q, _, _ = _qkv_views(s, h, torch.bfloat16)
+    k, v = (torch.randn((s, h * 64)).to(torch.bfloat16) for _ in range(2))
+    return q, k, v
+
+
+def _one_element_off(s, h):
+    """The column blocks of a product whose rows start one element into
+    their buffer: 2 bytes off 16."""
+    buf = torch.randn((s, 3 * h * 64 + 8)).to(torch.bfloat16)
+    q, k, v = buf[:, 1:1 + 3 * h * 64].split(h * 64, dim=-1)
+    return q.reshape(s, h, 64), k, v
+
+
+@pytest.mark.parametrize("layout", [_lanes_strided, _heads_128_apart, _row_strides_differ,
+                                    _one_element_off])
+def test_k2_row_stride_rejects_other_layouts(layout):
+    """Each layout K2 cannot read in place gives None (the wrapper then
+    copies the rows): lanes not unit-stride, q's heads not 64 apart, row
+    strides that differ, an address off 16 bytes."""
+    q, k, v = layout(8, 4)
+    assert q.shape == (8, 4, 64) and k.shape == v.shape == (8, 4 * 64)
+    assert k2_row_stride(q, k, v) is None
 
 
 # ------------------------------------------------------------ K3 MRF stage
